@@ -1,0 +1,601 @@
+"""Declarative Study API (PyTorch port of the core of `repro.api.study`):
+cross-product experiment plans over designs x workloads x fidelities,
+reduced to a columnar result frame.
+
+    res = (Study()
+           .designs({"32": "paper-32", "64": "paper-64"})
+           .workloads({"vit-base": vit_base_linear()})
+           .fidelity("fast", "trace")
+           .run())                      # on the CUDA device by default
+    res.best("edp")                      # winning row (dict)
+    res.filter(fidelity="trace").compare("total_cycles",
+                                         axis="design", baseline="32")
+
+`Study.run` groups the cells by the static sweep flavor (workload,
+fidelity, dataflow, word size, and the DramConfig at trace fidelity) and
+runs each group as one batched `_sweep_batched` call; at trace fidelity
+that is one replay-kernel launch per group. The paper's analyses ship as
+named studies with machine-checkable claims (`studies.edp_array_size`,
+`studies.dataflow_dram_flip`).
+
+Not in this slice: the on-disk cell cache, `force_fallback`, the farm
+wire format (`to_spec`), `concat`/`topk`, the CLI, and custom evaluators.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..core import stages as st
+from ..core.accelerator import AcceleratorConfig, DramConfig
+from ..core.energy import DEFAULT_ERT, ERT, edp as _edp
+from ..core.engine import (ENERGY_GROUP_COLUMNS, RESULT_SCHEMA_VERSION,
+                           write_csv_table)
+from ..core.workloads import Op
+from .simulator import _sweep_batched, as_config, as_workload
+
+AXIS_COLUMNS = ("design", "workload", "fidelity")
+
+# Canonical metric columns, grouped-energy columns included.
+METRIC_COLUMNS = ("total_cycles", "compute_cycles", "stall_cycles",
+                  "dram_bytes", "energy_pj", "utilization",
+                  "edp") + ENERGY_GROUP_COLUMNS
+
+_METRIC_ALIASES = {"latency": "total_cycles", "cycles": "total_cycles",
+                   "energy": "energy_pj"}
+
+
+def _flag_non_finite(metrics: Dict[str, float]) -> None:
+    """NaN anywhere, or +-Inf on a canonical metric column, marks the cell
+    failed (`cell_status = 1.0`)."""
+    for k, v in metrics.items():
+        if k in ("batched", "cell_status"):
+            continue
+        if v != v or (k in METRIC_COLUMNS
+                      and v in (float("inf"), float("-inf"))):
+            metrics["cell_status"] = 1.0
+            return
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a study runs on: CUDA unless the caller asks for the CPU.
+    Never falls back quietly: without a CUDA device, `None` raises."""
+    if device is None:
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; this study runs on the GPU by "
+            "default. Pass device='cpu' to run the plain PyTorch version "
+            "on the CPU.")
+    return device
+
+
+# --------------------------------------------------------------------------
+# Execution plan
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StudyCell:
+    """One point of the cross-product: frame row `index`."""
+    index: int
+    design: str
+    workload: str
+    fidelity: str
+    config: AcceleratorConfig
+
+
+@dataclasses.dataclass
+class BatchGroup:
+    """Cells that execute as ONE `_sweep_batched` call: same workload +
+    fidelity and the static flavor (dataflow, word_bytes[, DramConfig])."""
+    workload: str
+    fidelity: str
+    dataflow: str
+    word_bytes: int
+    dram: Optional[DramConfig]
+    cells: List[int]
+
+
+@dataclasses.dataclass
+class StudyPlan:
+    cells: List[StudyCell]
+    groups: List[BatchGroup]
+
+    def __len__(self) -> int:
+        return len(self.cells)
+
+
+# --------------------------------------------------------------------------
+# Columnar result frame
+# --------------------------------------------------------------------------
+
+class StudyResult:
+    """Pandas-free columnar frame: numpy columns + axis metadata.
+
+    Axis columns (`design`, `workload`, `fidelity`) are object arrays of
+    labels; metric columns are float64; `batched` is 1.0 (every cell of
+    this port runs batched); `cell_status` is 1.0 for failed cells
+    (non-finite canonical metrics), which `argbest`/`pareto` never pick.
+    `meta["engine"]` names the replay engine that ran ("cuda",
+    "torch:plain" or "reference") when a fidelity replayed DRAM streams.
+    """
+
+    schema_version = RESULT_SCHEMA_VERSION
+
+    def __init__(self, columns: Dict[str, np.ndarray],
+                 axes: Dict[str, List[str]], *,
+                 claims: Optional[List[Tuple[str, Callable]]] = None):
+        self.columns = columns
+        self.axes = axes
+        self._claims = list(claims or [])
+        self.meta: Dict[str, object] = {}
+
+    def __len__(self) -> int:
+        return 0 if not self.columns else len(next(iter(self.columns.values())))
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        return self.columns[_METRIC_ALIASES.get(name, name)]
+
+    def column_names(self) -> List[str]:
+        return list(self.columns)
+
+    def row(self, i: int) -> Dict[str, object]:
+        return {k: (str(v[i]) if k in AXIS_COLUMNS else float(v[i]))
+                for k, v in self.columns.items()}
+
+    # ---- relational ops ----------------------------------------------------
+    def _subset(self, mask: np.ndarray) -> "StudyResult":
+        # claims are scoped to the full frame and do not propagate
+        cols = {k: v[mask] for k, v in self.columns.items()}
+        axes = {a: [x for x in self.axes[a] if x in set(cols[a])]
+                for a in self.axes}
+        return StudyResult(cols, axes)
+
+    def filter(self, pred: Optional[Callable[[Dict], bool]] = None,
+               **eq) -> "StudyResult":
+        """Row subset: keyword equality (scalar or collection of allowed
+        values per column) and/or a row-dict predicate."""
+        mask = np.ones(len(self), dtype=bool)
+        for k, want in eq.items():
+            col = self[k]
+            if isinstance(want, (list, tuple, set, frozenset)):
+                mask &= np.isin(col, list(want))
+            else:
+                mask &= (col == want)
+        if pred is not None:
+            mask &= np.array([bool(pred(self.row(i)))
+                              for i in range(len(self))], dtype=bool)
+        return self._subset(mask)
+
+    def group(self, by: Union[str, Sequence[str]]
+              ) -> Dict[object, "StudyResult"]:
+        """Split into sub-frames keyed by the value(s) of `by`."""
+        keys = (by,) if isinstance(by, str) else tuple(by)
+        cols = [self[k] for k in keys]
+        seen: List[object] = []
+        for i in range(len(self)):
+            key = tuple(c[i] for c in cols)
+            key = key[0] if len(keys) == 1 else key
+            if key not in seen:
+                seen.append(key)
+        return {key: self.filter(**(dict(zip(keys, key))
+                                    if isinstance(key, tuple)
+                                    else {keys[0]: key}))
+                for key in seen}
+
+    @property
+    def failed_cells(self) -> List[int]:
+        if "cell_status" not in self.columns:
+            return []
+        return [int(i) for i in
+                np.nonzero(self.columns["cell_status"] == 1.0)[0]]
+
+    def argbest(self, metric: str = "edp") -> int:
+        """Row index minimizing `metric`; NaN rows never win, and an all-NaN
+        column raises."""
+        vals = np.asarray(self[metric], dtype=float)
+        masked = np.where(np.isnan(vals), np.inf, vals)
+        if not len(masked) or not np.isfinite(masked).any():
+            raise ValueError(
+                f"argbest({metric!r}): no finite values "
+                f"({len(self.failed_cells)} failed cells of {len(self)})")
+        return int(np.argmin(masked))
+
+    def best(self, metric: str = "edp",
+             by: Optional[Union[str, Sequence[str]]] = None):
+        """Row (dict) minimizing `metric`; with `by`, the winner per group."""
+        if by is None:
+            return self.row(self.argbest(metric))
+        return {k: sub.row(sub.argbest(metric))
+                for k, sub in self.group(by).items()}
+
+    def pareto(self, *objectives: str) -> "StudyResult":
+        """Non-dominated rows, minimizing every objective; rows with a
+        non-finite objective are excluded."""
+        if not objectives:
+            objectives = ("total_cycles", "energy_pj")
+        vals = np.stack([np.asarray(self[m], dtype=float)
+                         for m in objectives], axis=1)
+        keep = np.isfinite(vals).all(axis=1)
+        for i in np.nonzero(keep)[0]:
+            dominated = (keep & (vals <= vals[i]).all(axis=1)
+                         & (vals < vals[i]).any(axis=1))
+            if dominated.any():
+                keep[i] = False
+        return self._subset(keep)
+
+    def compare(self, metric: str, *, axis: str,
+                baseline: str) -> Dict[str, np.ndarray]:
+        """Ratio of `metric` against the `baseline` value along one axis,
+        matched on the remaining axis columns and row-aligned with
+        `self.filter(**{axis: baseline})`; > 1 means worse than baseline."""
+        other = [a for a in AXIS_COLUMNS if a != axis]
+        base = self.filter(**{axis: baseline})
+        if not len(base):
+            raise KeyError(f"no rows with {axis}={baseline!r}")
+        base_keys = list(zip(*(base[a] for a in other)))
+        base_vals = np.asarray(base[metric], dtype=float)
+        out: Dict[str, np.ndarray] = {}
+        for v in self.axes[axis]:
+            if v == baseline:
+                continue
+            sub = self.filter(**{axis: v})
+            lut = {k: float(m) for k, m in
+                   zip(zip(*(sub[a] for a in other)), sub[metric])}
+            out[v] = np.array([lut[k] for k in base_keys]) / base_vals
+        return out
+
+    # ---- claims ------------------------------------------------------------
+    def check_claims(self) -> Dict[str, bool]:
+        """Evaluate the study's registered paper claims on this frame
+        (claims do not survive a CSV round-trip)."""
+        return {name: bool(fn(self)) for name, fn in self._claims}
+
+    def claims_ok(self) -> bool:
+        """True iff every registered claim holds; raises on a frame with no
+        claims instead of returning a vacuous True."""
+        claims = self.check_claims()
+        if not claims:
+            raise ValueError(
+                "no claims registered on this frame (claims do not "
+                "survive serialization); gate on check_claims() of the "
+                "original Study.run() result")
+        return all(claims.values())
+
+    # ---- serialization (schema shared with the reference) -------------------
+    def to_csv(self, path: str) -> None:
+        names = list(self.columns)
+        rows = [[(str(self.columns[c][i]) if c in AXIS_COLUMNS
+                  else float(self.columns[c][i])) for c in names]
+                for i in range(len(self))]
+        write_csv_table(path, names, rows)
+
+    @classmethod
+    def from_csv(cls, path: str) -> "StudyResult":
+        import csv
+        with open(path, newline="") as f:
+            reader = csv.reader(f)
+            header = next(reader)
+            raw = [r for r in reader if r]
+        cols: Dict[str, np.ndarray] = {}
+        for j, name in enumerate(header):
+            vals = [r[j] for r in raw]
+            cols[name] = (np.array(vals, dtype=object)
+                          if name in AXIS_COLUMNS
+                          else np.array([float(v) for v in vals]))
+        axes = {a: list(dict.fromkeys(cols[a])) for a in AXIS_COLUMNS
+                if a in cols}
+        return cls(cols, axes)
+
+
+# --------------------------------------------------------------------------
+# The Study builder
+# --------------------------------------------------------------------------
+
+class Study:
+    """Declarative cross-product experiment plan (builder pattern)."""
+
+    def __init__(self, name: str = "study"):
+        self.name = name
+        self._designs: List[Tuple[str, AcceleratorConfig]] = []
+        self._workloads: Dict[str, List[Op]] = {}
+        self._fidelities: Tuple[str, ...] = ("fast",)
+        self._ert: ERT = DEFAULT_ERT
+        self._engine: Optional[str] = None
+        self._spec = None
+        self._claims: List[Tuple[str, Callable]] = []
+
+    # ---- axes --------------------------------------------------------------
+    def designs(self, configs, labels: Optional[Sequence[str]] = None
+                ) -> "Study":
+        """Design axis: dict {label: ConfigLike} or a sequence (e.g. a
+        `preset_grid`) — sequence entries are auto-labeled
+        `{rows}x{cols}-{dataflow}`, with the operand-SRAM size appended on
+        geometry collisions and `#k` de-duplication suffixes."""
+        out: List[Tuple[str, AcceleratorConfig]] = []
+        if isinstance(configs, dict):
+            out = [(str(k), as_config(v)) for k, v in configs.items()]
+        else:
+            cfgs = [as_config(c) for c in configs]
+            if labels is not None:
+                if len(labels) != len(cfgs):
+                    raise ValueError("labels/configs length mismatch")
+                out = list(zip([str(x) for x in labels], cfgs))
+            else:
+                def auto(c: AcceleratorConfig) -> str:
+                    b = f"{c.cores[0].rows}x{c.cores[0].cols}-{c.dataflow}"
+                    if c.num_cores > 1:
+                        b += f"-{c.num_cores}c"
+                    if c.sparsity.enabled:
+                        b += (f"-{c.sparsity.n}:{c.sparsity.m}"
+                              + ("rw" if c.sparsity.row_wise else ""))
+                    if c.layout.enabled:
+                        b += "-lay"
+                    return b
+                base = [auto(c) for c in cfgs]
+                counts: Dict[str, int] = {}
+                for b in base:
+                    counts[b] = counts.get(b, 0) + 1
+                labeled = []
+                for b, c in zip(base, cfgs):
+                    if counts[b] > 1:
+                        mb = (c.memory.ifmap_sram_bytes
+                              + c.memory.filter_sram_bytes
+                              + c.memory.ofmap_sram_bytes) / (1 << 20)
+                        b = f"{b}@{mb:.3g}MB"
+                    labeled.append(b)
+                seen: Dict[str, int] = {}
+                for b, c in zip(labeled, cfgs):
+                    k = seen.get(b, 0)
+                    seen[b] = k + 1
+                    out.append((b if k == 0 else f"{b}#{k}", c))
+        if len({l for l, _ in out}) != len(out):
+            raise ValueError("design labels must be unique")
+        self._designs = out
+        return self
+
+    def workloads(self, *wls) -> "Study":
+        """Workload axis: dicts {name: ops-or-paper-workload-name} and/or
+        bare paper-workload names ('resnet18', 'vit_base', ...)."""
+        m: Dict[str, List[Op]] = {}
+        for w in wls:
+            if isinstance(w, dict):
+                for k, v in w.items():
+                    m[str(k)] = as_workload(v)
+            elif isinstance(w, str):
+                m[w] = as_workload(w)
+            else:
+                raise TypeError(f"workloads() takes dicts or names, "
+                                f"got {type(w)!r}")
+        if not m:
+            raise ValueError("workloads() needs at least one workload")
+        self._workloads = m
+        return self
+
+    def fidelity(self, *fids: str) -> "Study":
+        for f in fids:
+            if f not in st.FIDELITIES:
+                raise ValueError(f"fidelity must be one of {st.FIDELITIES}, "
+                                 f"got {f!r}")
+        if not fids:
+            raise ValueError("fidelity() needs at least one level")
+        self._fidelities = tuple(fids)
+        return self
+
+    # ---- options -----------------------------------------------------------
+    def options(self, *, ert: Optional[ERT] = None,
+                engine: Optional[str] = None, spec=None) -> "Study":
+        """Execution knobs shared by every cell: the energy table, the
+        replay engine (`core.replay.ENGINES`) and the trace spec."""
+        from ..core import replay as _rp
+        if ert is not None:
+            self._ert = ert
+        if engine is not None:
+            self._engine = _rp.resolve_engine(engine)
+        if spec is not None:
+            self._spec = spec
+        return self
+
+    def evaluator(self, fn) -> "Study":
+        raise NotImplementedError(
+            "custom evaluators run through the per-op engine, which comes "
+            "with module item 8 of the PyTorch port (ROADMAP.md)")
+
+    def claim(self, name: str, fn: Callable[[StudyResult], bool]) -> "Study":
+        """Attach a machine-checkable paper claim, evaluated on the frame
+        via `StudyResult.check_claims()`."""
+        self._claims.append((name, fn))
+        return self
+
+    # ---- plan + run --------------------------------------------------------
+    def _spec_for(self, fidelity: str):
+        if fidelity != "trace":
+            return None
+        if self._spec is None:
+            from ..trace.generator import DEFAULT_SPEC
+            return DEFAULT_SPEC
+        return self._spec
+
+    def plan(self) -> StudyPlan:
+        """Compile the cross-product into cells + batchable groups. Cell
+        order (= frame row order): fidelity-major, then workload, design
+        fastest. `run` refuses cells outside this slice
+        (NotImplementedError)."""
+        if not self._designs:
+            raise ValueError("Study has no designs; call .designs(...)")
+        if not self._workloads:
+            raise ValueError("Study has no workloads; call .workloads(...)")
+        if "cycle" in self._fidelities:
+            raise NotImplementedError(
+                "'cycle' fidelity runs through the per-op engine, which "
+                "comes with module item 8 of the PyTorch port (ROADMAP.md)")
+        cells: List[StudyCell] = []
+        for fid in self._fidelities:
+            for wname in self._workloads:
+                for label, cfg in self._designs:
+                    cells.append(StudyCell(len(cells), label, wname, fid,
+                                           cfg))
+        by_key: Dict[tuple, List[int]] = {}
+        for c in cells:
+            cfg = c.config
+            key = (c.workload, c.fidelity, cfg.dataflow,
+                   cfg.memory.word_bytes,
+                   cfg.dram if c.fidelity == "trace" else None)
+            by_key.setdefault(key, []).append(c.index)
+        groups = [BatchGroup(*key, cells=idxs)
+                  for key, idxs in by_key.items()]
+        return StudyPlan(cells=cells, groups=groups)
+
+    def run(self, *, device=None) -> StudyResult:
+        """Execute the plan on `device` (CUDA by default; pass "cpu" for
+        the plain PyTorch version) and return the columnar frame."""
+        from ..core import replay as _rp
+        device = resolve_device(device)
+        plan = self.plan()
+        results: Dict[int, Dict[str, float]] = {}
+        for grp in plan.groups:
+            vals = _sweep_batched(
+                [plan.cells[i].config for i in grp.cells],
+                self._workloads[grp.workload], grp.dataflow, grp.word_bytes,
+                self._ert, dram=grp.dram, spec=self._spec_for(grp.fidelity),
+                engine=self._engine, device=device)
+            vals["edp"] = _edp(vals["energy_pj"], vals["total_cycles"])
+            for j, i in enumerate(grp.cells):
+                results[i] = {k: float(v[j]) for k, v in vals.items()}
+                results[i]["batched"] = 1.0
+                _flag_non_finite(results[i])
+        res = self._frame(plan.cells, [results[i]
+                                       for i in range(len(plan.cells))])
+        if "trace" in self._fidelities:
+            res.meta["engine"] = _rp.resolve_engine_runtime(self._engine,
+                                                            device)
+        res.meta["device"] = str(device)
+        return res
+
+    def _frame(self, cells: Sequence[StudyCell],
+               results: List[Dict[str, float]]) -> StudyResult:
+        metric_names = [m for m in METRIC_COLUMNS
+                        if any(m in r for r in results)]
+        cols: Dict[str, np.ndarray] = {
+            "design": np.array([c.design for c in cells], dtype=object),
+            "workload": np.array([c.workload for c in cells], dtype=object),
+            "fidelity": np.array([c.fidelity for c in cells], dtype=object),
+        }
+        for m in metric_names:
+            cols[m] = np.array([r.get(m, np.nan) for r in results],
+                               dtype=np.float64)
+        cols["batched"] = np.array([r.get("batched", 0.0) for r in results],
+                                   dtype=np.float64)
+        cols["cell_status"] = np.array(
+            [r.get("cell_status", 0.0) for r in results], dtype=np.float64)
+        axes = {"design": [l for l, _ in self._designs],
+                "workload": list(self._workloads),
+                "fidelity": list(self._fidelities)}
+        return StudyResult(cols, axes, claims=self._claims)
+
+
+# --------------------------------------------------------------------------
+# Named studies: the paper's analyses as first-class objects
+# --------------------------------------------------------------------------
+
+_STUDIES: Dict[str, Callable[..., Study]] = {}
+
+
+def register_study(name: str):
+    """Decorator: register a Study factory under `name`."""
+    def deco(fn: Callable[..., Study]):
+        if name in _STUDIES:
+            raise ValueError(f"study {name!r} already registered")
+        _STUDIES[name] = fn
+        return fn
+    return deco
+
+
+def get_study(name: str, **kw) -> Study:
+    if name not in _STUDIES:
+        raise KeyError(f"unknown study {name!r}; "
+                       f"available: {sorted(_STUDIES)}")
+    return _STUDIES[name](**kw)
+
+
+def list_studies() -> List[str]:
+    return sorted(_STUDIES)
+
+
+class _StudyNamespace:
+    """`studies.edp_array_size(...)` attribute access over the registry."""
+
+    def __getattr__(self, name: str) -> Callable[..., Study]:
+        if name in _STUDIES:
+            return _STUDIES[name]
+        raise AttributeError(f"no study {name!r}; "
+                             f"available: {sorted(_STUDIES)}")
+
+    def __dir__(self):
+        return sorted(_STUDIES)
+
+
+studies = _StudyNamespace()
+
+
+@register_study("edp_array_size")
+def edp_array_size(smoke: bool = False) -> Study:
+    """Paper Table V: array-size sweep on ViT-base linear layers.
+    32x32 wins energy (~2.86x vs 128x128), 128x128 wins latency, and
+    64x64 wins EdP. `smoke` shrinks to 2 transformer layers (identical
+    per-layer shapes, so every ratio/winner claim is layer-count
+    invariant)."""
+    from ..core.workloads import vit_linear
+    wl = vit_linear(768, 2 if smoke else 12, 3072, prefix="vitb")
+    s = (Study("edp_array_size")
+         .designs({"32": "paper-32", "64": "paper-64", "128": "paper-128"})
+         .workloads({"vit-base": wl})
+         .fidelity("fast"))
+    s.claim("latency_winner_is_128",
+            lambda r: r.best("total_cycles")["design"] == "128")
+    s.claim("energy_winner_is_32",
+            lambda r: r.best("energy_pj")["design"] == "32")
+    s.claim("edp_winner_64_between_extremes",
+            lambda r: r.best("edp")["design"] == "64")
+    s.claim("energy_ratio_128_vs_32_in_band",
+            lambda r: 2.3 < float(r.compare("energy_pj", axis="design",
+                                            baseline="32")["128"][0]) < 3.4)
+    return s
+
+
+@register_study("dataflow_dram_flip")
+def dataflow_dram_flip() -> Study:
+    """Paper Sec. IX-B: WS beats OS on compute cycles, but OS wins
+    end-to-end once DRAM stalls are modeled — and the OS advantage grows
+    at trace fidelity, where the stall model sees the address stream each
+    dataflow emits."""
+    from ..core.accelerator import tpu_like_config
+    from ..core.workloads import resnet18_six_layers
+    designs = {df: tpu_like_config(array=32, dataflow=df, sram_mb=0.4)
+               for df in ("ws", "os")}
+    s = (Study("dataflow_dram_flip")
+         .designs(designs)
+         .workloads({"resnet18-6": resnet18_six_layers()})
+         .fidelity("fast", "trace"))
+    s.claim("ws_wins_compute_cycles",
+            lambda r: all(
+                r.filter(fidelity=f).best("compute_cycles")["design"] == "ws"
+                for f in r.axes["fidelity"]))
+    s.claim("os_wins_total_once_stalls_modeled",
+            lambda r: r.filter(fidelity="trace")
+                       .best("total_cycles")["design"] == "os")
+    s.claim("os_margin_at_least_20pct",
+            lambda r: float(
+                r.filter(fidelity="trace").compare(
+                    "total_cycles", axis="design", baseline="ws")["os"][0])
+            < 0.8)
+    s.claim("trace_fidelity_amplifies_flip",
+            lambda r: float(r.filter(fidelity="trace").compare(
+                "total_cycles", axis="design", baseline="os")["ws"][0])
+            > float(r.filter(fidelity="fast").compare(
+                "total_cycles", axis="design", baseline="os")["ws"][0]))
+    return s

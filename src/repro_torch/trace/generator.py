@@ -1,0 +1,238 @@
+"""Dataflow-aware DRAM demand-trace synthesis; PyTorch port of
+`repro.trace.generator`.
+
+The demand request stream (issue cycle, address, is_write) of one GEMM
+comes from its mapping: the tile schedule (fold grid and per-tile compute
+window), a double-buffered prefetch scheduler, per-dataflow operand walks
+and a layout-aware address map. Everything is fixed-shape: a
+`TraceSpec.cap`-sized request buffer with a `valid` mask and a real-valued
+`scale` (model stall * scale estimates the real stall).
+
+Where the reference vmaps one op's generator over designs and ops, this
+port takes any leading batch shape: every scalar input broadcasts against
+the others, and the request axis is appended last. The arithmetic runs in
+float32 in the reference's exact operation order (`torch.remainder` is
+the floored modulo `jnp.mod` is), so the streams come out bit-identical;
+the integer address math runs in int64 instead of the reference's int32,
+which gives the same values for every address below 2^31 (the range
+`core.dram.check_addresses` admits).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core import dataflow as dfm
+from ..core.layout import operand_linear_index
+
+# One address region per operand (ifmap / filter / ofmap), 32 MiB apart.
+REGION_SPAN = 1 << 25
+_BIG_T = 1e15          # sort key for invalid (masked) slots
+# Compressed streams are sampled in contiguous runs of this many granules
+# so layout-driven row-buffer locality survives stream compression.
+_SAMPLE_RUN = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceSpec:
+    """Static knobs of the trace generator (hashable).
+
+    cap:          fixed request-buffer size; streams beyond it are folded
+                  and the resulting stall rescaled (`scale`).
+    gran_bytes:   bytes per demand request (DRAM burst granularity).
+    layout:       DRAM-side operand layout — 'row' | 'col' | 'tiled' or
+                  'strided' (address = stream position * stride_elems).
+    """
+    cap: int = 4096
+    gran_bytes: int = 64
+    layout: str = "row"
+    tile_r: int = 32
+    tile_c: int = 32
+    stride_elems: int = 1
+
+    def __post_init__(self):
+        if self.cap < 1:
+            raise ValueError(f"trace cap must be >= 1, got {self.cap}")
+        if self.gran_bytes < 1:
+            raise ValueError(
+                f"gran_bytes must be >= 1, got {self.gran_bytes}")
+        if self.layout not in ("row", "col", "tiled", "strided"):
+            raise ValueError(
+                "trace layout must be one of "
+                f"('row', 'col', 'tiled', 'strided'), got {self.layout!r}")
+        if self.tile_r < 1 or self.tile_c < 1:
+            raise ValueError(
+                f"trace tile must be >= 1x1, got "
+                f"{self.tile_r}x{self.tile_c}")
+        if self.stride_elems < 1:
+            raise ValueError(
+                f"stride_elems must be >= 1, got {self.stride_elems}")
+
+
+# The one default spec shared by every entry point.
+DEFAULT_SPEC = TraceSpec()
+
+R_IFMAP, R_FILTER, R_OFMAP_RD, R_OFMAP_WR = 0, 1, 2, 3
+
+# Per (dataflow, region): does the fast (innermost) walk dim run down the
+# operand's rows?  Operand shapes: X = K x N, W = M x K, O = M x N.
+_FAST_IS_ROW = {
+    ("ws", R_IFMAP): True, ("ws", R_FILTER): False, ("ws", R_OFMAP_WR): True,
+    ("is", R_IFMAP): True, ("is", R_FILTER): False, ("is", R_OFMAP_WR): False,
+    ("os", R_IFMAP): True, ("os", R_FILTER): False, ("os", R_OFMAP_WR): False,
+}
+
+
+def _modmul(j, a, L):
+    """mod(j * a, L) without forming the full product: the exact small
+    integer j is split into 6-bit halves so every intermediate stays near
+    64 * L, where float32 is exact for dimension-sized L (the reference's
+    operation order, kept step for step)."""
+    j_hi = torch.floor(j / 64.0)
+    j_lo = j - 64.0 * j_hi
+    a1 = torch.remainder(a, L)
+    a64 = torch.remainder(64.0 * a1, L)
+    return torch.remainder(j_lo * a1 + j_hi * a64, L)
+
+
+def _stable_order(key):
+    """Permutation that stably sorts `key` along the last axis. The
+    reference computes it as a 4-way merge of per-region sorted runs,
+    whose contract is exactly a stable argsort."""
+    return torch.sort(key, dim=-1, stable=True).indices
+
+
+def gemm_request_stream(dataflow: str, M, N, K, R, C, comp,
+                        ifmap_elems, filter_elems, ofmap_write_elems,
+                        ofmap_read_elems, word_bytes: int = 2,
+                        spec: TraceSpec = DEFAULT_SPEC):
+    """Synthesize the demand-request streams of a batch of GEMMs.
+
+    Every numeric argument is a float32 tensor; they broadcast against
+    each other to the batch shape (e.g. designs x ops). Returns
+    (t_issue, addr, is_write, valid, scale): float32, int64, bool and bool
+    tensors of shape batch + (spec.cap,), sorted by issue time along the
+    last axis, and the float32 compression factor of shape batch.
+    """
+    f32 = torch.float32
+    args = torch.broadcast_tensors(M, N, K, R, C, comp, ifmap_elems,
+                                   filter_elems, ofmap_write_elems,
+                                   ofmap_read_elems)
+    (M, N, K, R, C, comp, ifmap_elems, filter_elems, ofmap_write_elems,
+     ofmap_read_elems) = (a.to(f32) for a in args)
+    dev = M.device
+    wb = word_bytes
+    cap = spec.cap
+    # divisors as device tensors: a CUDA division by a host scalar is a
+    # multiplication by its reciprocal, which need not round the same
+    gran = torch.tensor(float(spec.gran_bytes), dtype=f32, device=dev)
+    wbt = torch.tensor(float(wb), dtype=f32, device=dev)
+
+    region_bytes = torch.stack([1.0 * ifmap_elems * wb,
+                                1.0 * filter_elems * wb,
+                                1.0 * ofmap_read_elems * wb,
+                                1.0 * ofmap_write_elems * wb], dim=-1)
+    # left to right, the order the reference's 4-element sum reduces in
+    total_bytes = ((region_bytes[..., 0] + region_bytes[..., 1])
+                   + region_bytes[..., 2]) + region_bytes[..., 3]
+    n_total = total_bytes / gran                      # fractional requests
+    n_model = torch.clamp(torch.ceil(n_total), min=1.0, max=float(cap))
+    scale = n_total / n_model
+
+    # region boundaries in model-request units (sum == n_model)
+    # The reference's chained divisions a / b / c are compiled by XLA as
+    # a / (b * c); they are written that way here so the rounding agrees.
+    safe_scale = torch.clamp_min(scale, 1e-9)
+    r_model = region_bytes / (gran * safe_scale[..., None])      # (..., 4)
+    # running float32 sums (torch.cumsum accumulates float32 in double on
+    # the CPU, which rounds differently)
+    e0 = r_model[..., 0]
+    e1 = e0 + r_model[..., 1]
+    e2 = e1 + r_model[..., 2]
+    edges = torch.stack([e0, e1, e2, e2 + r_model[..., 3]], dim=-1)
+    starts = torch.stack([torch.zeros_like(e0), e0, e1, e2], dim=-1)
+
+    i = torch.arange(cap, dtype=f32, device=dev)
+    valid = i < n_model[..., None]
+    region = (i[:, None] >= edges[..., None, :]).to(torch.int64).sum(-1)
+    region = torch.clamp(region, 0, 3)                           # (..., cap)
+    j = torch.clamp_min(i - torch.gather(starts, -1, region), 0.0)
+
+    # ---- operand walk -> coordinates -> layout -> address ---------------
+    rows_of = torch.stack([K, M, M, M], dim=-1)        # X:KxN W:MxK O:MxN
+    cols_of = torch.stack([N, K, N, N], dim=-1)
+    fast_is_row = torch.tensor(
+        [_FAST_IS_ROW[(dataflow, R_IFMAP)],
+         _FAST_IS_ROW[(dataflow, R_FILTER)],
+         _FAST_IS_ROW[(dataflow, R_OFMAP_WR)],        # spill reads walk like
+         _FAST_IS_ROW[(dataflow, R_OFMAP_WR)]],       # the write-back stream
+        device=dev)
+
+    rows_r = torch.gather(rows_of, -1, region)
+    cols_r = torch.gather(cols_of, -1, region)
+    fr_row = fast_is_row[region]
+    fast_len = torch.clamp_min(torch.where(fr_row, rows_r, cols_r), 1.0)
+    slow_len = torch.clamp_min(torch.where(fr_row, cols_r, rows_r), 1.0)
+
+    # stream element position, sampled in contiguous runs of _SAMPLE_RUN
+    # granules (the exact uncompressed walk at scale == 1)
+    step = (safe_scale * gran / wbt)[..., None]       # elements/request
+    run = torch.tensor(float(_SAMPLE_RUN), dtype=f32, device=dev)
+    j_b = torch.floor(j / run)                        # run id
+    j_i = j - run * j_b                               # granule within run
+    g_el = gran / wbt                                 # elements/granule
+    f = torch.remainder(_modmul(j_b, step * run, fast_len) + j_i * g_el,
+                        fast_len)
+    lines = (_modmul(j_b, step * run / fast_len, slow_len)
+             + j_i * g_el / fast_len)
+    s = torch.remainder(torch.floor(lines), slow_len)  # refetches wrap
+    row = torch.where(fr_row, f, s)
+    col = torch.where(fr_row, s, f)
+
+    span = torch.tensor(float(REGION_SPAN // wb), dtype=f32, device=dev)
+    if spec.layout == "strided":
+        idx = _modmul(j, step * spec.stride_elems, span)
+    else:
+        idx = operand_linear_index(row, col, rows_r, cols_r,
+                                   order=spec.layout,
+                                   tile_r=spec.tile_r, tile_c=spec.tile_c)
+        idx = torch.remainder(idx, span)
+    # exact integer address math from here on; spill reads share the
+    # write-back stream's region
+    addr_region = torch.clamp_max(region, R_OFMAP_RD)
+    addr = (addr_region * REGION_SPAN
+            + torch.floor(idx).to(torch.int64) * wb)
+
+    # ---- double-buffered prefetch schedule ------------------------------
+    Sr, Sc, T = dfm.map_gemm(dataflow, M, N, K)
+    fr, fc = dfm.fold_counts(Sr, Sc, R, C)
+    n_tiles = torch.clamp_min(1.0 * fr * fc, 1.0)
+    tile_cyc = torch.clamp_min(1.0 * comp / (n_tiles * safe_scale), 1.0)
+    n_tiles, tile_cyc = n_tiles[..., None], tile_cyc[..., None]
+
+    q = torch.clamp_min(torch.gather(r_model, -1, region) / n_tiles, 1e-9)
+    pos = j / q
+    tau = torch.minimum(torch.clamp_min(torch.floor(pos), 0.0),
+                        n_tiles - 1.0)
+    frac = torch.clamp(pos - tau, 0.0, 1.0)
+
+    is_write = region == R_OFMAP_WR
+    t_read = torch.clamp_min(tau - 1.0, 0.0) * tile_cyc   # prefetch burst
+    if dataflow == "os":
+        # stationary outputs drain in a burst when the tile retires
+        t_write = (tau + 1.0) * tile_cyc
+    else:
+        # ws/is psum write-backs interleave with the streaming compute
+        t_write = (tau + frac) * tile_cyc
+    t_spill = (tau + frac) * tile_cyc                 # psum read-backs
+    t = torch.where(is_write, t_write,
+                    torch.where(region == R_OFMAP_RD, t_spill, t_read))
+
+    # ---- sort by issue time (invalid slots last) ------------------------
+    order = _stable_order(torch.where(valid, t, _BIG_T))
+
+    def take(x):
+        return torch.gather(x, -1, order)
+
+    return take(t), take(addr), take(is_write), take(valid), scale

@@ -1,0 +1,63 @@
+"""Tests of the port that need an NVIDIA card: the CUDA replay kernel
+against its plain PyTorch version, and a study on the default device.
+Each skips (inside the test) on a machine without CUDA; run them on the
+card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.accelerator import DramConfig
+from repro_torch.core.dram import decode_requests
+from repro_torch.kernels.replay import megakernel as mk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _streams(seed, n, dev, *, burst=None, batch=(), t_scale=1.0):
+    rng = np.random.default_rng(seed)
+    shape = tuple(batch) + (n,)
+    t = np.sort(rng.uniform(0, 3.0 * n, shape), axis=-1) * t_scale
+    addr = (rng.integers(0, burst, shape) * 64 if burst is not None
+            else (rng.integers(0, 1 << 22, shape) // 64) * 64)
+    return (torch.tensor(t.astype(np.float32), device=dev),
+            torch.tensor(addr, device=dev),
+            torch.tensor(rng.random(shape) < 0.3, device=dev),
+            torch.tensor(rng.random(shape) < 0.9, device=dev))
+
+
+@pytest.mark.parametrize("case", ["random", "queue_saturation", "chunk_65"])
+def test_kernel_matches_plain_version(dev, case):
+    cfg = DramConfig(read_queue=8, write_queue=8) \
+        if case == "queue_saturation" else DramConfig()
+    n = 65 if case == "chunk_65" else 512
+    t, addr, w, v = _streams(1, n, dev, batch=(4,),
+                             burst=64 if case == "queue_saturation" else None,
+                             t_scale=0.01 if case == "queue_saturation"
+                             else 1.0)
+    fb, ch, row = decode_requests(addr, cfg)
+    ins = mk.prepare(t, fb, ch, row, w, v, 64)
+    kw = dict(cfg=cfg, busy=64 / 19.2, C=64, max_passes=None, tol=0.25)
+    before = mk.LAUNCHES
+    dk, sk, ck = mk.launch_cuda(ins, **kw)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES == before + 1
+    dp, sp, cp, _ = mk.run_plain(ins, **kw)
+    assert torch.equal(ck, cp)
+    torch.testing.assert_close(dk, dp, rtol=1e-3, atol=5e-2)
+    torch.testing.assert_close(sk, sp, rtol=1e-3, atol=5e-2)
+
+
+def test_study_runs_on_the_card_by_default(dev):
+    from repro_torch.api.study import studies
+    res = studies.dataflow_dram_flip().run()
+    assert res.meta["engine"] == "cuda" and res.claims_ok()
