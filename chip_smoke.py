@@ -8,24 +8,36 @@ own line; any failure exits non-zero before the final result line:
 
   1. environment: Python, torch and CUDA versions, the card's name and
      power limit (nvidia-smi);
-  2. build: the replay megakernel compiled from `src/repro_torch/csrc`;
-  3. kernel vs plain: the CUDA kernel against its plain PyTorch version
-     (and the per-request reference scan) on adversarial streams and on
-     256 random streams of 4,096 requests: counts exact, completion times
-     within 1e-3 relative;
+  2. build: the replay megakernel and the bank-conflict kernel compiled
+     from `src/repro_torch/csrc`, both nvcc runs started together;
+  3. kernel vs plain: the CUDA replay kernel against its plain PyTorch
+     version (and the per-request reference scan) on adversarial streams
+     and on 256 random streams of 4,096 requests: counts exact, completion
+     times within 1e-3 relative; the bank-conflict kernel against its
+     plain version on adversarial rows and on 1,000,000 random rows of
+     k = 128: exactly equal;
   4. the paper's named studies on the card (`edp_array_size`,
-     `dataflow_dram_flip`): every claim holds, the frames agree with the
-     same studies run on the CPU, the replay engine is "cuda" and the
-     kernel launched;
-  5. the main path: the full-size sweep, 72 designs x {resnet18,
-     vit_base} x {fast, trace}, once with the launch count reset just
-     before it (one launch per trace group); its whole frame against the
-     same sweep run on the CPU (the plain version), per column; then the
-     wall time per fidelity (five runs each), a profiled trace sweep
-     (device busy time, the top device operations), and the kernel
+     `dataflow_dram_flip`, `sparse_speedup`): every claim holds, the
+     frames agree with the same studies run on the CPU, the replay engine
+     is "cuda" and the kernel launched;
+  5. the first slice's path: the dense sweep, 72 designs x {resnet18,
+     vit_base} x {fast, trace}, once with the replay launch count reset
+     just before it (one launch per trace group); its whole frame against
+     the same sweep on the CPU, per column; the wall time per fidelity
+     (three runs each), a profiled trace sweep, and the replay kernel
      against its plain version on the vit_base trace group's launch
      (1,776 streams);
-  6. a `{"kernels": [...]}` line, the nvidia-smi line, and last
+  6. this slice's path: the feature sweep, 162 designs (3 arrays x 3 SRAM
+     sizes x 3 dataflows x {dense, 2:4, 1:4 row-wise} x {1, 4} cores),
+     each with the layout stage off and on, x {resnet18, vit_base} x
+     {fast, trace}: 1,296 rows, once with both kernels' launch counts
+     reset just before it (one conflict launch per layout-on group, one
+     replay launch per trace group); layout-on rows never faster than
+     their layout-off twins; the whole frame against the same sweep on
+     the CPU, per column; the wall time per fidelity (three runs each),
+     profiled fast and trace sweeps, and the conflict kernel against its
+     plain version, timed, on the largest layout group's launch;
+  7. a `{"kernels": [...]}` line, the nvidia-smi line, and last
      `{"ok": true, "device": {...}}`.
 
 Writes the measurements to chiprun_out/chip_smoke.json as well.
@@ -88,6 +100,66 @@ def timed_cuda(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def profile_run(fn) -> dict:
+    """Wall time of one `fn()` under torch.profiler, the device busy time
+    (kernels and copies) and the top device operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only: the host ops that launch them report the
+    # same device time again
+    dev_ms = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            dev_ms[e.key] = (dev_ms.get(e.key, (0.0, 0))[0] + us / 1e3,
+                             e.count)
+    busy_ms = sum(v[0] for v in dev_ms.values())
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(profiled_wall_ms=wall * 1e3, device_busy_ms=busy_ms,
+                device_busy_share=(busy_ms / (wall * 1e3)) if busy_ms
+                else None,
+                top_device_ops=[dict(name=k[:80], ms=v[0], calls=v[1])
+                                for k, v in top])
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host milliseconds of `fn()` ending in a synchronize."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def check_frame(name, frame, rows: int):
+    """Finite values of the expected shape, no failed cell, the CUDA
+    engine; returns the metric column names."""
+    cols = [c for c in frame.column_names()
+            if c not in ("design", "workload", "fidelity")]
+    finite = all(bool(np.isfinite(np.asarray(frame[c], float)).all())
+                 for c in cols)
+    if len(frame) != rows or not finite or frame.failed_cells:
+        fail(f"{name}: {len(frame)} rows (expected {rows}), finite={finite}, "
+             f"failed={frame.failed_cells}")
+    if frame.meta.get("engine") != "cuda":
+        fail(f"{name}: engine {frame.meta.get('engine')!r}")
+    return cols
+
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs "
@@ -97,9 +169,12 @@ def main() -> int:
     import repro_torch as rt
     from repro_torch.api import simulator as sim
     from repro_torch.api.study import studies
-    from repro_torch.core.accelerator import DramConfig
+    from repro_torch.core import layout as tlay
+    from repro_torch.core.accelerator import DramConfig, LayoutConfig
     from repro_torch.core.dram import decode_requests, replay_requests
     from repro_torch.core.workloads import resnet18, vit_base
+    from repro_torch.kernels.conflict import conflict as ck
+    from repro_torch.kernels.conflict.ref import conflict_slowdown_reference
     from repro_torch.kernels.replay import megakernel as mk
     from repro_torch.trace.generator import DEFAULT_SPEC
 
@@ -121,16 +196,21 @@ def main() -> int:
     phase("environment", **env)
     report["environment"] = env
 
-    # ---- 2. build ------------------------------------------------------------
+    # ---- 2. build: one nvcc per source, started together --------------------
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    mk.build()
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(mk.build), pool.submit(ck.build)]:
+            f.result()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in mk.BUILD_LOG.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, log in (("replay_megakernel", mk.BUILD_LOG),
+                               ("conflict_slowdown", ck.BUILD_LOG))}
     phase("build", seconds=round(build_s, 3), ptxas=ptxas)
-    report["build_s"] = build_s
+    report["build"] = dict(seconds=build_s, ptxas=ptxas)
 
-    # ---- 3. kernel vs plain (and the per-request scan) -----------------------
+    # ---- 3a. replay kernel vs plain (and the per-request scan) ---------------
     def streams(seed, n, *, span=1 << 22, p_write=0.3, p_valid=0.9,
                 burst=None, batch=(), t_scale=1.0):
         rng = np.random.default_rng(seed)
@@ -152,11 +232,11 @@ def main() -> int:
         ins = mk.prepare(t, fb, ch, row, w, v, C)
         kw = dict(cfg=cfg, busy=max(1.0, 64 / cfg.bandwidth_bytes_per_cycle),
                   C=C, max_passes=max_passes, tol=tol)
-        dk, sk, ck = mk.launch_cuda(ins, **kw)
+        dk, sk, ck_ = mk.launch_cuda(ins, **kw)
         torch.cuda.synchronize()
         dp, sp, cp, _ = mk.run_plain(ins, **kw)
-        if not torch.equal(ck, cp):
-            fail(f"{name}: kernel counts {ck.sum(0).tolist()} != plain "
+        if not torch.equal(ck_, cp):
+            fail(f"{name}: kernel counts {ck_.sum(0).tolist()} != plain "
                  f"{cp.sum(0).tolist()}")
         err = rel_err(dk, dp)
         if err > RTOL or rel_err(sk, sp) > RTOL:
@@ -168,7 +248,7 @@ def main() -> int:
                                   engine="reference")
             n = t.shape[-1]
             dk_n = dk.reshape(ref.complete.shape[:-1] + (-1,))[..., :n]
-            ck_n = ck.reshape(ref.row_hits.shape + (4,))
+            ck_n = ck_.reshape(ref.row_hits.shape + (4,))
             for j, k in enumerate(("row_hits", "row_misses",
                                    "row_conflicts")):
                 if not torch.equal(ck_n[..., j], getattr(ref, k)):
@@ -222,11 +302,58 @@ def main() -> int:
           scan_max_abs=max(c.get("scan_max_abs", 0.0) for c in checks))
     report["kernel_vs_plain"] = checks
 
+    # ---- 3b. conflict kernel vs plain: exactly equal -------------------------
+    def conflict_case(name, line, bank, banks, ports):
+        lt = torch.as_tensor(line, dtype=torch.int32, device=dev).contiguous()
+        bt = torch.as_tensor(bank, dtype=torch.int32, device=dev).contiguous()
+        got = ck.conflict_slowdown(lt, bt, num_banks=banks, ports=ports)
+        torch.cuda.synchronize()
+        want = conflict_slowdown_reference(lt, bt, num_banks=banks,
+                                           ports=ports)
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            fail(f"conflict {name}: kernel differs from plain in {bad} rows")
+        return dict(name=name, rows=int(lt.shape[0]), k=int(lt.shape[1]),
+                    banks=banks, ports=ports,
+                    max_slowdown=int(got.max()) if got.numel() else 0)
+
+    ccases = []
+    for k in (1, 31, 32, 33, 128, 1024):
+        for ports in (1, 2, 4):
+            for banks in (2, 8, 32):
+                rng = np.random.default_rng(k * 100 + ports * 10 + banks)
+                line = rng.integers(0, 11, (300, k))
+                bank = rng.integers(0, banks, (300, k))
+                j = np.arange(k)
+                line[0], bank[0] = j, 0                  # all in one bank
+                line[1], bank[1] = j // banks, j % banks  # all pairs distinct
+                line[2], bank[2] = 7, banks - 1          # one pair repeated
+                line[3], bank[3] = 0, j % banks          # one line, all banks
+                ccases.append(conflict_case(f"k{k}_p{ports}_b{banks}", line,
+                                            bank, banks, ports))
+    ccases.append(conflict_case("empty", np.zeros((0, 128)),
+                                np.zeros((0, 128)), 32, 1))
+    g = torch.Generator(device=dev).manual_seed(0)
+    big_line = torch.randint(0, 64, (1_000_000, 128), generator=g,
+                             device=dev, dtype=torch.int32)
+    big_bank = torch.randint(0, 32, (1_000_000, 128), generator=g,
+                             device=dev, dtype=torch.int32)
+    ccases.append(conflict_case("random_1000000x128", big_line, big_bank,
+                                32, 1))
+    big_ms = timed_cuda(lambda: ck.conflict_slowdown(
+        big_line, big_bank, num_banks=32, ports=1), reps=5)
+    del big_line, big_bank
+    phase("conflict_vs_plain", cases=len(ccases), all_equal=True,
+          random_1M_kernel_ms=big_ms)
+    report["conflict_vs_plain"] = dict(cases=ccases,
+                                       random_1M_kernel_ms=big_ms)
+
     # ---- 4. the named studies -------------------------------------------------
     named = {}
     for name, study in (("edp_array_size", studies.edp_array_size()),
                         ("dataflow_dram_flip",
-                         studies.dataflow_dram_flip())):
+                         studies.dataflow_dram_flip()),
+                        ("sparse_speedup", studies.sparse_speedup())):
         before = mk.LAUNCHES
         res = study.run()                       # the default: the card
         claims = res.check_claims()
@@ -246,6 +373,7 @@ def main() -> int:
         phase(f"study {name}", **named[name])
     report["named_studies"] = named
 
+    # ---- 5. the first slice's path: the dense sweep ---------------------------
     grid = rt.preset_grid(array=[16, 32, 64, 128],
                           sram_mb=[0.25, 0.5, 1, 2, 4, 8],
                           dataflow=["ws", "os", "is"])
@@ -253,26 +381,15 @@ def main() -> int:
     sweep = rt.Study("full_sweep").designs(grid).workloads(wl) \
         .fidelity("fast", "trace")
     trace_groups = sum(g.fidelity == "trace" for g in sweep.plan().groups)
-    # ---- 5. the main path: counts reset just before, read just after ----
-    mk.LAUNCHES = 0
+    mk.LAUNCHES = 0                     # counts reset just before ...
     t0 = time.perf_counter()
     frame = sweep.run()
     both_s = time.perf_counter() - t0
-    main_launches = mk.LAUNCHES
-    if main_launches != trace_groups:
-        fail(f"the main path launched the replay kernel {main_launches} "
+    dense_launches = mk.LAUNCHES        # ... and read just after
+    if dense_launches != trace_groups:
+        fail(f"the dense sweep launched the replay kernel {dense_launches} "
              f"times, expected one launch per trace group ({trace_groups})")
-    metric_cols = [c for c in frame.column_names()
-                   if c not in ("design", "workload", "fidelity")]
-    finite = all(bool(np.isfinite(np.asarray(frame[c], float)).all())
-                 for c in metric_cols)
-    if len(frame) != 288 or not finite or frame.failed_cells:
-        fail(f"full sweep: {len(frame)} rows, finite={finite}, "
-             f"failed={frame.failed_cells}")
-    if frame.meta.get("engine") != "cuda":
-        fail(f"full sweep engine {frame.meta.get('engine')!r}")
-    # the whole frame (every group, both fidelities) against the same sweep
-    # on the CPU, where the replay runs the plain version
+    check_frame("dense sweep", frame, 288)
     t0 = time.perf_counter()
     cpu_frame = sweep.run(device="cpu")
     cpu_s = time.perf_counter() - t0
@@ -281,54 +398,26 @@ def main() -> int:
     col_err = frame_rel_err(frame, cpu_frame)
     bad = {c: e for c, e in col_err.items() if not e <= RTOL}
     if bad:
-        fail(f"full sweep: card frame differs from the CPU frame: {bad}")
+        fail(f"dense sweep: card frame differs from the CPU frame: {bad}")
     runs = {"fast": [], "trace": []}
-    for _ in range(5):                          # alternate the fidelities
+    for _ in range(3):                          # alternate the fidelities
         for fid in runs:
             t0 = time.perf_counter()
             sweep.fidelity(fid).run()
             runs[fid].append(time.perf_counter() - t0)
     walls = {f: float(np.median(r)) for f, r in runs.items()}
     sweep_info = dict(
-        rows=len(frame), finite=finite, first_run_both_s=both_s,
-        launches_per_sweep=main_launches, trace_groups=trace_groups,
+        rows=len(frame), first_run_both_s=both_s,
+        launches_per_sweep=dense_launches, trace_groups=trace_groups,
         cpu_run_s=cpu_s, max_rel_vs_cpu=max(col_err.values()),
         max_rel_vs_cpu_by_column=col_err,
         wall_s_runs=runs, wall_s_median=walls,
-        designs_per_s={f: len(grid) / s for f, s in walls.items()},
-        cells_per_s={f: len(grid) * len(wl) / s for f, s in walls.items()},
-        launches_incl_timed_runs=mk.LAUNCHES)
+        designs_per_s={f: len(grid) / s for f, s in walls.items()})
     phase("full_sweep", **sweep_info)
     report["full_sweep"] = sweep_info
-
-    # ---- where the trace sweep's time goes (profiled run, timed apart) ----
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sweep.fidelity("trace").run()
-        prof_wall = time.perf_counter() - t0
-    # device-side events only (kernels, copies): the host ops that launch
-    # them report the same device time again
-    from torch.autograd import DeviceType
-    dev_ms = {}
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0:
-            dev_ms[e.key] = (dev_ms.get(e.key, (0.0, 0))[0] + us / 1e3,
-                             e.count)
-    busy_ms = sum(v[0] for v in dev_ms.values())
-    top = sorted(dev_ms.items(), key=lambda kv: -kv[1][0])[:8]
-    profile_info = dict(
-        profiled_wall_ms=prof_wall * 1e3, device_busy_ms=busy_ms,
-        device_busy_share=(busy_ms / (prof_wall * 1e3)) if busy_ms else None,
-        top_device_ops=[dict(name=k[:80], ms=v[0], calls=v[1])
-                        for k, v in top])
-    phase("trace_sweep_profile", **profile_info)
-    report["trace_sweep_profile"] = profile_info
+    prof = profile_run(lambda: sweep.fidelity("trace").run())
+    phase("trace_sweep_profile", **prof)
+    report["trace_sweep_profile"] = prof
 
     # ---- the vit_base trace group's launch: kernel vs plain, timed ---------
     ws = [c for c in grid if c.dataflow == "ws"]
@@ -342,13 +431,13 @@ def main() -> int:
     kw = dict(cfg=DramConfig(), busy=max(1.0, 64 / 19.2), C=64,
               max_passes=None, tol=0.25)
     kernel_ms = timed_cuda(lambda: mk.launch_cuda(ins, **kw), reps=20)
-    dk, sk, ck = mk.launch_cuda(ins, **kw)
+    dk, sk, ck_ = mk.launch_cuda(ins, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dp, sp, cp, passes = mk.run_plain(ins, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    if not torch.equal(ck, cp):
+    if not torch.equal(ck_, cp):
         fail("vit_base group: kernel counts differ from the plain version")
     err = rel_err(dk, dp)
     if err > RTOL or rel_err(sk, sp) > RTOL:
@@ -380,25 +469,142 @@ def main() -> int:
     fn_bytes = S * npad * (4 + 3 * 4) + S * npad // 4 + S * npad * 4 \
         + S * (4 + 16)
     ops_ms = ops / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    group = dict(streams=S, requests_per_stream=npad,
-                 valid_requests=int(ins[5].sum()), gen_decode_s=gen_s,
-                 kernel_ms=kernel_ms, plain_ms=plain_ms, max_abs_err=max_abs,
-                 max_rel_err=err, mean_passes=float(passes.double().mean()),
-                 max_passes=int(passes.max()), bytes=nbytes, ops=ops,
-                 bytes_ms=bytes_ms, ops_ms=ops_ms, function_bytes=fn_bytes,
-                 function_bytes_ms=fn_bytes / HBM_BYTES_PER_S * 1e3)
-    phase("vit_base_trace_group", **group)
-    report["vit_base_trace_group"] = group
-
-    kernels = {"kernels": [dict(
-        name="replay_megakernel", route="cuda",
-        source="src/repro_torch/csrc/replay_megakernel.cu",
-        replaces="src/repro/kernels/replay/megakernel.py:96",
-        launches=main_launches, max_abs_err=max_abs, ms=kernel_ms,
-        plain_ms=plain_ms, bound_ms=bound_ms,
+    replay_group = dict(
+        streams=S, requests_per_stream=npad,
+        valid_requests=int(ins[5].sum()), gen_decode_s=gen_s,
+        kernel_ms=kernel_ms, plain_ms=plain_ms, max_abs_err=max_abs,
+        max_rel_err=err, mean_passes=float(passes.double().mean()),
+        max_passes=int(passes.max()), bytes=nbytes, ops=ops,
+        bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=None)]}
+        function_bytes=fn_bytes,
+        function_bytes_ms=fn_bytes / HBM_BYTES_PER_S * 1e3)
+    phase("vit_base_trace_group", **replay_group)
+    report["vit_base_trace_group"] = replay_group
+    del ins, strm, dk, dp
+
+    # ---- 6. this slice's path: the feature sweep ------------------------------
+    base = rt.preset_grid(array=[32, 64, 128], sram_mb=[0.5, 2, 8],
+                          dataflow=["ws", "os", "is"],
+                          sparsity=[None, "2:4", "1:4-rw"], cores=[1, 4])
+    lay_cfg = LayoutConfig(enabled=True)
+    feat = base + [c.with_(layout=lay_cfg) for c in base]
+    fsweep = rt.Study("feature_sweep").designs(feat).workloads(wl) \
+        .fidelity("fast", "trace")
+    plan = fsweep.plan()
+    layout_groups = sum(plan.cells[g.cells[0]].config.layout.enabled
+                        for g in plan.groups)
+    ftrace_groups = sum(g.fidelity == "trace" for g in plan.groups)
+    mk.LAUNCHES = ck.LAUNCHES = 0       # counts reset just before ...
+    t0 = time.perf_counter()
+    fframe = fsweep.run()
+    fboth_s = time.perf_counter() - t0
+    feat_launches = dict(replay_megakernel=mk.LAUNCHES,
+                         conflict_slowdown=ck.LAUNCHES)   # ... read just after
+    if feat_launches["conflict_slowdown"] != layout_groups:
+        fail(f"the feature sweep launched the conflict kernel "
+             f"{feat_launches['conflict_slowdown']} times, expected one "
+             f"launch per layout-on group ({layout_groups})")
+    if feat_launches["replay_megakernel"] != ftrace_groups:
+        fail(f"the feature sweep launched the replay kernel "
+             f"{feat_launches['replay_megakernel']} times, expected one "
+             f"launch per trace group ({ftrace_groups})")
+    n_rows = len(feat) * len(wl) * 2
+    check_frame("feature sweep", fframe, n_rows)
+    # layout-on rows never beat their layout-off twins (same position in
+    # the second half of the design axis)
+    tot = np.asarray(fframe["total_cycles"], float).reshape(
+        2, len(wl), 2, len(base))
+    if not (tot[:, :, 1] >= tot[:, :, 0]).all():
+        fail("feature sweep: a layout-on design is faster than its twin")
+    t0 = time.perf_counter()
+    fcpu = fsweep.run(device="cpu")
+    fcpu_s = time.perf_counter() - t0
+    fcol_err = frame_rel_err(fframe, fcpu)
+    bad = {c: e for c, e in fcol_err.items() if not e <= RTOL}
+    if bad:
+        fail(f"feature sweep: card frame differs from the CPU frame: {bad}")
+    fruns = {"fast": [], "trace": []}
+    for _ in range(3):
+        for fid in fruns:
+            t0 = time.perf_counter()
+            fsweep.fidelity(fid).run()
+            fruns[fid].append(time.perf_counter() - t0)
+    fwalls = {f: float(np.median(r)) for f, r in fruns.items()}
+    feat_info = dict(
+        rows=len(fframe), designs=len(feat), groups=len(plan.groups),
+        layout_groups=layout_groups, trace_groups=ftrace_groups,
+        launches=feat_launches, first_run_both_s=fboth_s,
+        cpu_run_s=fcpu_s, rows_held_vs_cpu=len(fcpu),
+        max_rel_vs_cpu=max(fcol_err.values()),
+        max_rel_vs_cpu_by_column=fcol_err,
+        layout_extra_share=float(np.mean(tot[:, :, 1] / tot[:, :, 0]) - 1),
+        wall_s_runs=fruns, wall_s_median=fwalls,
+        designs_per_s={f: len(feat) / s for f, s in fwalls.items()})
+    phase("feature_sweep", **feat_info)
+    report["feature_sweep"] = feat_info
+    for fid in ("fast", "trace"):
+        prof = profile_run(lambda: fsweep.fidelity(fid).run())
+        phase(f"feature_{fid}_profile", **prof)
+        report[f"feature_{fid}_profile"] = prof
+
+    # ---- the largest layout group's launch: kernel vs plain, timed ---------
+    # vit_base x ws x one core x layout on: the rows the layout stage hands
+    # the kernel (one row set per distinct array-rows value and gemm op)
+    gcfgs = [c for c in feat if c.layout.enabled and c.dataflow == "ws"
+             and c.num_cores == 1]
+    gemms = [o for o in wl["vit_base"] if o.kind == "gemm"]
+    R = torch.tensor(sorted({float(c.cores[0].rows) for c in gcfgs}),
+                     device=dev)
+    stride = torch.clamp_min(torch.tensor([float(o.N) for o in gemms],
+                                          device=dev), 1.0)
+    r_cap = sim._pow2_cap(int(R.max()))
+    line, bank = tlay.streaming_ids(lay_cfg, R, stride, 2, r_cap=r_cap)
+    line, bank = line.reshape(-1, r_cap), bank.reshape(-1, r_cap)
+    rows = int(line.shape[0])
+    kwc = dict(num_banks=lay_cfg.num_banks, ports=lay_cfg.ports_per_bank)
+    conflict_ms = timed_cuda(lambda: ck.conflict_slowdown(line, bank, **kwc),
+                             reps=20)
+    got = ck.conflict_slowdown(line, bank, **kwc)
+    conflict_plain_ms = host_ms(
+        lambda: conflict_slowdown_reference(line, bank, **kwc), reps=5)
+    want = conflict_slowdown_reference(line, bank, **kwc)
+    if not torch.equal(got, want):
+        fail("largest layout group: conflict kernel differs from plain")
+    # the least time: each id read once (line and bank, int32), each
+    # slowdown written once; one operation per (j', j < j) pair test of the
+    # first-occurrence formulation, at the float32 non-tensor rate (the
+    # card's integer compares issue on the same pipes at no higher rate)
+    c_bytes = rows * r_cap * 8 + rows * 4
+    c_ops = rows * r_cap * (r_cap - 1) / 2
+    c_bytes_ms = c_bytes / HBM_BYTES_PER_S * 1e3
+    c_ops_ms = c_ops / FP32_OPS_PER_S * 1e3
+    layout_group = dict(
+        designs=len(gcfgs), gemms=len(gemms), distinct_rows=R.tolist(),
+        rows=rows, k=r_cap, kernel_ms=conflict_ms,
+        plain_ms=conflict_plain_ms, max_abs_err=0,
+        mean_slowdown=float(got.double().mean()), bytes=c_bytes, ops=c_ops,
+        bytes_ms=c_bytes_ms, ops_ms=c_ops_ms,
+        bound_ms=max(c_bytes_ms, c_ops_ms),
+        bound_by="bytes" if c_bytes_ms >= c_ops_ms else "operations")
+    phase("largest_layout_group", **layout_group)
+    report["largest_layout_group"] = layout_group
+
+    kernels = {"kernels": [
+        dict(name="replay_megakernel", route="cuda",
+             source="src/repro_torch/csrc/replay_megakernel.cu",
+             replaces="src/repro/kernels/replay/megakernel.py:96",
+             launches=feat_launches["replay_megakernel"],
+             max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
+             bound_ms=replay_group["bound_ms"],
+             bound_by=replay_group["bound_by"], library_ms=None),
+        dict(name="conflict_slowdown", route="cuda",
+             source="src/repro_torch/csrc/conflict_slowdown.cu",
+             replaces="src/repro/kernels/conflict/conflict.py:42",
+             launches=feat_launches["conflict_slowdown"],
+             max_abs_err=0, ms=conflict_ms, plain_ms=conflict_plain_ms,
+             bound_ms=layout_group["bound_ms"],
+             bound_by=layout_group["bound_by"], library_ms=None)]}
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -115,8 +115,8 @@ def preset_grid(name: str = "tpu-like", *, preset=None, dataflow=None,
       via `with_(dataflow=...)`, so it works for every preset whether or
       not its factory takes a dataflow kwarg.
 
-    The port's `Study` runs dense single-core cells; a grid cell with
-    sparsity, several cores, layout or NoC enabled is refused there with
+    The port's `Study` runs dense, sparse, multi-core and layout cells; a
+    grid cell with the NoC enabled (`pods=`) is refused there with
     `NotImplementedError`.
     """
     if cores is not None and pods is not None:

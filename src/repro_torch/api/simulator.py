@@ -4,26 +4,33 @@
 A sweep stacks per-design config scalars into float32 columns with a
 leading design axis and runs the traced stage math on all designs and ops
 at once (designs x ops broadcasting stands in for the reference's vmap).
-At trace fidelity the first-order stall is replaced by the stall of each
-op's generated demand stream: one stream per unique stream-determining
-design (`sdesign`), generated as one (streams, ops, cap) batch, decoded
-in one call and replayed in one kernel launch, then gathered back per
-design through `smap`.
+Sparsity (layer-wise and row-wise N:M, per-op overrides), the multi-core
+partition (homogeneous or heterogeneous cores, NoP hop offsets) and the
+data-layout stage run inside that math; the layout stage's per-cycle
+slowdowns come from one bank-conflict kernel launch per group. At trace
+fidelity the first-order stall is replaced by the stall of each op's
+generated demand stream: one stream per unique stream-determining design
+(`sdesign`), generated as one (streams, ops, cap) batch from the
+effective compute window and the sparsity-shrunk traffic, decoded in one
+call and replayed in one kernel launch, then gathered back per design
+through `smap`.
 
-This slice covers dense single-core designs with layout and NoC off;
-`refuse_outside_slice` names the later slice for everything else.
+`refuse_outside_slice` names the later slice for the routed NoC plane.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..core import stages as st
-from ..core.accelerator import AcceleratorConfig, DramConfig, MemoryConfig
+from ..core.accelerator import (AcceleratorConfig, DramConfig, LayoutConfig,
+                                MemoryConfig, SparsityConfig)
 from ..core.energy import DEFAULT_ERT, ERT, energy_pj
 from ..core.engine import _ENERGY_GROUPS
+from ..core.multicore import effective_nop_hops
 from ..core.workloads import PAPER_WORKLOADS, Op
 from .presets import get_preset
 
@@ -52,32 +59,78 @@ def as_workload(w: WorkloadLike) -> List[Op]:
     return list(w)
 
 
-def refuse_outside_slice(cfg: AcceleratorConfig, ops: Sequence[Op]) -> None:
+def refuse_outside_slice(cfg: AcceleratorConfig) -> None:
     """Raise NotImplementedError, naming the slice of the port that brings
-    it, for a design or workload this slice does not model. A sparse or
-    multi-core design must never come back as a dense single-core result."""
-    def later(what: str, item: str):
-        raise NotImplementedError(
-            f"{what} is not ported yet: it comes with {item} of the "
-            f"PyTorch port (ROADMAP.md); this slice runs dense, single-core "
-            f"designs with layout and NoC off")
-
-    if cfg.sparsity.enabled:
-        later("sparsity", "module item 5 (traced feature models)")
-    if any(o.sparsity_nm is not None for o in ops):
-        later("a per-op N:M sparsity override",
-              "module item 5 (traced feature models)")
-    if cfg.num_cores > 1:
-        later(f"a {cfg.num_cores}-core design",
-              "module item 5 (traced feature models)")
-    if cfg.layout.enabled:
-        later("the data-layout stage",
-              "module item 5 and kernel item 2 (bank-conflict kernel)")
+    it, for a design this slice does not model: the routed NoC plane. A
+    NoC-enabled design must never come back as a result without it."""
     if cfg.noc.enabled:
-        later("the routed NoC plane", "module item 7 (the NoC plane)")
+        raise NotImplementedError(
+            "the routed NoC plane is not ported yet: it comes with module "
+            "item 7 (the NoC plane) of the PyTorch port (ROADMAP.md); this "
+            "slice runs dense, sparse, multi-core and layout designs with "
+            "the NoC off")
 
 
-def _columns(cfgs: Sequence[AcceleratorConfig], keys, device):
+def _pow2_cap(n: int) -> int:
+    """Smallest power of two >= n (the static layout-window row bound)."""
+    cap = 1
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+@dataclasses.dataclass(frozen=True)
+class _Flavor:
+    """The static structure one sweep group shares: the core grid, whether
+    any design or op is sparse, the sparse representation, and the layout
+    stage (its config and row bound r_cap, or None when off)."""
+    Pr: int
+    Pc: int
+    with_sparsity: bool
+    representation: str
+    layout: Optional[LayoutConfig]
+    r_cap: int
+
+    @property
+    def num_cores(self) -> int:
+        return self.Pr * self.Pc
+
+
+def _flavor(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op]
+            ) -> _Flavor:
+    """The group's flavor, validating what the Study plan guarantees: one
+    core grid and layout on or off throughout. A per-op N:M override must
+    form a valid SparsityConfig with every design's row_wise flag, as the
+    per-op pipeline requires (ValueError otherwise)."""
+    Pr, Pc = cfgs[0].mesh_rows, cfgs[0].mesh_cols
+    if any((c.mesh_rows, c.mesh_cols) != (Pr, Pc) for c in cfgs):
+        raise ValueError("sweep group mixes core-grid shapes")
+    with_layout = cfgs[0].layout.enabled
+    if any(c.layout.enabled != with_layout for c in cfgs):
+        raise ValueError(
+            "sweep group mixes layout-enabled and -disabled designs")
+    gemms = [o for o in ops if o.kind == "gemm"]
+    for o in gemms:
+        if o.sparsity_nm is not None:
+            for rw in {c.sparsity.row_wise for c in cfgs}:
+                SparsityConfig(enabled=True, n=o.sparsity_nm[0],
+                               m=o.sparsity_nm[1], row_wise=rw)
+    return _Flavor(
+        Pr=Pr, Pc=Pc,
+        with_sparsity=(any(c.sparsity.enabled for c in cfgs)
+                       or any(o.sparsity_nm is not None for o in gemms)),
+        representation=cfgs[0].sparsity.representation,
+        layout=(dataclasses.replace(cfgs[0].layout, enabled=True)
+                if with_layout else None),
+        r_cap=(_pow2_cap(max(c.cores[0].rows for c in cfgs))
+               if with_layout else 0))
+
+
+def _columns(cfgs: Sequence[AcceleratorConfig], fl: _Flavor, device):
+    """float32 design columns: (designs, 1) per scalar field, which
+    broadcasts against the (ops,) workload arrays the way the reference
+    vmaps over designs, and (designs, 1, cores) per per-core field (the
+    core axis last). The single-core fields R and C are core 0's."""
     cols = {
         "R": [c.cores[0].rows for c in cfgs],
         "C": [c.cores[0].cols for c in cfgs],
@@ -90,10 +143,21 @@ def _columns(cfgs: Sequence[AcceleratorConfig], keys, device):
         "bw": [c.dram.bandwidth_bytes_per_cycle * c.dram.channels
                for c in cfgs],
     }
-    # float32 columns of shape (designs, 1): they broadcast against the
-    # (ops,) workload arrays the way the reference vmaps over designs
-    return {k: torch.tensor(np.asarray(cols[k], np.float32),
-                            device=device)[:, None] for k in keys}
+    if fl.with_sparsity:
+        cols["sp_en"] = [1.0 if c.sparsity.enabled else 0.0 for c in cfgs]
+        cols["sp_n"] = [c.sparsity.n for c in cfgs]
+        cols["sp_m"] = [c.sparsity.m for c in cfgs]
+        cols["sp_rw"] = [1.0 if c.sparsity.row_wise else 0.0 for c in cfgs]
+    if fl.num_cores > 1:
+        cols["mc_R"] = [[k.rows for k in c.cores] for c in cfgs]
+        cols["mc_C"] = [[k.cols for k in c.cores] for c in cfgs]
+        cols["mc_hops"] = [list(effective_nop_hops(c)) for c in cfgs]
+        cols["nop"] = [c.nop_cycles_per_hop for c in cfgs]
+    out = {}
+    for k, vals in cols.items():
+        v = torch.tensor(np.asarray(vals, np.float32), device=device)
+        out[k] = v[:, None] if v.dim() == 1 else v[:, None, :]
+    return out
 
 
 def _mem(d, word_bytes: int) -> MemoryConfig:
@@ -102,11 +166,30 @@ def _mem(d, word_bytes: int) -> MemoryConfig:
                         word_bytes=word_bytes)
 
 
+def _features(d, g, fl: _Flavor):
+    """The traced feature dicts of a design group for
+    `stages.traced_comp_traffic`. Per-op N:M overrides (`Op.sparsity_nm`)
+    mirror the per-op pipeline: the op's n:m wins and forces the sparsity
+    stage on."""
+    sp = mc = None
+    if fl.with_sparsity:
+        ov, on, om = g["ov"], g["on"], g["om"]
+        sp = dict(en=torch.maximum(d["sp_en"], ov),
+                  n=torch.where(ov > 0, on, d["sp_n"]),
+                  m=torch.where(ov > 0, om, d["sp_m"]),
+                  rw=d["sp_rw"], representation=fl.representation)
+    if fl.num_cores > 1:
+        mc = dict(rows=d["mc_R"], cols=d["mc_C"], hops=d["mc_hops"],
+                  nop=d["nop"], Pr=fl.Pr, Pc=fl.Pc)
+    return sp, mc
+
+
 def _stream_dedup(cfgs: Sequence[AcceleratorConfig]):
     """(sidx, smap): the design index of each unique demand stream and the
-    stream id of each design. A design's stream is fully determined by its
-    array geometry and memory sizing here (dense, single core), so designs
-    that differ only in bandwidth, SIMD or energy terms share one replay."""
+    stream id of each design. A design's stream is fully determined by
+    (array geometry, memory sizing, sparsity, core grid), so designs that
+    differ only in bandwidth, SIMD, energy or layout terms share one
+    replay."""
     seen: Dict[tuple, int] = {}
     sidx: List[int] = []
     smap: List[int] = []
@@ -131,8 +214,12 @@ def _gemm_arrays(ops: Sequence[Op], device):
         return torch.tensor(np.asarray(vals, np.float32).reshape(-1),
                             device=device)
 
+    nm = [o.sparsity_nm for o in gemms]
     return dict(M=col([o.M for o in gemms]), N=col([o.N for o in gemms]),
                 K=col([o.K for o in gemms]), cnt=col([o.count for o in gemms]),
+                ov=col([0.0 if x is None else 1.0 for x in nm]),
+                on=col([1.0 if x is None else x[0] for x in nm]),
+                om=col([1.0 if x is None else x[1] for x in nm]),
                 velems=col([o.vector_elems for o in vecs]),
                 vcnt=col([o.count for o in vecs]))
 
@@ -141,18 +228,21 @@ def decoded_streams(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
                     dataflow: str, word_bytes: int, dram: DramConfig, spec,
                     device):
     """Generate and decode the demand streams of every unique stream
-    design x gemm op: returns (t, flat_bank, ch, row, is_write, valid) of
-    shape (streams, ops, cap), the (streams, ops) compression `scale` and
-    the design -> stream map `smap`."""
+    design x gemm op, driven by each op's effective compute window and
+    its sparsity-shrunk DRAM traffic: returns (t, flat_bank, ch, row,
+    is_write, valid) of shape (streams, ops, cap), the (streams, ops)
+    compression `scale` and the design -> stream map `smap`."""
     from ..core.dram import decode_requests
     from ..trace.generator import gemm_request_stream
+    fl = _flavor(cfgs, ops)
     sidx, smap = _stream_dedup(cfgs)
-    d = _columns([cfgs[i] for i in sidx],
-                 ("R", "C", "if_b", "f_b", "o_b", "l2_b"), device)
+    d = _columns([cfgs[i] for i in sidx], fl, device)
     g = _gemm_arrays(ops, device)
     M, N, K = g["M"], g["N"], g["K"]
+    sp, mc = _features(d, g, fl)
     comp, _, dr, _ = st.traced_comp_traffic(dataflow, M, N, K, d["R"], d["C"],
-                                            _mem(d, word_bytes))
+                                            _mem(d, word_bytes),
+                                            sparsity=sp, multicore=mc)
     t, addr, wbit, val, scale = gemm_request_stream(
         dataflow, M, N, K, d["R"], d["C"], comp, dr["dram_ifmap"],
         dr["dram_filter"], dr["dram_ofmap_writes"], dr["dram_ofmap_reads"],
@@ -175,9 +265,9 @@ def _trace_stalls(cfgs, ops, dataflow, word_bytes, dram, spec, engine,
 
 
 def _design_metrics(d, g, dataflow: str, word_bytes: int, ert: ERT,
-                    trace_stall=None) -> Dict[str, torch.Tensor]:
-    """Per-design totals over the workload: `d` holds (designs, 1) config
-    columns, `g` the (ops,) workload arrays. The reference's per-design
+                    fl: _Flavor, trace_stall=None) -> Dict[str, torch.Tensor]:
+    """Per-design totals over the workload: `d` holds the design columns,
+    `g` the (ops,) workload arrays. The reference's per-design
     `one_design`, with the design axis leading."""
     n_designs = d["R"].shape[0]
     M, N, K, cnt = g["M"], g["N"], g["K"], g["cnt"]
@@ -191,15 +281,23 @@ def _design_metrics(d, g, dataflow: str, word_bytes: int, ert: ERT,
             return torch.zeros(n_designs, device=R.device) + x
         return torch.broadcast_to(x, (n_designs, x.shape[-1])).sum(-1)
 
-    s = st.traced_op_stats(dataflow, M, N, K, R, C, mem, d["bw"])
+    sp, mc = _features(d, g, fl)
+    lay = (None if fl.layout is None
+           else dict(cfg=fl.layout, r_cap=fl.r_cap))
+    s = st.traced_op_stats(dataflow, M, N, K, R, C, mem, d["bw"],
+                           sparsity=sp, multicore=mc, layout=lay)
     stall_per_op = s["stall_cycles"] if trace_stall is None else trace_stall
     comp_t = s["compute_cycles"] * cnt
     stall_t = stall_per_op * cnt
     lay_t = s["layout_extra_cycles"] * cnt
     dram_t = s["dram_bytes"] * cnt
     macs = M * N * K * cnt
-    pes = R * C
-    dim32 = torch.maximum(R, C) / 32.0
+    if fl.num_cores > 1:
+        pes = (d["mc_R"] * d["mc_C"]).sum(-1)
+        dim32 = torch.maximum(d["mc_R"], d["mc_C"]).max(-1).values / 32.0
+    else:
+        pes = R * C
+        dim32 = torch.maximum(R, C) / 32.0
     counts = st.traced_energy_counts(
         R=R, C=C, mem=mem, cycles=comp_t, macs=macs,
         ifmap_reads=s["ifmap_reads"] * cnt,
@@ -247,23 +345,24 @@ def _sweep_batched(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
                    engine: Optional[str] = None,
                    device: Union[str, torch.device] = "cuda"
                    ) -> Dict[str, np.ndarray]:
-    """Simulate `ops` on every design of one static group (shared dataflow
-    and word size, and DramConfig at trace fidelity); returns float64
-    numpy columns, one value per design. `dram` set means trace fidelity.
+    """Simulate `ops` on every design of one static group (shared dataflow,
+    word size, core grid, layout flavor and sparse representation, and
+    DramConfig at trace fidelity); returns float64 numpy columns, one value
+    per design. `dram` set means trace fidelity.
     """
     for c in cfgs:
-        refuse_outside_slice(c, ops)
+        refuse_outside_slice(c)
         if (c.dataflow, c.memory.word_bytes) != (dataflow, word_bytes):
             raise ValueError("sweep group mixes dataflows or word sizes")
+    fl = _flavor(cfgs, ops)
     device = torch.device(device)
-    d = _columns(cfgs, ("R", "C", "lanes", "lat", "if_b", "f_b", "o_b",
-                        "l2_b", "bw"), device)
+    d = _columns(cfgs, fl, device)
     g = _gemm_arrays(ops, device)
     stall = None
     if dram is not None:
         from ..trace.generator import DEFAULT_SPEC
         stall = _trace_stalls(cfgs, ops, dataflow, word_bytes, dram,
                               spec or DEFAULT_SPEC, engine, device)
-    res = _design_metrics(d, g, dataflow, word_bytes, ert, stall)
+    res = _design_metrics(d, g, dataflow, word_bytes, ert, fl, stall)
     return {k: v.detach().cpu().numpy().astype(np.float64)
             for k, v in res.items()}

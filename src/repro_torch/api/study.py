@@ -12,11 +12,14 @@ reduced to a columnar result frame.
                                          axis="design", baseline="32")
 
 `Study.run` groups the cells by the static sweep flavor (workload,
-fidelity, dataflow, word size, and the DramConfig at trace fidelity) and
-runs each group as one batched `_sweep_batched` call; at trace fidelity
-that is one replay-kernel launch per group. The paper's analyses ship as
-named studies with machine-checkable claims (`studies.edp_array_size`,
-`studies.dataflow_dram_flip`).
+fidelity, dataflow, word size, the DramConfig at trace fidelity, the core
+grid, the layout config when the layout stage is on, and the sparse
+representation) and runs each group as one batched `_sweep_batched` call;
+at trace fidelity that is one replay-kernel launch per group, and with
+the layout stage on one bank-conflict-kernel launch per group. The
+paper's analyses ship as named studies with machine-checkable claims
+(`studies.edp_array_size`, `studies.dataflow_dram_flip`,
+`studies.sparse_speedup`).
 
 Not in this slice: the on-disk cell cache, `force_fallback`, the farm
 wire format (`to_spec`), `concat`/`topk`, the CLI, and custom evaluators.
@@ -91,7 +94,8 @@ class StudyCell:
 @dataclasses.dataclass
 class BatchGroup:
     """Cells that execute as ONE `_sweep_batched` call: same workload +
-    fidelity and the static flavor (dataflow, word_bytes[, DramConfig])."""
+    fidelity and the static flavor (dataflow, word_bytes[, DramConfig],
+    core grid, layout, sparse representation)."""
     workload: str
     fidelity: str
     dataflow: str
@@ -136,6 +140,14 @@ class StudyResult:
 
     def __len__(self) -> int:
         return 0 if not self.columns else len(next(iter(self.columns.values())))
+
+    @property
+    def fraction_batched(self) -> float:
+        """Fraction of cells that executed through the batched sweep (1.0
+        = the whole study ran batched; every cell of this port does)."""
+        if not len(self) or "batched" not in self.columns:
+            return 1.0
+        return float(np.mean(self.columns["batched"]))
 
     def __getitem__(self, name: str) -> np.ndarray:
         return self.columns[_METRIC_ALIASES.get(name, name)]
@@ -423,8 +435,8 @@ class Study:
     def plan(self) -> StudyPlan:
         """Compile the cross-product into cells + batchable groups. Cell
         order (= frame row order): fidelity-major, then workload, design
-        fastest. `run` refuses cells outside this slice
-        (NotImplementedError)."""
+        fastest. `run` refuses NoC-enabled cells, which are outside this
+        slice (NotImplementedError)."""
         if not self._designs:
             raise ValueError("Study has no designs; call .designs(...)")
         if not self._workloads:
@@ -444,9 +456,16 @@ class Study:
             cfg = c.config
             key = (c.workload, c.fidelity, cfg.dataflow,
                    cfg.memory.word_bytes,
-                   cfg.dram if c.fidelity == "trace" else None)
+                   cfg.dram if c.fidelity == "trace" else None,
+                   # `_sweep_batched` reads the grid from the group's first
+                   # design, so the grid is part of the flavor
+                   (cfg.mesh_rows, cfg.mesh_cols),
+                   # layout fields only matter when enabled: disabled
+                   # cells share one flavor (and skip the layout math)
+                   cfg.layout if cfg.layout.enabled else None,
+                   cfg.sparsity.representation)
             by_key.setdefault(key, []).append(c.index)
-        groups = [BatchGroup(*key, cells=idxs)
+        groups = [BatchGroup(*key[:5], cells=idxs)
                   for key, idxs in by_key.items()]
         return StudyPlan(cells=cells, groups=groups)
 
@@ -598,4 +617,50 @@ def dataflow_dram_flip() -> Study:
                 "total_cycles", axis="design", baseline="os")["ws"][0])
             > float(r.filter(fidelity="fast").compare(
                 "total_cycles", axis="design", baseline="os")["ws"][0]))
+    return s
+
+
+@register_study("sparse_speedup")
+def sparse_speedup(smoke: bool = False) -> Study:
+    """Paper Sec. IV SpMM claim: on a weight-stationary array streaming
+    compressed weights, layer-wise N:M sparsity shrinks compute cycles by
+    ~m/n (2:4 halves them, 1:4 quarters them), while row-wise N:M (whose
+    per-(row, block) nonzero count is Uniform{1..m/2} and whose fold length
+    is the lockstep max over the fold's columns, `core.sparsity.
+    effective_K_model`) lands strictly between dense and the matched
+    layer-wise ratio. Every cell, sparse included, executes through the
+    batched sweep (`fraction_batched == 1.0`). `smoke` shrinks the token
+    dimension; the fold-count ratios the claims test are token-count
+    invariant."""
+    from .presets import get_preset
+    n_tok = 128 if smoke else 1024
+    wl = [Op("spmm-ffn1", 4096, n_tok, 1024),
+          Op("spmm-ffn2", 1024, n_tok, 4096)]
+    s = (Study("sparse_speedup")
+         .designs({
+             "dense": get_preset("paper-64"),
+             "lw-2:4": get_preset("ws-64-sparse-2:4"),
+             "lw-1:4": get_preset("ws-64-sparse-2:4", n=1),
+             "rw-1:4": get_preset("ws-64-sparse-2:4", n=1, row_wise=True),
+         })
+         .workloads({"spmm-ffn": wl})
+         .fidelity("fast"))
+
+    def speedup(r: StudyResult, design: str) -> float:
+        return 1.0 / float(r.compare("compute_cycles", axis="design",
+                                     baseline="dense")[design][0])
+
+    s.claim("layerwise_2to4_speedup_near_2x",
+            lambda r: 1.9 < speedup(r, "lw-2:4") <= 2.05)
+    s.claim("layerwise_1to4_speedup_near_4x",
+            lambda r: 3.6 < speedup(r, "lw-1:4") <= 4.1)
+    s.claim("rowwise_lands_between_dense_and_layerwise",
+            lambda r: float(r.filter(design="lw-1:4")["compute_cycles"][0])
+            < float(r.filter(design="rw-1:4")["compute_cycles"][0])
+            < float(r.filter(design="dense")["compute_cycles"][0]))
+    s.claim("compressed_weights_cut_dram_traffic",
+            lambda r: float(r.filter(design="lw-2:4")["dram_bytes"][0])
+            < float(r.filter(design="dense")["dram_bytes"][0]))
+    s.claim("all_cells_batched",
+            lambda r: r.fraction_batched == 1.0)
     return s

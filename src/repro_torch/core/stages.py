@@ -1,12 +1,13 @@
 """The traced stage twins of `repro.core.stages`, ported to PyTorch: the
-stage pipeline's math (mapping -> sram -> dram[fast] -> energy) on float32
-tensors with a leading design axis, which is what the batched sweep runs.
+stage pipeline's math (mapping -> partition -> sparsity -> sram ->
+dram[fast] -> layout -> energy) on float32 tensors with a leading design
+axis, which is what the batched sweep runs.
 
-Only the dense single-core branch is in this slice: sparsity, the
-multi-core partition and the layout stage are refused by the Study layer
-(`api/study.py`) until the traced feature models are ported, so the
-feature dictionaries the reference threads through (`sparsity=`,
-`multicore=`, `layout=`) must be None here.
+Every feature is data (`torch.where` on 0/1 selectors) or a static flavor
+of the call: the `sparsity=` and `multicore=` dicts and `layout=` carry
+the layer-wise and row-wise N:M models, the multi-core partition and the
+bank-conflict layout stage, so one call evaluates a mixed dense / sparse /
+multi-core design group.
 """
 from __future__ import annotations
 
@@ -17,19 +18,13 @@ import torch
 from . import dataflow as dfm
 from .accelerator import MemoryConfig
 from .energy import action_counts_raw
+from .layout import streaming_layout_extra
+from .multicore import best_multicore_cycles_model
+from .sparsity import sparse_compute_cycles_model, storage_bytes_model
 
 FIDELITIES = ("fast", "cycle", "trace")
 
 _NO_SPILL_BYTES = 1 << 62     # "infinite" psum SRAM: legacy traced semantics
-
-
-def _dense_only(**features) -> None:
-    for name, v in features.items():
-        if v is not None:
-            raise NotImplementedError(
-                f"the {name} stage model is not ported yet (module item 5 "
-                f"of the port, 'traced feature models'); this slice runs "
-                f"dense single-core designs with layout off")
 
 
 def traced_memory(sram_elems, word_bytes=2, *, ifmap_elems=None,
@@ -98,15 +93,45 @@ def traced_energy_counts(*, R, C, mem: MemoryConfig, cycles, macs,
 def traced_comp_traffic(dataflow: str, M, N, K, R, C, mem: MemoryConfig, *,
                         sparsity: Optional[Dict] = None,
                         multicore: Optional[Dict] = None):
-    """Effective compute cycles + SRAM/DRAM traffic (dense single core).
-    Returns (comp, sram dict, dram dict, filter_shrink)."""
-    _dense_only(sparsity=sparsity, multicore=multicore)
+    """Effective compute cycles + (shrunk) SRAM/DRAM traffic.
+
+    Mirrors the stage pipeline's feature composition exactly: the
+    partition stage overrides single-core compute when the design has
+    multiple cores, and the sparsity stage overrides both (paper
+    semantics: sparse runs use the single-core compressed stream).
+
+    sparsity:  {'en', 'n', 'm', 'rw'} tensors (en/rw are 0/1 selectors)
+               plus the static 'representation' string.
+    multicore: {'rows', 'cols', 'hops'} per-core tensors (core axis last,
+               length Pr*Pc), 'nop' cycles-per-hop, and static 'Pr'/'Pc'
+               grid shape.
+
+    Returns (comp, sram dict, dram dict, filter_shrink).
+    """
     comp = dfm.compute_cycles(dataflow, M, N, K, R, C)
+    if multicore is not None:
+        comp = best_multicore_cycles_model(
+            dataflow, M, N, K, multicore["rows"], multicore["cols"],
+            multicore["hops"], multicore["nop"], multicore["Pr"],
+            multicore["Pc"])
+    shrink = 1.0
     sram = dfm.sram_traffic(dataflow, M, N, K, R, C)
     dram = dfm.dram_traffic(dataflow, M, N, K, R, C, mem)
-    # the dense filter shrink is exactly 1: the reference multiplies by
-    # f32(1.0), which changes no value
-    return comp, sram, dram, 1.0
+    if sparsity is not None:
+        en, n, m, rw = (sparsity["en"], sparsity["n"], sparsity["m"],
+                        sparsity["rw"])
+        comp_sp = sparse_compute_cycles_model(dataflow, M, N, K, R, C,
+                                              n, m, rw, enabled=en)
+        comp = torch.where(torch.as_tensor(en) != 0, comp_sp, comp)
+        orig, _, _, total = storage_bytes_model(
+            M, K, n, m, rw, sparsity["representation"], mem.word_bytes,
+            enabled=en)
+        shrink = total / torch.clamp_min(orig, 1.0)
+        sram = dict(sram, filter_reads=sram["filter_reads"] * shrink)
+        dram = dict(dram, dram_filter=dram["dram_filter"] * shrink)
+    # without sparsity the filter shrink is exactly 1: the reference
+    # multiplies by f32(1.0), which changes no value
+    return comp, sram, dram, shrink
 
 
 def traced_op_stats(dataflow: str, M, N, K, R, C, mem: MemoryConfig,
@@ -115,8 +140,9 @@ def traced_op_stats(dataflow: str, M, N, K, R, C, mem: MemoryConfig,
                     multicore: Optional[Dict] = None,
                     layout: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     """The fast-fidelity gemm pipeline on tensors (per op instance;
-    callers scale by count)."""
-    _dense_only(layout=layout)
+    callers scale by count). `layout`: {'cfg': LayoutConfig (static),
+    'r_cap': static bound on R}, or None to skip the layout stage. See
+    `traced_comp_traffic` for the sparsity/multicore parameters."""
     comp, sram, dram, shrink = traced_comp_traffic(
         dataflow, M, N, K, R, C, mem, sparsity=sparsity,
         multicore=multicore)
@@ -125,7 +151,11 @@ def traced_op_stats(dataflow: str, M, N, K, R, C, mem: MemoryConfig,
     dram_bytes = dram_elems * mem.word_bytes
     stall = dfm.dram_stall_cycles_simple(dram_bytes, comp,
                                          bw_bytes_per_cycle)
+    extra = torch.zeros_like(comp)
+    if layout is not None:
+        stride = torch.clamp_min(1.0 * N, 1.0)
+        extra = streaming_layout_extra(layout["cfg"], R, comp, stride,
+                                       mem.word_bytes, r_cap=layout["r_cap"])
     return dict(compute_cycles=comp, stall_cycles=stall,
-                layout_extra_cycles=torch.zeros_like(comp),
-                dram_bytes=dram_bytes, dram_elems=dram_elems,
-                filter_shrink=shrink, **sram)
+                layout_extra_cycles=extra, dram_bytes=dram_bytes,
+                dram_elems=dram_elems, filter_shrink=shrink, **sram)

@@ -27,9 +27,10 @@ result.
 Masks follow the row = consumer / column = producer convention:
 `mask[s, i, j]` is True when request j (column) feeds request i.
 
-This slice replays single-core designs with one in-flight queue per
+Each stream is replayed as one core's, with one in-flight queue per
 direction: the reference's per-channel queue groups and per-core shifts
-(its `n_qg` and `core_id`) come back with the multi-core slice.
+(its `n_qg` and `core_id`) come back with the shared-DRAM contention
+slice.
 """
 from __future__ import annotations
 

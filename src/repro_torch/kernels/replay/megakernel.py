@@ -17,82 +17,41 @@ inside the block (see the note at the top of
 - `run_plain` is the same function in plain PyTorch (`chunkmath`), driven
   by a Python loop over chunks with the streams as a leading batch axis.
 
-`core.replay.replay_decoded` picks between the two. Both replay
-single-core designs with one in-flight queue per direction: the C entry
-point's `n_cores` and `n_qg` are fixed at 1 here, and its core-id input
-is all zeros.
+`core.replay.replay_decoded` picks between the two. Both replay each
+stream as one core's, with one in-flight queue per direction (the
+sweep's streams of multi-core designs included, as in the reference
+sweep): the C entry point's `n_cores` and `n_qg` are fixed at 1 here, and
+its core-id input is all zeros.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import threading
 from typing import Optional
 
 import torch
 
 from ...core.accelerator import DramConfig
+from .._build import CudaLibrary
 from . import chunkmath as cm
 
 # Kernel launches since the last reset (the sweep and `chip_smoke.py` read
 # it to show the main path went through the kernel).
 LAUNCHES = 0
 
-_SRC = pathlib.Path(__file__).resolve().parents[2] / "csrc" / \
-    "replay_megakernel.cu"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_lib = None
-_lib_lock = threading.Lock()
+_LIB = CudaLibrary("replay_megakernel.cu", "replay_megakernel_launch",
+                   [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 # ptxas report (registers, shared memory, spills) of the last build
 BUILD_LOG = ""
 
 
-def _nvcc() -> str:
-    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-            return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
-            "and PATH): the CUDA replay kernel cannot be built")
-    return found
-
-
-def build() -> ctypes.CDLL:
-    """Compile (once per source version) and load the kernel library."""
-    global _lib, BUILD_LOG
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src + repr(_NVCC_FLAGS).encode()).hexdigest()
-        so = _BUILD_DIR / f"replay_megakernel-{tag[:16]}.so"
-        if not so.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                capture_output=True, text=True)
-            BUILD_LOG = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {_SRC.name}:\n{BUILD_LOG}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        fn = lib.replay_megakernel_launch
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 13
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+def build():
+    """Compile (once per source version) and load the kernel; returns its
+    C launch function."""
+    global BUILD_LOG
+    fn = _LIB.load()
+    BUILD_LOG = _LIB.log
+    return fn
 
 
 def _check(x: torch.Tensor, name: str, dtype, shape) -> None:
@@ -138,13 +97,13 @@ def launch_cuda(ins, *, cfg: DramConfig, busy: float, C: int,
                              f"{t.device}")
     _check_ids(ins, n_banks=cfg.channels * cfg.banks_per_channel,
                ch_n=cfg.channels)
-    lib = build()
+    launch = build()
     done = torch.empty((S, npad), dtype=torch.float32, device=t.device)
     shift = torch.empty((S, 1), dtype=torch.float32, device=t.device)
     cnt = torch.empty((S, 4), dtype=torch.int32, device=t.device)
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.replay_megakernel_launch(
+        err = launch(
             *(x.data_ptr() for x in ins), done.data_ptr(), shift.data_ptr(),
             cnt.data_ptr(), S, npad // C, C, cfg.channels,
             cfg.banks_per_channel, cfg.tRCD, cfg.tRP, cfg.tCAS,

@@ -1,5 +1,6 @@
-"""Tests of the port that need an NVIDIA card: the CUDA replay kernel
-against its plain PyTorch version, and a study on the default device.
+"""Tests of the port that need an NVIDIA card: the CUDA replay and
+bank-conflict kernels against their plain PyTorch versions, and studies on
+the default device.
 Each skips (inside the test) on a machine without CUDA; run them on the
 card with
 
@@ -61,3 +62,45 @@ def test_study_runs_on_the_card_by_default(dev):
     from repro_torch.api.study import studies
     res = studies.dataflow_dram_flip().run()
     assert res.meta["engine"] == "cuda" and res.claims_ok()
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 128])
+def test_conflict_kernel_matches_plain_version(dev, k):
+    from repro_torch.kernels.conflict import conflict as ck
+    from repro_torch.kernels.conflict import conflict_slowdown_reference
+    for ports in (1, 2, 4):
+        for banks in (2, 8, 32):
+            rng = np.random.default_rng(k * 10 + ports)
+            line = rng.integers(0, 11, (300, k))
+            bank = rng.integers(0, banks, (300, k))
+            j = np.arange(k)
+            line[0], bank[0] = j, 0                  # all in one bank
+            line[1], bank[1] = j // banks, j % banks  # all pairs distinct
+            line[2], bank[2] = 7, banks - 1          # one pair repeated
+            lt = torch.tensor(line, dtype=torch.int32, device=dev)
+            bt = torch.tensor(bank, dtype=torch.int32, device=dev)
+            before = ck.LAUNCHES
+            got = ck.conflict_slowdown(lt, bt, num_banks=banks, ports=ports)
+            torch.cuda.synchronize()
+            assert ck.LAUNCHES == before + 1
+            want = conflict_slowdown_reference(lt, bt, num_banks=banks,
+                                               ports=ports)
+            assert torch.equal(got, want), (k, ports, banks)
+
+
+def test_layout_study_runs_on_the_card(dev):
+    import repro_torch as rt
+    from repro_torch.core.accelerator import LayoutConfig
+    from repro_torch.kernels.conflict import conflict as ck
+    grid = rt.preset_grid(array=[32, 64], sparsity=[None, "2:4"],
+                          cores=[1, 4])
+    grid = grid + [c.with_(layout=LayoutConfig(enabled=True)) for c in grid]
+    s = rt.Study().designs(grid).workloads("resnet18") \
+        .fidelity("fast", "trace")
+    before = ck.LAUNCHES
+    res = s.run()
+    assert res.meta["engine"] == "cuda" and not res.failed_cells
+    assert ck.LAUNCHES - before == 4        # one per layout-on group
+    cpu = s.run(device="cpu")
+    for c in ("total_cycles", "compute_cycles", "stall_cycles", "energy_pj"):
+        np.testing.assert_allclose(res[c], cpu[c], rtol=1e-3, err_msg=c)

@@ -99,15 +99,24 @@ def test_plan_groups_cells_by_flavor():
                for g in plan.groups)
 
 
+def _pod(cfg, cores=4):
+    from repro_torch.api.presets import with_pod
+    return with_pod(cfg, cores)
+
+
+# Only the routed NoC plane (and 'cycle' fidelity) lies outside the ported
+# slice; a sparse, per-op N:M, multi-core or layout design on a NoC pod is
+# refused all the same.
 REFUSED = [
-    ("sparse", lambda: rt.Study().designs({"s": rt.get_preset(
-        "ws-64-sparse-2:4")})),
-    ("op_nm", lambda: rt.Study().designs({"d": "paper-32"}).workloads(
+    ("sparse", lambda: rt.Study().designs({"s": _pod(rt.get_preset(
+        "ws-64-sparse-2:4"))})),
+    ("op_nm", lambda: rt.Study().designs({"d": _pod(rt.get_preset(
+        "paper-32"))}).workloads(
         {"w": [TOp("g", 64, 64, 64, sparsity_nm=(2, 4))]})),
-    ("multicore", lambda: rt.Study().designs({"m": rt.get_preset(
-        "multicore-16x32")})),
-    ("layout", lambda: rt.Study().designs({"l": rt.get_preset(
-        "table-v-corner", layout_banks=16)})),
+    ("multicore", lambda: rt.Study().designs({"m": _pod(rt.get_preset(
+        "multicore-16x32"), 16)})),
+    ("layout", lambda: rt.Study().designs({"l": _pod(rt.get_preset(
+        "table-v-corner", layout_banks=16))})),
     ("noc", lambda: rt.Study().designs({"n": rt.get_preset(
         "pod-mesh", cores=16)})),
     ("cycle", lambda: rt.Study().designs({"d": "paper-32"}).fidelity(
