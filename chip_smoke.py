@@ -8,14 +8,18 @@ own line; any failure exits non-zero before the final result line:
 
   1. environment: Python, torch and CUDA versions, the card's name and
      power limit (nvidia-smi);
-  2. build: the replay megakernel and the bank-conflict kernel compiled
-     from `src/repro_torch/csrc`, both nvcc runs started together;
+  2. build: the replay megakernel, the bank-conflict kernel, the fold
+     matmul, the wavefront kernel and the ELLPACK packer compiled from
+     `src/repro_torch/csrc`, all five nvcc runs started together;
   3. kernel vs plain: the CUDA replay kernel against its plain PyTorch
      version (and the per-request reference scan) on adversarial streams
      and on 256 random streams of 4,096 requests: counts exact, completion
      times within 1e-3 relative; the bank-conflict kernel against its
      plain version on adversarial rows and on 1,000,000 random rows of
-     k = 128: exactly equal;
+     k = 128: exactly equal; the fold matmul (float32 within 1e-5,
+     bfloat16 and float16 within 2e-2), the wavefront kernel and the
+     ELLPACK packer (exactly equal) against their plain versions on edge
+     shapes: empty inputs, B = 1, T = 1, ragged tiles, mixed dtypes;
   4. the paper's named studies on the card (`edp_array_size`,
      `dataflow_dram_flip`, `sparse_speedup`): every claim holds, the
      frames agree with the same studies run on the CPU, the replay engine
@@ -27,8 +31,9 @@ own line; any failure exits non-zero before the final result line:
      (three runs each), a profiled trace sweep, and the replay kernel
      against its plain version on the vit_base trace group's launch
      (1,776 streams);
-  6. this slice's path: the feature sweep, 162 designs (3 arrays x 3 SRAM
-     sizes x 3 dataflows x {dense, 2:4, 1:4 row-wise} x {1, 4} cores),
+  6. the second slice's path: the feature sweep, 162 designs (3 arrays x
+     3 SRAM sizes x 3 dataflows x {dense, 2:4, 1:4 row-wise} x {1, 4}
+     cores),
      each with the layout stage off and on, x {resnet18, vit_base} x
      {fast, trace}: 1,296 rows, once with both kernels' launch counts
      reset just before it (one conflict launch per layout-on group, one
@@ -37,8 +42,30 @@ own line; any failure exits non-zero before the final result line:
      the CPU, per column; the wall time per fidelity (three runs each),
      profiled fast and trace sweeps, and the conflict kernel against its
      plain version, timed, on the largest layout group's launch;
-  7. a `{"kernels": [...]}` line, the nvidia-smi line, and last
-     `{"ok": true, "device": {...}}`.
+  7. this slice's path, the fold plane: every fold of every GEMM instance
+     of vit_base on a 128 x 128 WS array (5,844 `simulate_fold` calls,
+     float32 operands from a seeded numpy generator), each with one
+     matmul and one wavefront launch (counts reset just before it), and a
+     power trace per op instance; per op the folds' cycles equal
+     `compute_cycles` x count, every fold's activity the closed form, the
+     summed K-folds the whole product within 1e-4 (relative to each
+     element or, if larger, the product's rms), every power trace lies
+     between the leakage floor and full occupancy; one fold of each shape
+     against the plain version and the per-cycle scan (float32 1e-5,
+     bfloat16 2e-2); a profiled first encoder layer;
+  8. `batched_fold_activity`: one launch per (workload, array) for
+     {resnet18, vit_base} x {32, 64, 128} (counts reset just before),
+     equal to the plain version, each row summing to T R C;
+  9. ELLPACK on all 50 vit_base weight matrices pruned exactly 2:4, 4:8
+     and row-wise (m = 8), one `pack_with_report` launch each (count
+     reset just before): values and indices equal to the plain version,
+     the exact cases' bytes equal to `storage_report`, the row-wise mean
+     kept count within 1 % of its expectation;
+  10. the three kernels timed at their path shapes (CUDA graphs of 20
+     calls, CUDA events), beside their plain versions, `torch.matmul`
+     and their bounds;
+  11. a `{"kernels": [...]}` line (all five kernels), the nvidia-smi line,
+     and last `{"ok": true, "device": {...}}`.
 
 Writes the measurements to chiprun_out/chip_smoke.json as well.
 """
@@ -143,6 +170,46 @@ def host_ms(fn, reps: int) -> float:
     return float(np.median(out))
 
 
+def timed_graph(fn, reps: int = 20, replays: int = 5) -> float:
+    """Mean milliseconds of the device work of one `fn()` call, by CUDA
+    events around replays of a CUDA graph of `reps` calls (after a warm-up
+    call and a warm-up replay): the host's launch cost, which exceeds a
+    small kernel's time, is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (reps * replays)
+    del graph
+    return ms
+
+
+def within(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float):
+    """(all |a - b| <= atol + rtol |b|, max |a - b|), compared in float32."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    if a.shape != b.shape:
+        return False, float("inf")
+    if a.numel() == 0:
+        return True, 0.0
+    d = (a - b).abs()
+    return bool((d <= atol + rtol * b.abs()).all()), float(d.max())
+
+
 def check_frame(name, frame, rows: int):
     """Finite values of the expected shape, no failed cell, the CUDA
     engine; returns the metric column names."""
@@ -175,7 +242,9 @@ def main() -> int:
     from repro_torch.core.workloads import resnet18, vit_base
     from repro_torch.kernels.conflict import conflict as ck
     from repro_torch.kernels.conflict.ref import conflict_slowdown_reference
+    from repro_torch.kernels.ellpack import ellpack as ek
     from repro_torch.kernels.replay import megakernel as mk
+    from repro_torch.kernels.systolic import systolic as syk
     from repro_torch.trace.generator import DEFAULT_SPEC
 
     dev = torch.device("cuda", 0)
@@ -198,15 +267,23 @@ def main() -> int:
 
     # ---- 2. build: one nvcc per source, started together --------------------
     from concurrent.futures import ThreadPoolExecutor
+    builds = (("replay_megakernel", mk.build), ("conflict_slowdown", ck.build),
+              ("systolic_matmul", syk.build_matmul),
+              ("wavefront_activity", syk.build_wavefront),
+              ("ellpack_pack", ek.build))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(mk.build), pool.submit(ck.build)]:
+    with ThreadPoolExecutor(len(builds)) as pool:
+        for f in [pool.submit(b) for _, b in builds]:
             f.result()
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, log in (("replay_megakernel", mk.BUILD_LOG),
-                               ("conflict_slowdown", ck.BUILD_LOG))}
+    logs = dict(replay_megakernel=mk.BUILD_LOG, conflict_slowdown=ck.BUILD_LOG,
+                systolic_matmul=syk.MATMUL_BUILD_LOG,
+                wavefront_activity=syk.WAVEFRONT_BUILD_LOG,
+                ellpack_pack=ek.BUILD_LOG)
+    ptxas = {name: sorted({ln.split(":", 1)[-1].strip()
+                           for ln in logs[name].splitlines()
+                           if "registers" in ln or "spill" in ln})
+             for name, _ in builds}
     phase("build", seconds=round(build_s, 3), ptxas=ptxas)
     report["build"] = dict(seconds=build_s, ptxas=ptxas)
 
@@ -348,6 +425,77 @@ def main() -> int:
     report["conflict_vs_plain"] = dict(cases=ccases,
                                        random_1M_kernel_ms=big_ms)
 
+    # ---- 3c. the fold and ELLPACK kernels vs plain -------------------------
+    from repro_torch.kernels.ellpack.ref import (ellpack_pack_plain,
+                                                 ellpack_pack_reference)
+    from repro_torch.kernels.systolic import ref as sref
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain matmul
+    g = torch.Generator(device=dev).manual_seed(13)
+    ncases = {"systolic_matmul": 0, "wavefront_activity": 0,
+              "ellpack_pack": 0}
+    mm_err = {}
+    for T, R, C in ((197, 128, 128), (300, 32, 130), (1, 128, 128),
+                    (0, 8, 8), (65, 17, 1)):
+        for xd, wd in ((torch.float32, torch.float32),
+                       (torch.bfloat16, torch.bfloat16),
+                       (torch.float16, torch.float16),
+                       (torch.float32, torch.bfloat16),
+                       (torch.bfloat16, torch.float16)):
+            x = torch.randn((T, R), generator=g, device=dev).to(xd)
+            w = torch.randn((R, C), generator=g, device=dev).to(wd)
+            got = syk.systolic_matmul(x, w)
+            torch.cuda.synchronize()
+            want = sref.systolic_matmul_reference(x, w)
+            f32 = want.dtype == torch.float32
+            ok, err = within(got, want, 1e-5 if f32 else 2e-2, 1e-4)
+            if not ok or got.dtype != want.dtype:
+                fail(f"systolic_matmul {T}x{R}x{C} {xd}x{wd}: max abs "
+                     f"{err} from the plain version ({got.dtype})")
+            key = "float32" if f32 else "half"
+            mm_err[key] = max(mm_err.get(key, 0.0), err)
+            ncases["systolic_matmul"] += 1
+    try:
+        syk.systolic_matmul(x.to(torch.int32), w.to(torch.int32))
+        fail("systolic_matmul took int32 operands")
+    except TypeError:
+        pass
+    for Ts, R, C, n_cycles in (([197], 128, 128, 451), ([1], 128, 128, 300),
+                               ([16, 32, 64, 100, 0], 8, 8, 78),
+                               ([], 8, 8, 10),
+                               (list(range(1, 400, 7)), 64, 32, 512)):
+        t = torch.tensor(Ts, dtype=torch.int32, device=dev)
+        got = syk.wavefront_activity_batched(t, R=R, C=C, n_cycles=n_cycles)
+        torch.cuda.synchronize()
+        if not torch.equal(got, sref.wavefront_activity_plain(
+                t, R=R, C=C, n_cycles=n_cycles)):
+            fail(f"wavefront kernel differs from plain for Ts={Ts[:4]}...")
+        ncases["wavefront_activity"] += 1
+    for rows, K, m, keep, dt in ((768, 3072, 4, 0, torch.float32),
+                                 (33, 48, 4, 0, torch.float32),
+                                 (64, 64, 8, 0, torch.bfloat16),
+                                 (40, 64, 8, 6, torch.float16),
+                                 (16, 32, 4, 3, torch.float32),
+                                 (0, 32, 4, 0, torch.float32)):
+        w = torch.randn((rows, K), generator=g, device=dev)
+        w = torch.where(torch.rand((rows, K), generator=g, device=dev) < 0.5,
+                        w, 0.0).to(dt)
+        if rows:
+            w[0] = 1.0                          # blocks with more than keep
+            w[1, : K // 2] = -0.0               # negative zeros are zeros
+        got = ek.ellpack_pack(w, m=m, keep=keep)
+        torch.cuda.synchronize()
+        for want in (ellpack_pack_plain(w, m=m, keep=keep),
+                     ellpack_pack_reference(w, m=m, keep=keep)):
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                fail(f"ELLPACK kernel differs from plain ({rows}x{K}, m={m},"
+                     f" keep={keep}, {dt})")
+        ncases["ellpack_pack"] += 1
+    phase("fold_ellpack_kernels_vs_plain", cases=ncases,
+          matmul_max_abs=mm_err)
+    report["fold_ellpack_kernels_vs_plain"] = dict(cases=ncases,
+                                                   matmul_max_abs=mm_err)
+
     # ---- 4. the named studies -------------------------------------------------
     named = {}
     for name, study in (("edp_array_size", studies.edp_array_size()),
@@ -483,7 +631,7 @@ def main() -> int:
     report["vit_base_trace_group"] = replay_group
     del ins, strm, dk, dp
 
-    # ---- 6. this slice's path: the feature sweep ------------------------------
+    # ---- 6. the second slice's path: the feature sweep --------------------
     base = rt.preset_grid(array=[32, 64, 128], sram_mb=[0.5, 2, 8],
                           dataflow=["ws", "os", "is"],
                           sparsity=[None, "2:4", "1:4-rw"], cores=[1, 4])
@@ -590,6 +738,306 @@ def main() -> int:
     phase("largest_layout_group", **layout_group)
     report["largest_layout_group"] = layout_group
 
+    # ---- 7. this slice's path: every vit_base fold on a 128 x 128 WS array
+    from repro_torch.core.accelerator import SparsityConfig, tpu_like_config
+    from repro_torch.core.dataflow import cdiv, compute_cycles, map_gemm
+    from repro_torch.core.energy import instantaneous_power_trace
+    from repro_torch.core.sparsity import (expected_rowwise_n,
+                                           sample_rowwise_counts,
+                                           storage_report)
+    from repro_torch.kernels.ellpack import ops as eops
+    from repro_torch.kernels.systolic import ops as sops
+    A = 128
+    pcfg = tpu_like_config(array=A)
+    fold_ops = [o for o in wl["vit_base"] if o.kind == "gemm"]
+    # set-up: seeded operands for every instance of every op, (Sr, Sc, T)
+    # = (K, M, N) under ws; x (T, Sr) and w (Sr, Sc) cut into folds
+    # zero-padded to the array: xf (fr, T, A), wf (fr, fc, A, A)
+    rng = np.random.default_rng(13)
+    t0 = time.perf_counter()
+    jobs = []
+    for op in fold_ops:
+        Sr, Sc, T = map_gemm("ws", op.M, op.N, op.K)
+        fr, fc = cdiv(Sr, A), cdiv(Sc, A)
+        for _ in range(int(op.count)):
+            X = torch.from_numpy(rng.standard_normal(
+                (T, Sr), dtype=np.float32)).to(dev)
+            W = torch.from_numpy(rng.standard_normal(
+                (Sr, Sc), dtype=np.float32)).to(dev)
+            xf = torch.zeros((T, fr * A), device=dev)
+            xf[:, :Sr] = X
+            wf = torch.zeros((fr * A, fc * A), device=dev)
+            wf[:Sr, :Sc] = W
+            jobs.append((op, X, W,
+                         xf.reshape(T, fr, A).transpose(0, 1).contiguous(),
+                         wf.reshape(fr, A, fc, A).permute(0, 2, 1, 3)
+                         .contiguous()))
+    torch.cuda.synchronize()
+    fold_setup_s = time.perf_counter() - t0
+
+    def fold_pass(todo):
+        """simulate_fold on every fold of every job, the K-folds of each
+        output column block summed; one power trace per op instance over
+        its folds' activity."""
+        out = []
+        for op, X, W, xf, wf in todo:
+            fr, fc = wf.shape[:2]
+            cols, acts, utils, cycles = [], [], [], 0
+            for j in range(fc):
+                acc = None
+                for i in range(fr):
+                    f = sops.simulate_fold(xf[i], wf[i, j])
+                    acc = f.out if acc is None else acc + f.out
+                    acts.append(f.active)
+                    utils.append(f.utilization)
+                    cycles += f.cycles
+                cols.append(acc)
+            act = torch.stack(acts)
+            out.append((torch.cat(cols, 1), act,
+                         instantaneous_power_trace(act, pcfg), cycles,
+                         torch.stack(utils)))
+        return out
+
+    syk.MATMUL_LAUNCHES = syk.WAVEFRONT_LAUNCHES = 0   # reset just before ...
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    folded = fold_pass(jobs)
+    torch.cuda.synchronize()
+    fold_wall_s = time.perf_counter() - t0
+    fold_launches = dict(systolic_matmul=syk.MATMUL_LAUNCHES,
+                         wavefront_activity=syk.WAVEFRONT_LAUNCHES)  # ... after
+    n_folds = sum(int(j[4].shape[0] * j[4].shape[1]) for j in jobs)
+    if fold_launches != dict(systolic_matmul=n_folds,
+                             wavefront_activity=n_folds):
+        fail(f"the fold pass launched {fold_launches}, expected one matmul "
+             f"and one wavefront launch per fold ({n_folds})")
+    floor, full = instantaneous_power_trace(
+        torch.tensor([0, A * A], device=dev), pcfg).tolist()
+    # a float32 sum's rounding error scales with the output's typical
+    # size (sqrt(K) here), so each element's error is taken relative to
+    # max(|whole|, rms(whole)); `max_rel_floor1` is the same against
+    # max(|whole|, 1), recorded only
+    cycles_by_op, fold_err, fold_err1 = {}, 0.0, 0.0
+    for (op, X, W, _, _), (out, act, power, cycles, utils) in zip(jobs,
+                                                                  folded):
+        T = X.shape[0]
+        cycles_by_op[op.name] = cycles_by_op.get(op.name, 0) + cycles
+        want_act = torch.cat([torch.full((A,), A, dtype=torch.int32,
+                                         device=dev),
+                              sref.wavefront_activity_reference(
+                                  T, A, A, device=dev)])
+        if not torch.equal(act, want_act.expand_as(act)):
+            fail(f"{op.name}: a fold's activity differs from the closed form")
+        whole = sref.systolic_matmul_reference(X, W)
+        diff = (out[:, :W.shape[1]] - whole).abs()
+        err = float((diff / torch.maximum(
+            whole.abs(), whole.square().mean().sqrt())).max())
+        fold_err = max(fold_err, err)
+        fold_err1 = max(fold_err1, rel_err(out[:, :W.shape[1]], whole))
+        if err > 1e-4:
+            fail(f"{op.name}: summed folds differ from the whole product by "
+                 f"{err}")
+        if float(power.min()) < floor or float(power.max()) > full:
+            fail(f"{op.name}: power trace outside [{floor}, {full}] W")
+        if not bool(((utils > 0) & (utils <= 1)).all()):
+            fail(f"{op.name}: a fold's utilization outside (0, 1]")
+    for op in fold_ops:
+        want = compute_cycles("ws", op.M, op.N, op.K, A, A) * int(op.count)
+        if cycles_by_op[op.name] != want:
+            fail(f"{op.name}: folds sum to {cycles_by_op[op.name]} cycles, "
+                 f"compute_cycles x count = {want}")
+    # one fold of each distinct shape against the plain version and the
+    # per-cycle scan, in float32 and bfloat16
+    shape_checks = []
+    for T in sorted({j[1].shape[0] for j in jobs}):
+        _, _, _, xf, wf = next(j for j in jobs if j[1].shape[0] == T)
+        for dt, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            x, w = xf[0].to(dt), wf[0, 0].to(dt)
+            got = sops.simulate_fold(x, w).out
+            scan_out, scan_act = sref.systolic_ws_reference(x, w)
+            ok1, e1 = within(got, sref.systolic_matmul_reference(x, w),
+                             rtol, 1e-4)
+            ok2, e2 = within(got, scan_out, rtol, 1e-4)
+            if not (ok1 and ok2) or not torch.equal(
+                    scan_act, sref.wavefront_activity_reference(
+                        T, A, A, device=dev)):
+                fail(f"fold {T}x{A}x{A} {dt}: vs plain {e1}, vs scan {e2}")
+            shape_checks.append(dict(T=T, dtype=str(dt), max_abs_vs_plain=e1,
+                                     max_abs_vs_scan=e2))
+    fold_info = dict(
+        ops=len(fold_ops), op_instances=len(jobs), folds=n_folds,
+        launches=fold_launches, setup_s=fold_setup_s, wall_s=fold_wall_s,
+        wall_ms_per_fold=fold_wall_s * 1e3 / n_folds,
+        max_rel_summed_vs_whole=fold_err,
+        max_rel_floor1_summed_vs_whole=fold_err1, shape_checks=shape_checks,
+        power_floor_w=floor, power_full_w=full,
+        total_cycles=sum(cycles_by_op.values()))
+    phase("vit_base_fold_pass", **fold_info)
+    report["vit_base_fold_pass"] = fold_info
+    layer0 = [j for j in jobs if j[0].name.startswith("vitb_0_")]
+    prof = profile_run(lambda: fold_pass(layer0))
+    prof["folds"] = sum(int(j[4].shape[0] * j[4].shape[1]) for j in layer0)
+    phase("fold_pass_layer0_profile", **prof)
+    report["fold_pass_layer0_profile"] = prof
+
+    # ---- 8. batched_fold_activity: one launch per (workload, array) --------
+    syk.WAVEFRONT_LAUNCHES = 0                        # reset just before ...
+    batched = []
+    for wname in ("resnet18", "vit_base"):
+        Ts = [map_gemm("ws", o.M, o.N, o.K)[2] for o in wl[wname]
+              if o.kind == "gemm"]
+        tt = torch.tensor(Ts, dtype=torch.int32, device=dev)
+        for arr in (32, 64, 128):
+            n_cycles = max(Ts) + 2 * arr - 2
+            act = sops.batched_fold_activity(tt, R=arr, C=arr,
+                                             n_cycles=n_cycles)
+            plain = sref.wavefront_activity_plain(tt, R=arr, C=arr,
+                                                  n_cycles=n_cycles)
+            if not torch.equal(act, plain):
+                fail(f"batched activity {wname} {arr}: kernel != plain")
+            if not torch.equal(act.sum(1, dtype=torch.int64),
+                               tt.to(torch.int64) * arr * arr):
+                fail(f"batched activity {wname} {arr}: a row does not sum "
+                     f"to T R C")
+            batched.append(dict(workload=wname, array=arr, folds=len(Ts),
+                                n_cycles=n_cycles))
+    batched_launches = syk.WAVEFRONT_LAUNCHES         # ... read just after
+    if batched_launches != len(batched):
+        fail(f"batched_fold_activity launched {batched_launches} times for "
+             f"{len(batched)} calls")
+    phase("batched_fold_activity", launches=batched_launches, calls=batched)
+    report["batched_fold_activity"] = dict(launches=batched_launches,
+                                           calls=batched)
+
+    # ---- 9. ELLPACK on every vit_base weight matrix ------------------------
+    mats = [("embed", 768, 768)] + [
+        (f"{l}_{n}", r, k) for l in range(12)
+        for n, r, k in (("qkv", 2304, 768), ("proj", 768, 768),
+                        ("mlp1", 3072, 768), ("mlp2", 768, 3072))] + [
+        ("head", 1000, 768)]
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def pruned(rows, K, m, kept):
+        """A (rows, K) float32 matrix, no value within 0.5 of 0, of which
+        each m-block keeps `kept` (an int, or per-block counts) randomly
+        placed nonzeros."""
+        v = torch.randn((rows, K), generator=gen, device=dev)
+        v = v + torch.where(v >= 0, 0.5, -0.5)
+        rank = torch.rand((rows, K // m, m), generator=gen,
+                          device=dev).argsort(-1).argsort(-1)
+        if isinstance(kept, torch.Tensor):
+            kept = kept[..., None]
+        return torch.where((rank < kept).reshape(rows, K), v, 0.0)
+
+    ek.LAUNCHES = 0                                  # reset just before ...
+    t0 = time.perf_counter()
+    ell = {}
+    for label, n, m in (("2:4", 2, 4), ("4:8", 4, 8), ("rowwise:8", None, 8)):
+        kept_sum = blocks = 0
+        worst = 0.0
+        values = 0
+        for name, rows, K in mats:
+            kept = n if n is not None else sample_rowwise_counts(gen, rows,
+                                                                 K, m)
+            w = pruned(rows, K, m, kept)
+            vals, idx, rep = eops.pack_with_report(w, m=m)
+            pv, pi = ellpack_pack_plain(w, m=m)
+            if not (torch.equal(vals, pv) and torch.equal(idx, pi)):
+                fail(f"ELLPACK {label} {name}: kernel differs from plain")
+            values += rows * K
+            if n is not None:
+                want = storage_report(rows, K, SparsityConfig(
+                    enabled=True, n=n, m=m, representation="ellpack_block"),
+                    word_bytes=4)
+                for k in ("original_bytes", "values_bytes", "metadata_bytes",
+                          "total_bytes"):
+                    e = abs(rep[k] - want[k]) / max(abs(want[k]), 1e-30)
+                    worst = max(worst, e)
+                    if e > 1e-6:
+                        fail(f"ELLPACK {label} {name}: {k} {rep[k]} vs "
+                             f"storage_report {want[k]}")
+            else:
+                kept_sum += int((idx >= 0).sum())
+                blocks += rows * (K // m)
+        row = dict(matrices=len(mats), values=values,
+                   max_rel_vs_storage_report=worst)
+        if n is None:
+            mean = kept_sum / blocks
+            row.update(mean_kept=mean, expected=expected_rowwise_n(m))
+            if abs(mean / expected_rowwise_n(m) - 1) > 0.01:
+                fail(f"ELLPACK row-wise: mean kept {mean} vs "
+                     f"{expected_rowwise_n(m)}")
+        ell[label] = row
+    torch.cuda.synchronize()
+    ell_wall_s = time.perf_counter() - t0
+    ell_launches = ek.LAUNCHES                       # ... read just after
+    if ell_launches != 3 * len(mats):
+        fail(f"the ELLPACK pass launched {ell_launches} times, expected one "
+             f"per matrix ({3 * len(mats)})")
+    ell_info = dict(launches=ell_launches, wall_s=ell_wall_s, passes=ell)
+    phase("vit_base_ellpack", **ell_info)
+    report["vit_base_ellpack"] = ell_info
+
+    # ---- 10. the new kernels at their path shapes, timed --------------------
+    # device time per call by CUDA events around CUDA-graph replays (the
+    # host's launch cost is longer than these kernels); `loop_ms` is the
+    # same by events around a host loop of calls, launch cost included
+    x0, w0 = next(j for j in jobs if j[0].name == "vitb_0_qkv")[3:5]
+    x0, w0 = x0[0], w0[0, 0]                 # one qkv fold, 197 x 128 x 128
+    T0 = x0.shape[0]
+    mm = dict(ms=timed_graph(lambda: syk.systolic_matmul(x0, w0)),
+              loop_ms=timed_cuda(lambda: syk.systolic_matmul(x0, w0), 50),
+              plain_ms=timed_graph(
+                  lambda: sref.systolic_matmul_reference(x0, w0)),
+              library_ms=timed_graph(lambda: torch.matmul(x0, w0)))
+    mm_ok, mm_abs = within(syk.systolic_matmul(x0, w0),
+                           sref.systolic_matmul_reference(x0, w0), 1e-5,
+                           1e-4)
+    if not mm_ok:
+        fail(f"qkv fold: kernel vs plain max abs {mm_abs}")
+    mm_bytes = (T0 * A + A * A + T0 * A) * 4
+    mm_ops = 2 * T0 * A * A
+    rs = [map_gemm("ws", o.M, o.N, o.K)[2] for o in wl["resnet18"]
+          if o.kind == "gemm"]
+    big_t = torch.tensor(rs, dtype=torch.int32, device=dev)
+    big_n = max(rs) + 2 * A - 2
+    wave_kw = dict(R=A, C=A, n_cycles=big_n)
+    wv = dict(ms=timed_graph(
+        lambda: syk.wavefront_activity_batched(big_t, **wave_kw)),
+        loop_ms=timed_cuda(
+            lambda: syk.wavefront_activity_batched(big_t, **wave_kw), 50),
+        plain_ms=timed_graph(
+            lambda: sref.wavefront_activity_plain(big_t, **wave_kw)))
+    wv_bytes = len(rs) * 4 + len(rs) * big_n * 4
+    # per (fold, cycle, row): two subtractions, a max, a min, the span
+    # (subtract, add one), a max and the accumulation
+    wv_ops = len(rs) * big_n * A * 8
+    er, eK, em = 768, 3072, 4                # the mlp2 weight, 2:4
+    mlp2 = pruned(er, eK, em, 2)
+    ep = dict(ms=timed_graph(lambda: ek.ellpack_pack(mlp2, m=em)),
+              loop_ms=timed_cuda(lambda: ek.ellpack_pack(mlp2, m=em), 50),
+              plain_ms=timed_graph(lambda: ellpack_pack_plain(mlp2, m=em)))
+    # the matrix read once; keep = m / 2 values and their int32 indices
+    # written per block
+    ep_bytes = er * eK * 4 + er * (eK // em) * (em // 2) * (4 + 4)
+    ep_ops = er * eK * 2             # a compare and a count per element
+    timings = {}
+    for name, t, nbytes, ops in (("systolic_matmul", mm, mm_bytes, mm_ops),
+                                 ("wavefront_activity", wv, wv_bytes, wv_ops),
+                                 ("ellpack_pack", ep, ep_bytes, ep_ops)):
+        bms = nbytes / HBM_BYTES_PER_S * 1e3
+        oms = ops / FP32_OPS_PER_S * 1e3
+        t.update(bytes=nbytes, ops=ops, bytes_ms=bms, ops_ms=oms,
+                 bound_ms=max(bms, oms),
+                 bound_by="bytes" if bms >= oms else "operations")
+        timings[name] = t
+    timings["systolic_matmul"].update(shape=[T0, A, A], max_abs_err=mm_abs)
+    timings["wavefront_activity"].update(folds=len(rs), n_cycles=big_n,
+                                         R=A, C=A)
+    timings["ellpack_pack"].update(shape=[er, eK], m=em, keep=em // 2)
+    phase("fold_ellpack_timings", **timings)
+    report["fold_ellpack_timings"] = timings
+
     kernels = {"kernels": [
         dict(name="replay_megakernel", route="cuda",
              source="src/repro_torch/csrc/replay_megakernel.cu",
@@ -604,7 +1052,26 @@ def main() -> int:
              launches=feat_launches["conflict_slowdown"],
              max_abs_err=0, ms=conflict_ms, plain_ms=conflict_plain_ms,
              bound_ms=layout_group["bound_ms"],
-             bound_by=layout_group["bound_by"], library_ms=None)]}
+             bound_by=layout_group["bound_by"], library_ms=None),
+        dict(name="systolic_matmul", route="cuda",
+             source="src/repro_torch/csrc/systolic_matmul.cu",
+             replaces="src/repro/kernels/systolic/systolic.py:40",
+             launches=fold_launches["systolic_matmul"], max_abs_err=mm_abs,
+             ms=mm["ms"], plain_ms=mm["plain_ms"], bound_ms=mm["bound_ms"],
+             bound_by=mm["bound_by"], library_ms=mm["library_ms"]),
+        dict(name="wavefront_activity", route="cuda",
+             source="src/repro_torch/csrc/wavefront_activity.cu",
+             replaces="src/repro/kernels/systolic/systolic.py:79",
+             launches=fold_launches["wavefront_activity"] + batched_launches,
+             max_abs_err=0, ms=wv["ms"], plain_ms=wv["plain_ms"],
+             bound_ms=wv["bound_ms"], bound_by=wv["bound_by"],
+             library_ms=None),
+        dict(name="ellpack_pack", route="cuda",
+             source="src/repro_torch/csrc/ellpack_pack.cu",
+             replaces="src/repro/kernels/ellpack/ellpack.py:38",
+             launches=ell_launches, max_abs_err=0, ms=ep["ms"],
+             plain_ms=ep["plain_ms"], bound_ms=ep["bound_ms"],
+             bound_by=ep["bound_by"], library_ms=None)]}
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -3,9 +3,11 @@ of `repro.core.energy`.
 
 Two stages, as in the paper: (1) simulator statistics become *action
 counts* per component (`action_counts_raw`, elementwise on tensors of any
-broadcastable shape); (2) an Energy Reference Table (ERT) maps each action
-to pJ (`energy_pj`). The ERT defaults are the reference's calibrated
-65nm-class constants, field for field.
+broadcastable shape; `action_counts` for a concrete config); (2) an Energy
+Reference Table (ERT) maps each action to pJ (`energy_pj`). The fold
+plane's per-cycle activity becomes a power trace
+(`instantaneous_power_trace`). The ERT defaults are the reference's
+calibrated 65nm-class constants, field for field.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import dataclasses
 from typing import Dict
 
 import torch
+
+from .accelerator import AcceleratorConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +89,36 @@ def action_counts_raw(*, pes, dim32, sram_kib, word_bytes: int,
     )
 
 
+def _config_scalars(cfg: AcceleratorConfig):
+    """(total PEs, max array dimension / 32, SRAM KiB) of a config."""
+    pes = sum(c.num_pes for c in cfg.cores)
+    dim32 = max(max(c.rows, c.cols) for c in cfg.cores) / 32.0
+    sram_kib = (cfg.memory.ifmap_sram_bytes + cfg.memory.filter_sram_bytes
+                + cfg.memory.ofmap_sram_bytes) / 1024.0
+    return pes, dim32, sram_kib
+
+
+def action_counts(cfg: AcceleratorConfig, *, cycles, macs, ifmap_reads,
+                  filter_reads, ofmap_writes, ofmap_reads, dram_bytes,
+                  l2_reads=0.0, l2_writes=0.0, noc_byte_hops=0.0,
+                  row_bytes: int = 64) -> Dict[str, torch.Tensor]:
+    """Stage 1 for a concrete config. `cycles` and `macs` are tensors or
+    Python numbers (a number becomes a float32 scalar, as the reference's
+    jnp math makes it); the other statistics may be either."""
+    pes, dim32, sram_kib = _config_scalars(cfg)
+    dev = next((x.device for x in (cycles, macs)
+                if isinstance(x, torch.Tensor)), torch.device("cpu"))
+    cycles, macs = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                    for x in (cycles, macs))
+    return action_counts_raw(
+        pes=pes, dim32=dim32, sram_kib=sram_kib,
+        word_bytes=cfg.memory.word_bytes, cycles=cycles, macs=macs,
+        ifmap_reads=ifmap_reads, filter_reads=filter_reads,
+        ofmap_writes=ofmap_writes, ofmap_reads=ofmap_reads,
+        dram_bytes=dram_bytes, l2_reads=l2_reads, l2_writes=l2_writes,
+        noc_byte_hops=noc_byte_hops, row_bytes=row_bytes)
+
+
 _ACTION_TO_ERT = dict(
     mac_random="mac_random", mac_wire="mac_wire_per_dim32",
     mac_gated="mac_gated", pe_leak="pe_leak_per_cycle",
@@ -108,3 +142,27 @@ def energy_pj(counts: Dict[str, object], ert: ERT = DEFAULT_ERT
 def edp(total_pj, cycles):
     """Energy-delay product in mJ * cycles (paper Table V units)."""
     return total_pj * 1e-9 * cycles
+
+
+def power_w(total_pj, cycles, clock_ghz: float = 1.0):
+    """Average power: pJ / cycle * GHz = mW, so * 1e-3 for W."""
+    return total_pj / max(cycles, 1.0) * clock_ghz * 1e-3
+
+
+def instantaneous_power_trace(active_pes: torch.Tensor,
+                              cfg: AcceleratorConfig, ert: ERT = DEFAULT_ERT,
+                              clock_ghz: float = 1.0) -> torch.Tensor:
+    """Per-cycle power trace in watts (paper Table I: instantaneous power),
+    float32, elementwise on the tensor's device.
+
+    active_pes: active-PE counts per cycle, as `kernels.systolic`'s
+    `simulate_fold` and `batched_fold_activity` produce them (any shape).
+    Active PEs draw MAC + delivery + scratchpad energy; idle PEs draw
+    gated energy; every PE leaks."""
+    pes, dim32, _ = _config_scalars(cfg)
+    a = active_pes.to(torch.float32)
+    pj_per_cycle = (a * (ert.mac_random + ert.mac_wire_per_dim32 * dim32
+                         + 3 * ert.spad_read)
+                    + (pes - a) * ert.mac_gated
+                    + pes * ert.pe_leak_per_cycle)
+    return pj_per_cycle * clock_ghz * 1e-3        # pJ/ns = W

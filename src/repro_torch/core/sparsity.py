@@ -167,3 +167,41 @@ def storage_report(rows: int, K: int, sp: SparsityConfig,
     return dict(representation=sp.representation if sp.enabled else "dense",
                 original_bytes=float(orig), values_bytes=float(values),
                 metadata_bytes=float(meta), total_bytes=float(total))
+
+
+def sample_rowwise_counts(generator: torch.Generator, rows: int, K: int,
+                          m: int) -> torch.Tensor:
+    """(rows, K//m) int32 nonzero counts, Uniform{1..m//2} (trace
+    fidelity), drawn from `generator` on its device.
+
+    The reference draws from `jax.random.randint`'s threefry stream; a
+    `torch.Generator` cannot reproduce those bits, so the two agree in
+    distribution (dtype, shape, range, mean `expected_rowwise_n(m)`), not
+    draw for draw."""
+    blocks = K // m
+    half = max(1, m // 2)
+    return torch.randint(1, half + 1, (rows, blocks), generator=generator,
+                         dtype=torch.int32, device=generator.device)
+
+
+def pack_ellpack_block(w: torch.Tensor, m: int):
+    """Reference blocked-ELLPACK packer (Fig. 6): (values, indices, counts).
+
+    w: (rows, K); the trailing K % m columns are dropped. Values
+    (rows, K//m, max count) hold each block's nonzeros first, in order;
+    indices their intra-block positions (int32), -1 past a block's count;
+    counts (rows, K//m) int32. The kernels' oracle and the tests use it.
+    """
+    rows, K = w.shape
+    blocks = K // m
+    wb = w[:, :blocks * m].reshape(rows, blocks, m)
+    nz = wb != 0
+    # stable order: nonzeros first, preserving index order (sorted as
+    # uint8 0/1 keys, the same order as the bool mask's)
+    order = torch.argsort((~nz).to(torch.uint8), dim=-1, stable=True)
+    vals = torch.take_along_dim(wb, order, dim=-1)
+    idx = torch.where(torch.take_along_dim(nz, order, dim=-1), order,
+                      -1).to(torch.int32)
+    counts = nz.sum(-1, dtype=torch.int32)
+    keep = int(counts.max()) if counts.numel() else 0
+    return vals[..., :keep], idx[..., :keep], counts

@@ -1,6 +1,7 @@
-"""Tests of the port that need an NVIDIA card: the CUDA replay and
-bank-conflict kernels against their plain PyTorch versions, and studies on
-the default device.
+"""Tests of the port that need an NVIDIA card: the CUDA replay,
+bank-conflict, fold matmul, wavefront and ELLPACK kernels against their
+plain PyTorch versions, the fold plane against the CPU, and studies on the
+default device.
 Each skips (inside the test) on a machine without CUDA; run them on the
 card with
 
@@ -104,3 +105,110 @@ def test_layout_study_runs_on_the_card(dev):
     cpu = s.run(device="cpu")
     for c in ("total_cycles", "compute_cycles", "stall_cycles", "energy_pj"):
         np.testing.assert_allclose(res[c], cpu[c], rtol=1e-3, err_msg=c)
+
+
+@pytest.mark.parametrize("T,R,C", [(197, 128, 128), (300, 32, 130),
+                                   (1, 128, 128), (0, 8, 8), (65, 17, 1)])
+@pytest.mark.parametrize("xd,wd", [("float32", "float32"),
+                                   ("bfloat16", "bfloat16"),
+                                   ("float16", "float16"),
+                                   ("float32", "bfloat16"),
+                                   ("bfloat16", "float16")])
+def test_systolic_matmul_kernel_matches_plain_version(dev, T, R, C, xd, wd):
+    from repro_torch.kernels.systolic import systolic as sk
+    from repro_torch.kernels.systolic.ref import systolic_matmul_reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(T * 7 + R)
+    x = torch.randn((T, R), generator=g, device=dev).to(getattr(torch, xd))
+    w = torch.randn((R, C), generator=g, device=dev).to(getattr(torch, wd))
+    before = sk.MATMUL_LAUNCHES
+    got = sk.systolic_matmul(x, w)
+    torch.cuda.synchronize()
+    assert sk.MATMUL_LAUNCHES == before + (1 if T else 0)
+    want = systolic_matmul_reference(x, w)
+    assert got.dtype == want.dtype == torch.promote_types(x.dtype, w.dtype)
+    tol = dict(rtol=1e-5, atol=1e-4) if got.dtype == torch.float32 \
+        else dict(rtol=2e-2, atol=1e-4)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_systolic_kernels_refuse_what_they_do_not_take(dev):
+    from repro_torch.kernels.ellpack import ellpack as ek
+    from repro_torch.kernels.systolic import systolic as sk
+    xi = torch.ones((4, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        sk.systolic_matmul(xi, xi)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sk.systolic_matmul(torch.ones(4, 4), torch.ones(4, 4))
+    with pytest.raises(TypeError):
+        sk.wavefront_activity_batched(torch.ones(3, device=dev), R=4, C=4,
+                                      n_cycles=10)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sk.wavefront_activity_batched(torch.ones(3, dtype=torch.int32),
+                                      R=4, C=4, n_cycles=10)
+    with pytest.raises(TypeError):
+        ek.ellpack_pack(xi, m=4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ek.ellpack_pack(torch.ones(4, 8), m=4)
+
+
+@pytest.mark.parametrize("Ts,R,C,n_cycles", [
+    ([197], 128, 128, 197 + 254), ([1], 128, 128, 300),
+    ([16, 32, 64, 100, 0], 8, 8, 78), ([], 8, 8, 10),
+    (list(range(1, 400, 7)), 64, 32, 512)])
+def test_wavefront_kernel_matches_plain_version(dev, Ts, R, C, n_cycles):
+    from repro_torch.kernels.systolic import systolic as sk
+    from repro_torch.kernels.systolic.ref import wavefront_activity_plain
+    t = torch.tensor(Ts, dtype=torch.int32, device=dev)
+    before = sk.WAVEFRONT_LAUNCHES
+    got = sk.wavefront_activity_batched(t, R=R, C=C, n_cycles=n_cycles)
+    torch.cuda.synchronize()
+    assert sk.WAVEFRONT_LAUNCHES == before + (1 if Ts else 0)
+    assert torch.equal(got, wavefront_activity_plain(t, R=R, C=C,
+                                                     n_cycles=n_cycles))
+    if len(Ts) == 1:
+        one = sk.wavefront_activity(t, R=R, C=C, n_cycles=n_cycles)
+        assert torch.equal(one, got[0])
+
+
+@pytest.mark.parametrize("rows,K,m,keep,dt", [
+    (768, 3072, 4, 0, "float32"), (33, 48, 4, 0, "float32"),
+    (64, 64, 8, 0, "bfloat16"), (40, 64, 8, 6, "float16"),
+    (16, 32, 4, 3, "float32"), (0, 32, 4, 0, "float32")])
+def test_ellpack_kernel_matches_plain_version(dev, rows, K, m, keep, dt):
+    from repro_torch.kernels.ellpack import ellpack as ek
+    from repro_torch.kernels.ellpack.ref import (ellpack_pack_plain,
+                                                 ellpack_pack_reference)
+    g = torch.Generator(device=dev).manual_seed(rows + K)
+    w = torch.randn((rows, K), generator=g, device=dev)
+    w = torch.where(torch.rand((rows, K), generator=g, device=dev) < 0.5, w,
+                    0.0).to(getattr(torch, dt))
+    if rows:
+        w[0] = 1.0                           # blocks with more than keep
+    before = ek.LAUNCHES
+    got = ek.ellpack_pack(w, m=m, keep=keep)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES == before + (1 if rows else 0)
+    for want in (ellpack_pack_plain(w, m=m, keep=keep),
+                 ellpack_pack_reference(w, m=m, keep=keep)):
+        assert got[0].dtype == w.dtype and got[1].dtype == torch.int32
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_fold_plane_on_the_card_matches_the_cpu(dev):
+    from repro_torch.core.energy import instantaneous_power_trace
+    from repro_torch.core.accelerator import tpu_like_config
+    from repro_torch.kernels.systolic import simulate_fold
+    g = torch.Generator().manual_seed(3)
+    x, w = torch.randn((197, 128), generator=g), torch.randn((128, 128),
+                                                             generator=g)
+    cpu = simulate_fold(x, w)
+    card = simulate_fold(x.to(dev), w.to(dev))
+    assert card.cycles == cpu.cycles
+    assert torch.equal(card.active.cpu(), cpu.active)
+    assert float(card.utilization) == float(cpu.utilization)
+    torch.testing.assert_close(card.out.cpu(), cpu.out, rtol=1e-5, atol=1e-4)
+    cfg = tpu_like_config(array=128)
+    torch.testing.assert_close(
+        instantaneous_power_trace(card.active, cfg).cpu(),
+        instantaneous_power_trace(cpu.active, cfg), rtol=1e-6, atol=0.0)

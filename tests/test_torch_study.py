@@ -149,9 +149,18 @@ def test_run_defaults_to_cuda_and_never_falls_back():
 def test_port_imports_neither_jax_nor_the_reference():
     code = (
         "import sys\n"
+        "import torch\n"
         "import repro_torch\n"
+        "from repro_torch.core.energy import instantaneous_power_trace\n"
+        "from repro_torch.core.sparsity import sample_rowwise_counts\n"
+        "from repro_torch.kernels.ellpack import pack_with_report\n"
+        "from repro_torch.kernels.systolic import simulate_fold\n"
         "r = repro_torch.studies.dataflow_dram_flip().run(device='cpu')\n"
         "assert r.claims_ok()\n"
+        "f = simulate_fold(torch.ones(5, 4), torch.ones(4, 3))\n"
+        "instantaneous_power_trace(f.active, repro_torch.tpu_like_config())\n"
+        "sample_rowwise_counts(torch.Generator().manual_seed(0), 4, 16, 8)\n"
+        "pack_with_report(torch.ones(4, 16), m=8)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print('LEAKED', bad)\n"
