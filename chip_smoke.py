@@ -199,6 +199,23 @@ def timed_graph(fn, reps: int = 20, replays: int = 5) -> float:
     return ms
 
 
+def wavefront_closed_form(Ts: torch.Tensor, *, R: int, C: int,
+                          n_cycles: int) -> torch.Tensor:
+    """Active PEs per cycle, (B,) T -> (B, n_cycles) int32, in O(1) per
+    (fold, cycle): the points (t, r, c) with t + r + c = n inside the
+    T x R x C box, by inclusion-exclusion over its three upper faces; the
+    non-negative triples summing to k number a (a + 1) / 2 with a = k + 1."""
+    n = torch.arange(n_cycles, dtype=torch.int64, device=Ts.device)[None, :]
+    T = Ts.to(torch.int64)[:, None]
+    act = torch.zeros((Ts.shape[0], n_cycles), dtype=torch.int64,
+                      device=Ts.device)
+    for sign, off in ((1, 0), (-1, T), (-1, R), (-1, C), (1, T + R),
+                      (1, T + C), (1, R + C), (-1, T + R + C)):
+        a = torch.clamp_min(n - off + 1, 0)
+        act += sign * (a * (a + 1) // 2)
+    return act.to(torch.int32)
+
+
 def within(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float):
     """(all |a - b| <= atol + rtol |b|, max |a - b|), compared in float32."""
     a, b = a.to(torch.float32), b.to(torch.float32)
@@ -841,6 +858,26 @@ def main() -> int:
             fail(f"{op.name}: power trace outside [{floor}, {full}] W")
         if not bool(((utils > 0) & (utils <= 1)).all()):
             fail(f"{op.name}: a fold's utilization outside (0, 1]")
+    # controls for the summed-fold limit, read by the same measure: each
+    # fold in TF32 (`torch.matmul` with TF32 on), and each fold from
+    # bfloat16 operands rounded to bfloat16 as the port's bf16 fold is;
+    # the limit must reject the bfloat16 control
+    ctrl = dict(tf32=0.0, bf16=0.0)
+    for op, X, W, xf, wf in jobs:
+        whole = sref.systolic_matmul_reference(X, W)
+        scale = torch.maximum(whole.abs(), whole.square().mean().sqrt())
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = torch.matmul(xf[:, None], wf)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        bf16 = torch.matmul(xf[:, None].bfloat16().float(),
+                            wf.bfloat16().float()).bfloat16().float()
+        for key, y in (("tf32", tf32), ("bf16", bf16)):
+            y = y.sum(0).transpose(0, 1).reshape(X.shape[0], -1)
+            ctrl[key] = max(ctrl[key], float(
+                ((y[:, :W.shape[1]] - whole).abs() / scale).max()))
+    if ctrl["bf16"] <= 1e-4:
+        fail(f"the summed-fold limit 1e-4 passes bfloat16 folds "
+             f"({ctrl['bf16']})")
     for op in fold_ops:
         want = compute_cycles("ws", op.M, op.N, op.K, A, A) * int(op.count)
         if cycles_by_op[op.name] != want:
@@ -869,7 +906,9 @@ def main() -> int:
         launches=fold_launches, setup_s=fold_setup_s, wall_s=fold_wall_s,
         wall_ms_per_fold=fold_wall_s * 1e3 / n_folds,
         max_rel_summed_vs_whole=fold_err,
-        max_rel_floor1_summed_vs_whole=fold_err1, shape_checks=shape_checks,
+        max_rel_floor1_summed_vs_whole=fold_err1,
+        max_rel_summed_tf32_control=ctrl["tf32"],
+        max_rel_summed_bf16_control=ctrl["bf16"], shape_checks=shape_checks,
         power_floor_w=floor, power_full_w=full,
         total_cycles=sum(cycles_by_op.values()))
     phase("vit_base_fold_pass", **fold_info)
@@ -1008,10 +1047,23 @@ def main() -> int:
             lambda: syk.wavefront_activity_batched(big_t, **wave_kw), 50),
         plain_ms=timed_graph(
             lambda: sref.wavefront_activity_plain(big_t, **wave_kw)))
+    # the function needs O(1) work per (fold, cycle): active(n) counts the
+    # points t + r + c = n of the T x R x C box, by inclusion-exclusion
+    # over its three upper faces, eight terms g(n - offset) with g(k) =
+    # C(k + 2, 2) the non-negative triples summing to k; held equal to the
+    # kernel here, so the bound counts these operations, not the row loop
+    got_wv = syk.wavefront_activity_batched(big_t, **wave_kw)
+    if not torch.equal(got_wv, wavefront_closed_form(big_t, **wave_kw)):
+        fail("wavefront kernel differs from the inclusion-exclusion form")
+    # each fold's T read once, each count written once
     wv_bytes = len(rs) * 4 + len(rs) * big_n * 4
-    # per (fold, cycle, row): two subtractions, a max, a min, the span
-    # (subtract, add one), a max and the accumulation
-    wv_ops = len(rs) * big_n * A * 8
+    # per (fold, cycle) and term: the offset subtracted, one added, the
+    # clamp at 0, one added, a multiply, a halving and the accumulation
+    wv_ops = len(rs) * big_n * 8 * 7
+    # one vit_base qkv fold's wavefront launch on the fold pass
+    fold_wv_n = T0 + 2 * A - 2
+    fold_wv_bound_ms = max((4 + fold_wv_n * 4) / HBM_BYTES_PER_S,
+                           fold_wv_n * 8 * 7 / FP32_OPS_PER_S) * 1e3
     er, eK, em = 768, 3072, 4                # the mlp2 weight, 2:4
     mlp2 = pruned(er, eK, em, 2)
     ep = dict(ms=timed_graph(lambda: ek.ellpack_pack(mlp2, m=em)),
@@ -1032,8 +1084,9 @@ def main() -> int:
                  bound_by="bytes" if bms >= oms else "operations")
         timings[name] = t
     timings["systolic_matmul"].update(shape=[T0, A, A], max_abs_err=mm_abs)
-    timings["wavefront_activity"].update(folds=len(rs), n_cycles=big_n,
-                                         R=A, C=A)
+    timings["wavefront_activity"].update(
+        folds=len(rs), n_cycles=big_n, R=A, C=A,
+        qkv_fold_n_cycles=fold_wv_n, qkv_fold_bound_ms=fold_wv_bound_ms)
     timings["ellpack_pack"].update(shape=[er, eK], m=em, keep=em // 2)
     phase("fold_ellpack_timings", **timings)
     report["fold_ellpack_timings"] = timings
