@@ -63,7 +63,8 @@ own line; any failure exits non-zero before the final result line:
      kept count within 1 % of its expectation;
   10. the three kernels timed at their path shapes (CUDA graphs of 20
      calls, CUDA events), beside their plain versions, `torch.matmul`
-     and their bounds;
+     and their bounds; the matmul also at each distinct fold shape of
+     the fold pass, with its grid's block count;
   11. a `{"kernels": [...]}` line (all five kernels), the nvidia-smi line,
      and last `{"ok": true, "device": {...}}`.
 
@@ -618,21 +619,23 @@ def main() -> int:
         if not torch.equal(a[:u].cpu(), b):
             fail("demand streams generated on the card differ from the CPU's")
 
-    # the least time: each input byte of the kernel's int32 interface read
-    # once (the all-zero core id and the w/v bits widened to int32
-    # included), each output byte written once; one f32 operation per
-    # (consumer, producer) pair of each O(C^2) triangular reduction: 8
-    # table loops per chunk plus 3 per fixed-point pass, over the valid
-    # requests of each chunk and this run's passes
+    # the least time: the bytes the function must move, each once (issue
+    # time, bank, channel and row as 4-byte words, the write and valid
+    # flags as one bit each, the completion time out, shift and counts per
+    # stream); the operations the function needs, O(1) per valid request
+    # and reduction: 8 order-only tables per chunk (prev, pin, the two
+    # ranks, the queue head, the two last-of-key flags, W and V counted
+    # as one each, one operation each in a left-to-right pass with a
+    # running value per key) plus the 3 keyed maxima of each fixed-point
+    # pass, over this run's passes
     nv = ins[5].reshape(S, npad // 64, 64).sum(-1).to(torch.float64)
-    pairs = nv * (nv + 1) / 2
-    ops = float(((8 + 3 * passes.to(torch.float64)) * pairs).sum())
-    nbytes = S * npad * (4 + 6 * 4) + S * npad * 4 + S * (4 + 16)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    # the same without the core id and with w/v as one bit each: what the
-    # function itself must move (recorded, not used for bound_ms)
-    fn_bytes = S * npad * (4 + 3 * 4) + S * npad // 4 + S * npad * 4 \
+    ops = float(((8 + 3 * passes.to(torch.float64)) * nv).sum())
+    nbytes = S * npad * (4 + 3 * 4) + S * npad // 4 + S * npad * 4 \
         + S * (4 + 16)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # what the kernel's int32 interface moves: six words in per request
+    # (the core id is not read), one out (recorded, not used for bound_ms)
+    io_bytes = S * npad * (6 * 4 + 4) + S * (4 + 16)
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     replay_group = dict(
         streams=S, requests_per_stream=npad,
@@ -642,11 +645,26 @@ def main() -> int:
         max_passes=int(passes.max()), bytes=nbytes, ops=ops,
         bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        function_bytes=fn_bytes,
-        function_bytes_ms=fn_bytes / HBM_BYTES_PER_S * 1e3)
+        interface_bytes=io_bytes,
+        interface_bytes_ms=io_bytes / HBM_BYTES_PER_S * 1e3)
+    # the same streams in chunks of 128: the kernel's shared-memory
+    # instance (C > 64), which no path of the port runs, timed beside it
+    ins2 = mk.prepare(*strm, 128)
+    kw2 = dict(kw, C=128)
+    k2_ms = timed_cuda(lambda: mk.launch_cuda(ins2, **kw2), reps=20)
+    dk2, sk2, ck2 = mk.launch_cuda(ins2, **kw2)
+    dp2, sp2, cp2, passes2 = mk.run_plain(ins2, **kw2)
+    if not torch.equal(ck2, cp2):
+        fail("vit_base group, C = 128: kernel counts differ from plain")
+    err2 = max(rel_err(dk2, dp2), rel_err(sk2, sp2))
+    if err2 > RTOL:
+        fail(f"vit_base group, C = 128: kernel differs from plain by {err2}")
+    replay_group["chunk_128"] = dict(
+        kernel_ms=k2_ms, max_rel_err=err2,
+        mean_passes=float(passes2.double().mean()))
     phase("vit_base_trace_group", **replay_group)
     report["vit_base_trace_group"] = replay_group
-    del ins, strm, dk, dp
+    del ins, ins2, strm, dk, dp, dk2, dp2
 
     # ---- 6. the second slice's path: the feature sweep --------------------
     base = rt.preset_grid(array=[32, 64, 128], sram_mb=[0.5, 2, 8],
@@ -1028,7 +1046,33 @@ def main() -> int:
               loop_ms=timed_cuda(lambda: syk.systolic_matmul(x0, w0), 50),
               plain_ms=timed_graph(
                   lambda: sref.systolic_matmul_reference(x0, w0)),
-              library_ms=timed_graph(lambda: torch.matmul(x0, w0)))
+              library_ms=timed_graph(lambda: torch.matmul(x0, w0)),
+              blocks=syk.matmul_blocks(T0, A))
+    if mm["blocks"] <= 8:
+        fail(f"the qkv fold's matmul runs on {mm['blocks']} blocks")
+    # every distinct fold shape of the fold pass, each timed in turn
+    # (kernel, torch.matmul, plain, kernel) beside its bound
+    mm_shapes = []
+    for T in sorted({j[1].shape[0] for j in jobs}, reverse=True):
+        xs_, ws_ = next(j for j in jobs if j[1].shape[0] == T)[3:5]
+        xs_, ws_ = xs_[0], ws_[0, 0]
+        k1 = timed_graph(lambda: syk.systolic_matmul(xs_, ws_))
+        lib = timed_graph(lambda: torch.matmul(xs_, ws_))
+        pl = timed_graph(lambda: sref.systolic_matmul_reference(xs_, ws_))
+        k2 = timed_graph(lambda: syk.systolic_matmul(xs_, ws_))
+        ok, e = within(syk.systolic_matmul(xs_, ws_),
+                       sref.systolic_matmul_reference(xs_, ws_), 1e-5, 1e-4)
+        if not ok:
+            fail(f"fold {T}x{A}x{A}: kernel vs plain max abs {e}")
+        b_ms = (T * A + A * A + T * A) * 4 / HBM_BYTES_PER_S * 1e3
+        o_ms = 2 * T * A * A / FP32_OPS_PER_S * 1e3
+        mm_shapes.append(dict(shape=[T, A, A], blocks=syk.matmul_blocks(T, A),
+                              ms_runs=[k1, k2], ms=min(k1, k2),
+                              library_ms=lib, plain_ms=pl, max_abs_err=e,
+                              bound_ms=max(b_ms, o_ms),
+                              bound_by="bytes" if b_ms >= o_ms
+                              else "operations"))
+    mm["fold_shapes"] = mm_shapes
     mm_ok, mm_abs = within(syk.systolic_matmul(x0, w0),
                            sref.systolic_matmul_reference(x0, w0), 1e-5,
                            1e-4)

@@ -11,7 +11,7 @@ C + 2 when none is given).
 
 Where it runs follows the tensors, and the label says so:
   "cuda"         CUDA tensors -> the hand-written CUDA megakernel
-                 (`kernels.replay.megakernel`, one thread block per stream);
+                 (`kernels.replay.megakernel`, one warp per stream);
   "torch:plain"  CPU tensors  -> the kernel's plain PyTorch version;
   "reference"    the per-request loop `core.dram._reference_scan`, the
                  semantics oracle (requested by name, tests only).

@@ -8,39 +8,56 @@
 //
 //   inputs  (S, npad) per stream, npad = nc * C:
 //           t f32 issue time; fb flat bank, ch channel, row, w write bit,
-//           v valid bit, cid core id (all int32)
+//           v valid bit (int32); cid core id (int32, not read: one core)
 //   outputs done  (S, npad) f32  completion time, 0 where ~v
-//           shift (S, n_cores) f32  queue backpressure per core
-//           cnt   (S, 4) int32     row hits, empty-row misses, conflicts, 0
+//           shift (S, 1) f32     queue backpressure
+//           cnt   (S, 4) int32   row hits, empty-row misses, conflicts, 0
 //
-// What bounds it on this card: latency, not bytes or arithmetic. Each
-// stream is a serial chain of about 64 chunks; each chunk needs at least
-// two (usually two to four) fixed-point passes, and every pass is three
-// O(C^2) masked max reductions separated by barriers. A stream's bytes
-// (28 per request in, 4 out) are read once, so memory traffic is a rounding
-// error next to the dependent chain of passes.
+// What bounds it on this card: the latency of a dependent chain, not bytes
+// or arithmetic. Each stream is a serial chain of chunks (64 of 64
+// requests on the sweep's path); each chunk needs two to four fixed-point
+// passes, and each pass three keyed maxima over the chunk (over the
+// earlier requests, along the same channel, along the same bank). A
+// stream's bytes (six 4-byte words per request in, one out; the core id
+// is not read) are read once. A block of C threads per stream that
+// rebuilt every table and every maximum with O(C) loops over shared
+// memory spent thousands of dependent shared loads per warp per chunk.
 //
-// The design answers that with parallelism across streams and nothing
-// between them: one thread block per stream, blockDim == C, thread i owns
-// request i of the current chunk. The chunk loop runs inside the block (on
-// the TPU it was a sequential fori_loop over a grid step per stream); the
-// architectural state -- bank_free / open_row per bank, bus_free per
-// channel, the in-flight rings (n_qg x Q) with their counters, and the
-// per-core shift -- lives in shared memory for the whole stream. Per chunk
-// each thread builds its own row of the order-only tables (prev, pin,
-// intra, lat_intra, the channel weight prefix W, the pruned gprev,
-// rdx/wdx, ring survivors, the in-chunk queue head when Q < C) with O(C)
-// loops over the chunk's inputs in shared memory: no (C, C) mask is ever
-// materialized. Fixed-point passes are Jacobi-style (every pass reads the
-// previous iterate from shared memory); the first two passes are
-// unconditional, then the block iterates while any completion moved by
-// more than tol (__syncthreads_or) and the pass count is below the cap.
-// No host synchronization happens per chunk. Thousands of streams (the
-// sweep's designs x ops) fill the 132 SMs with independent blocks.
-//
-// A later version would put a warp on each stream, several streams per
-// block, and keep the tables in registers; this one is the simple,
-// correct baseline.
+// Design. One warp per stream, several streams per block and no
+// block-wide barrier. Each lane owns requests lane, lane + 32, ... of the
+// chunk (ceil(C / 32) of them). The stream's carried state (bank_free /
+// open_row per bank, bus_free per channel, the two in-flight rings) lives
+// in the warp's slice of shared memory; the ring counters and the shift
+// in registers. Per chunk:
+// - order-only tables from warp votes: `__match_any_sync` on the bank and
+//   on the channel gives each request's peers within its 32-request
+//   slot; the highest peer below it is `prev` (`pin`), and stamped
+//   per-bank (per-channel) tables of the last request seen carry the link
+//   across slots and mark the last request of each bank (channel).
+//   `__ballot_sync` + `__popc` give the read and write ranks, and a
+//   rank -> request table the in-chunk queue head `ghead`;
+// - the channel and bank prefix sums W and V by pointer jumping along the
+//   `pin` and `prev` links, ending as soon as every link has run out
+//   (ceil(log2 C) rounds at most), each round's pointers kept;
+// - each Jacobi pass: the maximum over earlier requests as a shuffle scan
+//   per slot with a carry across slots; the maxima along the same channel
+//   and the same bank as log-depth scans over the kept jump pointers. The
+//   first two passes are unconditional, then the warp iterates while any
+//   completion moved by more than tol (`__any_sync`) and the pass count is
+//   below the cap, as before.
+// That is O(C log C) work per chunk and no O(C^2) loop. Two instances of
+// it: for C <= 64 (the sweep's chunk) a lane keeps its one or two
+// requests' tables, iterates and jump pointers in registers and gathers
+// another request's value with `__shfl_sync`, so a pass touches no memory;
+// for larger C (up to 1024) the per-request arrays live in the warp's
+// shared memory, the chunk's inputs arrive by `cp.async` into one of two
+// staging buffers while the chunk before resolves, and gathers are shared
+// loads. The per-request math (classification, queue heads, each step of
+// a pass, the state update) is written once, in helpers both instances
+// call; they differ only in where a request's values live and how another
+// request's value is gathered. Sums along the links are taken in
+// pointer-jumping order, not left to right: completions stay within the
+// 1e-3 contract, and every count (order-only) is exact.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,15 +65,63 @@
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpsMax = 4;          // streams per block, at most
+// bits of the per-request `info` word
+constexpr int kValid = 1, kWrite = 2, kLastB = 4, kLastC = 8, kSurv = 16;
+
+// Launch configuration and the layout of one warp's shared memory, in
+// 4-byte words from the start of its slice.
 struct Cfg {
-  int nc, C;
-  int ch_n, bk_n, n_banks;
+  int S, nc, C, K, levels;
+  int ch_n, n_banks;
   int tRCD, tRP, tCAS;
-  int Qr, Qw;
-  int n_cores, n_qg, cap;
+  int Qr, Qw, cap;
   float busy, tol;
   int intra_heads;
+  int warp_words;
+  // carried state, and the rank -> request table (both instances)
+  int o_bank_free, o_bus_free, o_ring_r, o_ring_w, o_open_row, o_last_b,
+      o_last_c, o_rank;
+  // the shared-memory instance only: two input stages of 6 x C words
+  // (t, fb, ch, row, w, v), then the per-request arrays; o_jc and o_jb
+  // hold `levels` x C int16 jump pointers each
+  int o_in, o_lat, o_head0, o_bank0, o_bus0, o_done, o_m0, o_m1, o_a0, o_a1,
+      o_b0, o_b1, o_info, o_ghead, o_gprev, o_slot, o_p0, o_p1, o_q0, o_q1,
+      o_jc, o_jb;
 };
+
+// Fill the layout; `arrays` adds the shared-memory instance's per-request
+// arrays. Returns the words of one warp's slice (a multiple of 4).
+int layout(Cfg& k, bool arrays) {
+  int at = 0;
+  auto take = [&](int words) {
+    const int o = at;
+    at += words;
+    return o;
+  };
+  const int C = k.C;
+  k.o_bank_free = take(k.n_banks);
+  k.o_bus_free = take(k.ch_n);
+  k.o_ring_r = take(k.Qr);
+  k.o_ring_w = take(k.Qw);
+  k.o_open_row = take(k.n_banks);
+  k.o_last_b = take(k.n_banks);
+  k.o_last_c = take(k.ch_n);
+  k.o_rank = take(C);
+  if (arrays) {
+    k.o_in = take(12 * C);
+    int* fs[] = {&k.o_lat, &k.o_head0, &k.o_bank0, &k.o_bus0, &k.o_done,
+                 &k.o_m0, &k.o_m1, &k.o_a0, &k.o_a1, &k.o_b0, &k.o_b1,
+                 &k.o_info, &k.o_ghead, &k.o_gprev, &k.o_slot, &k.o_p0,
+                 &k.o_p1, &k.o_q0, &k.o_q1};
+    for (int* o : fs) *o = take(C);
+    k.o_jc = take((k.levels * C + 1) / 2);
+    k.o_jb = take((k.levels * C + 1) / 2);
+  }
+  k.warp_words = (at + 3) / 4 * 4;
+  return k.warp_words;
+}
 
 __device__ __forceinline__ int row_latency(const Cfg& k, int open, int row,
                                            int* hit, int* empty) {
@@ -65,281 +130,782 @@ __device__ __forceinline__ int row_latency(const Cfg& k, int open, int row,
   return *hit ? k.tCAS : (*empty ? k.tRCD + k.tCAS : k.tRP + k.tRCD + k.tCAS);
 }
 
-// One Jacobi pass of the closure operator for request i; reads the
-// previous iterate from s_done and returns the new completion (0 where
-// ~valid). Every thread of the block must call it (it holds barriers).
-struct PassIn {
-  float t, head0, shift0, bank0, bus0, lat, W, V;
-  int valid, cid, ch, fb, ghead, gprev;
-};
-
-__device__ float one_pass(const Cfg& k, const PassIn& p, int i,
-                          const int* s_v, const int* s_cid, const int* s_ch,
-                          const int* s_fb, const float* s_done, float* s_g,
-                          float* s_sw, float* s_uv) {
-  const float NEG = -INFINITY;
-  float dprev = s_done[i];
-  float head = p.head0;
-  if (k.intra_heads && p.ghead >= 0) head = fmaxf(p.head0, s_done[p.ghead]);
-  s_g[i] = p.valid ? head - p.t : NEG;
-  float bankp = p.bank0;
-  if (p.gprev >= 0) bankp = fmaxf(p.bank0, s_done[p.gprev]);
-  __syncthreads();
-  float ss = NEG;
-  for (int j = 0; j < i; ++j)
-    if (s_v[j] && s_cid[j] == p.cid) ss = fmaxf(ss, s_g[j]);
-  ss = fmaxf(p.shift0, ss);
-  float issue_ok = fmaxf(p.t + ss, head);
-  float s = fmaxf((fmaxf(issue_ok, bankp) + p.lat) + k.busy, dprev);
-  s_sw[i] = p.valid ? s - p.W : NEG;
-  __syncthreads();
-  float mx = NEG;
-  for (int j = 0; j <= i; ++j)
-    if (s_v[j] && s_ch[j] == p.ch) mx = fmaxf(mx, s_sw[j]);
-  float u = fmaxf(mx + p.W, p.bus0 + p.W);
-  s_uv[i] = p.valid ? u - p.V : NEG;
-  __syncthreads();
-  float md = NEG;
-  for (int j = 0; j <= i; ++j)
-    if (s_v[j] && s_fb[j] == p.fb) md = fmaxf(md, s_uv[j]);
-  return p.valid ? md + p.V : 0.0f;
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+__device__ __forceinline__ int warp_sum(int x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
 }
 
-__global__ void replay_megakernel(const float* __restrict__ t_in,
-                                  const int* __restrict__ fb_in,
-                                  const int* __restrict__ ch_in,
-                                  const int* __restrict__ row_in,
-                                  const int* __restrict__ w_in,
-                                  const int* __restrict__ v_in,
-                                  const int* __restrict__ cid_in,
-                                  float* __restrict__ done_out,
-                                  float* __restrict__ shift_out,
-                                  int* __restrict__ cnt_out, Cfg k) {
-  extern __shared__ float smem[];
-  const int C = k.C;
-  const int i = threadIdx.x;
-  const long npad = (long)k.nc * C;
-  const long sbase = (long)blockIdx.x * npad;
-
-  // ---- shared memory: carried state, then per-chunk arrays -------------
-  float* bank_free = smem;
-  int* open_row = (int*)(bank_free + k.n_banks);
-  float* bus_free = (float*)(open_row + k.n_banks);
-  float* ring_r = bus_free + k.ch_n;
-  float* ring_w = ring_r + k.n_qg * k.Qr;
-  int* ir = (int*)(ring_w + k.n_qg * k.Qw);
-  int* iw = ir + k.n_qg;
-  float* shift = (float*)(iw + k.n_qg);
-  int* s_cnt = (int*)(shift + k.n_cores);
-  float* s_t = (float*)(s_cnt + 4);
-  int* s_fb = (int*)(s_t + C);
-  int* s_ch = s_fb + C;
-  int* s_row = s_ch + C;
-  int* s_w = s_row + C;
-  int* s_v = s_w + C;
-  int* s_cid = s_v + C;
-  int* s_rdx = s_cid + C;
-  int* s_wdx = s_rdx + C;
-  float* s_we = (float*)(s_wdx + C);
-  float* s_lb = s_we + C;
-  float* s_W = s_lb + C;
-  float* s_done = s_W + C;
-  float* s_g = s_done + C;
-  float* s_sw = s_g + C;
-  float* s_uv = s_sw + C;
-
-  for (int b = i; b < k.n_banks; b += C) {
-    bank_free[b] = 0.0f;
-    open_row[b] = -1;
+// Exclusive max-scan of x over the lanes; `total` gets the slot's max.
+__device__ __forceinline__ float lane_excl_max(float x, int lane,
+                                               float* total) {
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x = fmaxf(x, y);
   }
-  for (int c = i; c < k.ch_n; c += C) bus_free[c] = 0.0f;
-  for (int q = i; q < k.n_qg * k.Qr; q += C) ring_r[q] = 0.0f;
-  for (int q = i; q < k.n_qg * k.Qw; q += C) ring_w[q] = 0.0f;
-  for (int g = i; g < k.n_qg; g += C) {
-    ir[g] = 0;
-    iw[g] = 0;
+  *total = __shfl_sync(kFull, x, 31);
+  const float ex = __shfl_up_sync(kFull, x, 1);
+  return lane == 0 ? -INFINITY : ex;
+}
+
+// Zero the carried state of one stream.
+__device__ __forceinline__ void init_state(const Cfg& k, float* F, int lane) {
+  int* I = reinterpret_cast<int*>(F);
+  for (int b = lane; b < k.n_banks; b += 32) {
+    F[k.o_bank_free + b] = 0.0f;
+    I[k.o_open_row + b] = -1;
+    I[k.o_last_b + b] = -1;
   }
-  for (int c = i; c < k.n_cores; c += C) shift[c] = 0.0f;
-  for (int q = i; q < 4; q += C) s_cnt[q] = 0;
-  int hits = 0, misses = 0, conflicts = 0;
-  __syncthreads();
+  for (int c = lane; c < k.ch_n; c += 32) {
+    F[k.o_bus_free + c] = 0.0f;
+    I[k.o_last_c + c] = -1;
+  }
+  for (int q = lane; q < k.Qr; q += 32) F[k.o_ring_r + q] = 0.0f;
+  for (int q = lane; q < k.Qw; q += 32) F[k.o_ring_w + q] = 0.0f;
+  __syncwarp();
+}
 
-  for (int chunk = 0; chunk < k.nc; ++chunk) {
-    const long at = sbase + (long)chunk * C + i;
-    const float ti = t_in[at];
-    const int fbi = fb_in[at], chi = ch_in[at], rowi = row_in[at];
-    const int wi = w_in[at] != 0, vi = v_in[at] != 0, cidi = cid_in[at];
-    s_t[i] = ti;
-    s_fb[i] = fbi;
-    s_ch[i] = chi;
-    s_row[i] = rowi;
-    s_w[i] = wi;
-    s_v[i] = vi;
-    s_cid[i] = cidi;
-    __syncthreads();
-
-    // ---- order-only tables: this thread's row ------------------------
-    const int qgi = k.n_qg > 1 ? chi : 0;
-    const int rmi = vi && !wi, wmi = vi && wi;
-    int prev = -1, pin = -1, rdx = 0, wdx = 0, nr = 0, nw = 0;
-    int last_b = vi, last_c = vi;
-    for (int j = 0; j < C; ++j) {
-      if (!s_v[j]) continue;
-      const int qgj = k.n_qg > 1 ? s_ch[j] : 0;
-      if (qgj == qgi) {
-        if (s_w[j]) {
-          ++nw;
-          if (j < i) ++wdx;
-        } else {
-          ++nr;
-          if (j < i) ++rdx;
-        }
-      }
-      if (j < i) {
-        if (s_fb[j] == fbi) prev = j;
-        if (s_ch[j] == chi) pin = j;
-      } else if (j > i) {
-        if (s_fb[j] == fbi) last_b = 0;
-        if (s_ch[j] == chi) last_c = 0;
-      }
+// Step 1 for one 32-request slot q: links to the highest same-bank
+// (same-channel) valid request below, from the slot's votes or else the
+// stamped tables; the direction rank; the rank -> request table. Updates
+// the stamps and the running read/write counts.
+struct SlotLinks {
+  int prev, pin, didx;
+};
+__device__ __forceinline__ SlotLinks slot_links(const Cfg& k, float* F,
+                                                int q, int lane, int base,
+                                                int v, int w, int fbi,
+                                                int chi, int* cr, int* cw) {
+  int* I = reinterpret_cast<int*>(F);
+  const unsigned below = (1u << lane) - 1u;
+  const unsigned above = ~below & ~(1u << lane);
+  const int i = q * 32 + lane;
+  const int kb = v ? fbi : -1, kc = v ? chi : -1;
+  const unsigned vb = __ballot_sync(kFull, v);
+  const unsigned mb = __match_any_sync(kFull, kb) & vb;
+  const unsigned mc = __match_any_sync(kFull, kc) & vb;
+  const unsigned br = __ballot_sync(kFull, v && !w);
+  const unsigned bw = __ballot_sync(kFull, v && w);
+  SlotLinks o{-1, -1, 0};
+  if (v) {
+    const unsigned lb = mb & below, lc = mc & below;
+    if (lb) {
+      o.prev = q * 32 + 31 - __clz(lb);
+    } else {
+      const int x = I[k.o_last_b + fbi];
+      o.prev = x >= base ? x - base : -1;
     }
-    const int intra = prev >= 0;
-    const int row_prev = intra ? s_row[prev] : -1;
-    int hit, empty;
+    if (lc) {
+      o.pin = q * 32 + 31 - __clz(lc);
+    } else {
+      const int x = I[k.o_last_c + chi];
+      o.pin = x >= base ? x - base : -1;
+    }
+  }
+  o.didx = w ? *cw + __popc(bw & below) : *cr + __popc(br & below);
+  // rank -> request: reads from the front, writes from the back
+  if (v) I[k.o_rank + (w ? k.C - 1 - o.didx : o.didx)] = i;
+  *cr += __popc(br);
+  *cw += __popc(bw);
+  __syncwarp();
+  if (v && !(mb & above)) I[k.o_last_b + fbi] = base + i;
+  if (v && !(mc & above)) I[k.o_last_c + chi] = base + i;
+  __syncwarp();
+  return o;
+}
+
+// ===== per-request math, shared by both instances ==========================
+// Each helper computes one request's step from values its caller supplies:
+// the register instance gathers another request's value with a shuffle,
+// which every lane must take part in, and the shared-memory instance with
+// a guarded load (`at`). Values of a missing link (index -1) are ignored.
+
+// Step 2 for one request: its tables and its view of the carried state.
+struct Req {
+  float lat, we, lb;       // row latency; its W (channel) and V (bank) edge
+  float head0, bank0, bus0;
+  int info, gh, slot;      // kValid..kSurv bits; in-chunk queue head; ring slot
+  int hit, empty;          // a row hit, an empty-row miss (valid only)
+};
+
+struct Counts {
+  int hits = 0, misses = 0, conflicts = 0;
+  __device__ __forceinline__ void add(const Req& r) {
+    hits += r.hit;
+    misses += r.empty;
+    conflicts += (r.info & kValid) && !r.hit && !r.empty;
+  }
+};
+// `stamp` is the request's index in the stream, `didx` its rank within its
+// direction, `ir`/`iw` the requests issued before the chunk and `nr`/`nw`
+// the chunk's; `rp` is the row of request `prev`, `fp` the bank of request
+// `pin`.
+__device__ __forceinline__ Req request_tables(
+    const Cfg& k, const float* F, int stamp, int v, int w, int fbi, int chi,
+    int rowi, int prev, int pin, int didx, int rp, int fp, int ir, int iw,
+    int nr, int nw) {
+  const int* I = reinterpret_cast<const int*>(F);
+  Req o;
+  o.info = (v ? kValid : 0) | (w ? kWrite : 0);
+  const int Q = w ? k.Qw : k.Qr;
+  o.gh = -1;                          // the same-direction request Q back
+  if (k.intra_heads && v && didx >= Q)
+    o.gh = I[k.o_rank + (w ? k.C - 1 - (didx - Q) : didx - Q)];
+  o.slot = (didx + (w ? iw : ir)) % Q;
+  if (v && didx + Q >= (w ? nw : nr)) o.info |= kSurv;
+  o.head0 = w ? F[k.o_ring_w + o.slot] : F[k.o_ring_r + o.slot];
+  o.lat = o.we = o.lb = o.bank0 = o.bus0 = 0.0f;
+  o.hit = o.empty = 0;
+  if (v) {
     // classify: intra-chunk links are order-only; the first request of a
     // bank in the chunk consults the carried open-row view
-    const int seen = intra ? row_prev : (vi ? open_row[fbi] : 0);
-    const int lat_i = row_latency(k, seen, rowi, &hit, &empty);
-    if (vi) {
-      hits += hit;
-      misses += empty;
-      conflicts += !hit && !empty;
-    }
-    const float lat = (float)lat_i;
-    int h2, e2;
-    const float lat_intra =
-        intra ? (float)row_latency(k, row_prev, rowi, &h2, &e2) : 0.0f;
-    const int linked = intra && pin >= 0 && s_fb[pin] == fbi;
-    s_we[i] = vi ? k.busy + (linked ? lat_intra : 0.0f) : 0.0f;
-    s_lb[i] = vi ? lat + k.busy : 0.0f;
-    s_rdx[i] = rdx;
-    s_wdx[i] = wdx;
-    __syncthreads();
-
-    float W = 0.0f, V = 0.0f;
-    for (int j = 0; j <= i; ++j) {
-      if (!s_v[j]) continue;
-      if (s_ch[j] == chi) W += s_we[j];
-      if (s_fb[j] == fbi) V += s_lb[j];
-    }
-    s_W[i] = W;
-    int ghead = -1;
-    if (k.intra_heads && (rmi || wmi)) {
-      const int want = wmi ? wdx - k.Qw : rdx - k.Qr;
-      for (int j = 0; j < C; ++j) {
-        if (!s_v[j] || (s_w[j] != 0) != (wmi != 0)) continue;
-        if ((k.n_qg > 1 ? s_ch[j] : 0) != qgi) continue;
-        if ((wmi ? s_wdx[j] : s_rdx[j]) == want) ghead = j;
-      }
-    }
-    __syncthreads();
-    const float W_prev = intra ? s_W[prev] : 0.0f;
-    // prune the iterated same-bank gather: links whose channel path
-    // already outweighs their latency are provably dominated
-    const int gprev = (intra && (lat_intra + k.busy > W - W_prev)) ? prev : -1;
-
-    // ---- carried-state gathers ----------------------------------------
-    PassIn p;
-    p.t = ti;
-    p.valid = vi;
-    p.cid = cidi;
-    p.ch = chi;
-    p.fb = fbi;
-    p.lat = lat;
-    p.W = W;
-    p.V = V;
-    p.ghead = ghead;
-    p.gprev = gprev;
-    p.bank0 = vi ? bank_free[fbi] : 0.0f;
-    p.bus0 = vi ? bus_free[chi] : 0.0f;
-    p.shift0 = vi ? shift[cidi] : 0.0f;
-    const int qg_safe = vi ? qgi : 0;
-    const int sl_r = (rdx + (vi ? ir[qg_safe] : 0)) % k.Qr;
-    const int sl_w = (wdx + (vi ? iw[qg_safe] : 0)) % k.Qw;
-    p.head0 = wi ? ring_w[qg_safe * k.Qw + sl_w] : ring_r[qg_safe * k.Qr + sl_r];
-    const int surv_r = rmi && rdx + k.Qr >= nr;
-    const int surv_w = wmi && wdx + k.Qw >= nw;
-
-    // ---- fixed point ---------------------------------------------------
-    s_done[i] = 0.0f;
-    __syncthreads();
-    float d = one_pass(k, p, i, s_v, s_cid, s_ch, s_fb, s_done, s_g, s_sw,
-                       s_uv);
-    s_done[i] = d;
-    __syncthreads();
-    if (k.cap >= 2) {
-      float before = d;
-      d = one_pass(k, p, i, s_v, s_cid, s_ch, s_fb, s_done, s_g, s_sw, s_uv);
-      s_done[i] = d;
-      int moved = __syncthreads_or(d - before > k.tol);
-      int passes = 2;
-      while (k.cap > 2 && passes < k.cap && moved) {
-        before = d;
-        d = one_pass(k, p, i, s_v, s_cid, s_ch, s_fb, s_done, s_g, s_sw,
-                     s_uv);
-        s_done[i] = d;
-        moved = __syncthreads_or(d - before > k.tol);
-        ++passes;
-      }
-    }
-    done_out[at] = d;
-
-    // ---- advance the carried state -------------------------------------
-    float head = p.head0;
-    if (k.intra_heads && ghead >= 0) head = fmaxf(p.head0, s_done[ghead]);
-    s_g[i] = vi ? head - ti : -INFINITY;
-    __syncthreads();
-    for (int c = i; c < k.n_cores; c += C) {
-      float m = shift[c];
-      for (int j = 0; j < C; ++j)
-        if (s_v[j] && s_cid[j] == c) m = fmaxf(m, s_g[j]);
-      shift[c] = m;
-    }
-    if (last_b) {
-      bank_free[fbi] = d;
-      open_row[fbi] = rowi;
-    }
-    if (last_c) bus_free[chi] = d;
-    if (surv_r) ring_r[qgi * k.Qr + sl_r] = d;
-    if (surv_w) ring_w[qgi * k.Qw + sl_w] = d;
-    // the last read (write) of a group advances its counter by the
-    // group's count in this chunk
-    if (rmi && rdx == nr - 1) ir[qgi] += nr;
-    if (wmi && wdx == nw - 1) iw[qgi] += nw;
-    __syncthreads();
+    const int intra = prev >= 0;
+    const int seen = intra ? rp : I[k.o_open_row + fbi];
+    o.lat = (float)row_latency(k, seen, rowi, &o.hit, &o.empty);
+    // channel max-plus edge: the bus burst, plus the row latency when the
+    // previous channel request sits on the same bank
+    const int linked = intra && pin >= 0 && fp == fbi;
+    o.we = k.busy + (linked ? o.lat : 0.0f);
+    o.lb = o.lat + k.busy;
+    o.bank0 = F[k.o_bank_free + fbi];
+    o.bus0 = F[k.o_bus_free + chi];
+    if (I[k.o_last_b + fbi] == stamp) o.info |= kLastB;
+    if (I[k.o_last_c + chi] == stamp) o.info |= kLastC;
   }
+  return o;
+}
 
-  atomicAdd(&s_cnt[0], hits);
-  atomicAdd(&s_cnt[1], misses);
-  atomicAdd(&s_cnt[2], conflicts);
-  __syncthreads();
-  for (int c = i; c < k.n_cores; c += C)
-    shift_out[(long)blockIdx.x * k.n_cores + c] = shift[c];
-  for (int q = i; q < 4; q += C)
-    cnt_out[(long)blockIdx.x * 4 + q] = q < 3 ? s_cnt[q] : 0;
+// One pointer-jumping round of a sum along links: x += x[p], p = p[p]; `xp`
+// and `pp` are request p's.
+__device__ __forceinline__ void jump_step(float x, int p, float xp, int pp,
+                                          float* nx, int* np) {
+  *nx = p >= 0 ? x + xp : x;
+  *np = p >= 0 ? pp : -1;
+}
+
+// Prune the iterated same-bank gather: a link whose channel path already
+// outweighs its latency is provably dominated. `Wp` is request prev's W.
+__device__ __forceinline__ int prune_link(const Cfg& k, int prev, float lat,
+                                          float W, float Wp) {
+  return prev >= 0 && lat + k.busy > W - Wp ? prev : -1;
+}
+
+// The queue head's free time, with the in-chunk head's iterate `dh`.
+__device__ __forceinline__ float head_time(float head0, int gh, float dh) {
+  return gh >= 0 ? fmaxf(head0, dh) : head0;
+}
+
+// The key of the shift's maximum over earlier requests.
+__device__ __forceinline__ float scan_key(int info, float head, float t) {
+  return (info & kValid) ? head - t : -INFINITY;
+}
+
+// A pass's value before the channel maxima: `ex` is the maximum key over
+// the earlier requests of the slot, `carry` over the earlier slots; `dp`
+// is request gp's iterate, `d` this request's.
+__device__ __forceinline__ float pass_start(const Cfg& k, int info, float t,
+                                            float head, float shift,
+                                            float carry, float ex,
+                                            float bank0, int gp, float dp,
+                                            float lat, float d, float W) {
+  const float ss = fmaxf(shift, fmaxf(carry, ex));
+  const float issue_ok = fmaxf(t + ss, head);
+  const float bankp = gp >= 0 ? fmaxf(bank0, dp) : bank0;
+  const float sv = fmaxf((fmaxf(issue_ok, bankp) + lat) + k.busy, d);
+  return (info & kValid) ? sv - W : -INFINITY;
+}
+
+// One round of a keyed maximum along jump pointers; `x` is request j's.
+__device__ __forceinline__ float link_max(float m, int j, float x) {
+  return j >= 0 ? fmaxf(m, x) : m;
+}
+
+// From the channel maxima to the bank maxima.
+__device__ __forceinline__ float chan_to_bank(int info, float m, float W,
+                                              float bus0, float V) {
+  const float u = fmaxf(m + W, bus0 + W);
+  return (info & kValid) ? u - V : -INFINITY;
+}
+
+// The pass's new iterate; returns whether it moved by more than tol.
+__device__ __forceinline__ int settle(const Cfg& k, int info, float m,
+                                      float V, float* d) {
+  const float nd = (info & kValid) ? m + V : 0.0f;
+  const int moved = nd - *d > k.tol;
+  *d = nd;
+  return moved;
+}
+
+// Two passes unconditionally (one under a cap of 1), then while a
+// completion moved by more than tol, up to the cap. Warp-uniform.
+__device__ __forceinline__ bool last_pass(const Cfg& k, int passes,
+                                          int moved) {
+  return passes == 1 ? k.cap < 2
+                     : !(k.cap > 2 && passes < k.cap &&
+                         __any_sync(kFull, moved));
+}
+
+// Advance the carried state by one resolved request.
+__device__ __forceinline__ void commit(const Cfg& k, float* F, int info,
+                                       int fbi, int chi, int rowi, int slot,
+                                       float d) {
+  int* I = reinterpret_cast<int*>(F);
+  if (info & kLastB) {
+    F[k.o_bank_free + fbi] = d;
+    I[k.o_open_row + fbi] = rowi;
+  }
+  if (info & kLastC) F[k.o_bus_free + chi] = d;
+  if (info & kSurv) F[(info & kWrite ? k.o_ring_w : k.o_ring_r) + slot] = d;
+}
+
+// The stream's shift and counts, from lane 0.
+__device__ __forceinline__ void write_stream(long stream, int lane,
+                                             float shift, Counts n,
+                                             float* shift_out,
+                                             int* cnt_out) {
+  n.hits = warp_sum(n.hits);
+  n.misses = warp_sum(n.misses);
+  n.conflicts = warp_sum(n.conflicts);
+  if (lane == 0) {
+    shift_out[stream] = shift;
+    cnt_out[stream * 4 + 0] = n.hits;
+    cnt_out[stream * 4 + 1] = n.misses;
+    cnt_out[stream * 4 + 2] = n.conflicts;
+    cnt_out[stream * 4 + 3] = 0;
+  }
+}
+
+// ===== C <= 64: a lane's requests in registers, gathers by shuffles =======
+
+// x of request j (j >= 0) from the lane that owns it; every lane calls it
+template <int K, typename T>
+__device__ __forceinline__ T gather(const T (&x)[K], int j, int lane) {
+  const int src = j >= 0 ? (j & 31) : lane;
+  T r = __shfl_sync(kFull, x[0], src);
+  if (K == 2) {
+    const T hi = __shfl_sync(kFull, x[K - 1], src);
+    if (j >= 32) r = hi;
+  }
+  return r;
+}
+
+// One chunk's inputs, a lane's K requests (invalid past C or nc).
+template <int K>
+struct Inputs {
+  float t[K];
+  int fb[K], ch[K], row[K], w[K], v[K];
+  __device__ __forceinline__ void load(
+      const float* __restrict__ t_in, const int* __restrict__ fb_in,
+      const int* __restrict__ ch_in, const int* __restrict__ row_in,
+      const int* __restrict__ w_in, const int* __restrict__ v_in,
+      long sbase, int c, int nc, int C, int lane) {
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int i = q * 32 + lane;
+      const bool in = i < C && c < nc;
+      const long at = sbase + (long)c * C + i;
+      t[q] = in ? t_in[at] : 0.0f;
+      fb[q] = in ? fb_in[at] : 0;
+      ch[q] = in ? ch_in[at] : 0;
+      row[q] = in ? row_in[at] : 0;
+      w[q] = in ? w_in[at] != 0 : 0;
+      v[q] = in ? v_in[at] != 0 : 0;
+    }
+  }
+};
+
+template <int K>
+__global__ void __launch_bounds__(32 * kWarpsMax)
+replay_regs(const float* __restrict__ t_in, const int* __restrict__ fb_in,
+            const int* __restrict__ ch_in, const int* __restrict__ row_in,
+            const int* __restrict__ w_in, const int* __restrict__ v_in,
+            float* __restrict__ done_out, float* __restrict__ shift_out,
+            int* __restrict__ cnt_out, Cfg k) {
+  constexpr int L = K == 1 ? 5 : 6;   // jump levels for C <= 32 K
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const long stream = (long)blockIdx.x * (blockDim.x >> 5) + wib;
+  if (stream >= k.S) return;          // a whole warp: no barrier follows
+  float* F = reinterpret_cast<float*>(smem) + (size_t)wib * k.warp_words;
+  const int C = k.C;
+  const long sbase = stream * (long)k.nc * C;
+  init_state(k, F, lane);
+  Counts n;
+  int ir = 0, iw = 0;
+  float shift = 0.0f;
+
+  // this chunk's inputs in registers; the next chunk's loads are issued
+  // a chunk ahead
+  Inputs<K> cur, nxt;
+  cur.load(t_in, fb_in, ch_in, row_in, w_in, v_in, sbase, 0, k.nc, C, lane);
+
+  for (int c = 0; c < k.nc; ++c) {
+    nxt.load(t_in, fb_in, ch_in, row_in, w_in, v_in, sbase, c + 1, k.nc, C,
+             lane);
+    const float(&t)[K] = cur.t;
+    const int(&fb)[K] = cur.fb;
+    const int(&ch)[K] = cur.ch;
+    const int(&row)[K] = cur.row;
+    const int base = c * C;           // stamp of this chunk's request 0
+
+    // ---- 1. links and ranks ---------------------------------------------
+    int prev[K], pin[K], didx[K];
+    int cr = 0, cw = 0;
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const SlotLinks o = slot_links(k, F, q, lane, base, cur.v[q], cur.w[q],
+                                     fb[q], ch[q], &cr, &cw);
+      prev[q] = o.prev;
+      pin[q] = o.pin;
+      didx[q] = o.didx;
+    }
+    const int nr = cr, nw = cw;
+
+    // ---- 2. per-request tables and carried-state gathers ----------------
+    Req rq[K];
+    float wv[K], vv[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int rp = gather<K>(row, prev[q], lane);
+      const int fp = gather<K>(fb, pin[q], lane);
+      rq[q] = request_tables(k, F, base + q * 32 + lane, cur.v[q], cur.w[q],
+                             fb[q], ch[q], row[q], prev[q], pin[q], didx[q],
+                             rp, fp, ir, iw, nr, nw);
+      n.add(rq[q]);
+      wv[q] = rq[q].we;
+      vv[q] = rq[q].lb;
+    }
+
+    // ---- 3. W, V: sums along the channel / bank links, pointer jumping --
+    int jc[L][K], jb[L][K];
+    int pc[K], pk[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      pc[q] = pin[q];
+      pk[q] = prev[q];
+    }
+    int lc = 0, lbk = 0;              // rounds in use per chain
+#pragma unroll
+    for (int r = 0; r < L; ++r) {
+      int anyc = 0, anyb = 0;
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        jc[r][q] = pc[q];
+        jb[r][q] = pk[q];
+        anyc |= pc[q] >= 0;
+        anyb |= pk[q] >= 0;
+      }
+      anyc = __any_sync(kFull, anyc);
+      anyb = __any_sync(kFull, anyb);
+      if (!anyc && !anyb) break;
+      if (anyc) lc = r + 1;
+      if (anyb) lbk = r + 1;
+      float nwv[K], nvv[K];
+      int npc[K], npk[K];
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        const float gw = gather<K>(wv, pc[q], lane);
+        const int gp = gather<K>(pc, pc[q], lane);
+        const float gv = gather<K>(vv, pk[q], lane);
+        const int gk = gather<K>(pk, pk[q], lane);
+        jump_step(wv[q], pc[q], gw, gp, &nwv[q], &npc[q]);
+        jump_step(vv[q], pk[q], gv, gk, &nvv[q], &npk[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        wv[q] = nwv[q];
+        pc[q] = npc[q];
+        vv[q] = nvv[q];
+        pk[q] = npk[q];
+      }
+    }
+    const float(&W)[K] = wv;
+    const float(&V)[K] = vv;
+    int gp[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q)
+      gp[q] = prune_link(k, prev[q], rq[q].lat, W[q],
+                         gather<K>(W, prev[q], lane));
+
+    // ---- 4. fixed point: Jacobi passes ----------------------------------
+    float d[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) d[q] = 0.0f;
+    for (int passes = 1;; ++passes) {
+      float m[K];
+      float carry = -INFINITY;        // max of the key over earlier slots
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        const float head =
+            head_time(rq[q].head0, rq[q].gh, gather<K>(d, rq[q].gh, lane));
+        float total;
+        const float ex =
+            lane_excl_max(scan_key(rq[q].info, head, t[q]), lane, &total);
+        const float dp = gather<K>(d, gp[q], lane);
+        m[q] = pass_start(k, rq[q].info, t[q], head, shift, carry, ex,
+                          rq[q].bank0, gp[q], dp, rq[q].lat, d[q], W[q]);
+        carry = fmaxf(carry, total);
+      }
+#pragma unroll
+      for (int r = 0; r < L; ++r) {   // max along the channel links
+        if (r >= lc) break;
+        float nm[K];
+#pragma unroll
+        for (int q = 0; q < K; ++q)
+          nm[q] = link_max(m[q], jc[r][q], gather<K>(m, jc[r][q], lane));
+#pragma unroll
+        for (int q = 0; q < K; ++q) m[q] = nm[q];
+      }
+#pragma unroll
+      for (int q = 0; q < K; ++q)
+        m[q] = chan_to_bank(rq[q].info, m[q], W[q], rq[q].bus0, V[q]);
+#pragma unroll
+      for (int r = 0; r < L; ++r) {   // max along the bank links
+        if (r >= lbk) break;
+        float nm[K];
+#pragma unroll
+        for (int q = 0; q < K; ++q)
+          nm[q] = link_max(m[q], jb[r][q], gather<K>(m, jb[r][q], lane));
+#pragma unroll
+        for (int q = 0; q < K; ++q) m[q] = nm[q];
+      }
+      int moved = 0;
+#pragma unroll
+      for (int q = 0; q < K; ++q)
+        moved |= settle(k, rq[q].info, m[q], V[q], &d[q]);
+      if (last_pass(k, passes, moved)) break;
+    }
+
+    // ---- 5. outputs; advance the carried state --------------------------
+    float gmax = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int i = q * 32 + lane;
+      const float head =
+          head_time(rq[q].head0, rq[q].gh, gather<K>(d, rq[q].gh, lane));
+      if (i < C) done_out[sbase + base + i] = d[q];
+      gmax = fmaxf(gmax, scan_key(rq[q].info, head, t[q]));
+      commit(k, F, rq[q].info, fb[q], ch[q], row[q], rq[q].slot, d[q]);
+    }
+    shift = fmaxf(shift, warp_max(gmax));
+    ir += nr;
+    iw += nw;
+    cur = nxt;
+    __syncwarp();
+  }
+  write_stream(stream, lane, shift, n, shift_out, cnt_out);
+}
+
+// ===== any C <= 1024: per-request arrays in shared memory =================
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+template <typename T>
+__device__ __forceinline__ void swap_ptr(T*& a, T*& b) {
+  T* t = a;
+  a = b;
+  b = t;
+}
+
+// a[j], or a zero that the caller ignores where j is a missing link
+template <typename T>
+__device__ __forceinline__ T at(const T* a, int j) {
+  return j >= 0 ? a[j] : T(0);
+}
+
+__global__ void __launch_bounds__(32 * kWarpsMax)
+replay_smem(const float* __restrict__ t_in, const int* __restrict__ fb_in,
+            const int* __restrict__ ch_in, const int* __restrict__ row_in,
+            const int* __restrict__ w_in, const int* __restrict__ v_in,
+            float* __restrict__ done_out, float* __restrict__ shift_out,
+            int* __restrict__ cnt_out, Cfg k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const long stream = (long)blockIdx.x * (blockDim.x >> 5) + wib;
+  if (stream >= k.S) return;          // a whole warp: no barrier follows
+  float* F = reinterpret_cast<float*>(smem) + (size_t)wib * k.warp_words;
+  int* I = reinterpret_cast<int*>(F);
+  const int C = k.C, K = k.K;
+  const long sbase = stream * (long)k.nc * C;
+  float* const lat = F + k.o_lat;
+  float* const head0 = F + k.o_head0;
+  float* const bank0 = F + k.o_bank0;
+  float* const bus0 = F + k.o_bus0;
+  float* const done = F + k.o_done;
+  int* const info = I + k.o_info;
+  int* const ghead = I + k.o_ghead;
+  int* const gprev = I + k.o_gprev;
+  int* const slot = I + k.o_slot;
+  short* const jc = reinterpret_cast<short*>(I + k.o_jc);
+  short* const jb = reinterpret_cast<short*>(I + k.o_jb);
+  init_state(k, F, lane);
+  Counts n;
+  int ir = 0, iw = 0;
+  float shift = 0.0f;
+
+  // chunk `c`'s inputs -> staging buffer `b`, asynchronously
+  auto prefetch = [&](int c, int b) {
+    float* st = F + k.o_in + b * 6 * C;
+    const long at0 = sbase + (long)c * C;
+    for (int i = lane; i < C; i += 32) {
+      cp_async4(st + i, t_in + at0 + i);
+      cp_async4(st + C + i, fb_in + at0 + i);
+      cp_async4(st + 2 * C + i, ch_in + at0 + i);
+      cp_async4(st + 3 * C + i, row_in + at0 + i);
+      cp_async4(st + 4 * C + i, w_in + at0 + i);
+      cp_async4(st + 5 * C + i, v_in + at0 + i);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  prefetch(0, 0);
+
+  for (int c = 0; c < k.nc; ++c) {
+    if (c + 1 < k.nc) prefetch(c + 1, (c + 1) & 1);
+    else asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncwarp();
+    const float* tt = F + k.o_in + (c & 1) * 6 * C;
+    const int* fb = I + k.o_in + (c & 1) * 6 * C + C;
+    const int* ch = fb + C;
+    const int* row = ch + C;
+    const int* ww = row + C;
+    const int* vv = ww + C;
+    const int base = c * C;
+
+    // ---- 1. links and ranks, one 32-request slot at a time ---------------
+    int cr = 0, cw = 0;
+    for (int q = 0; q < K; ++q) {
+      const int i = q * 32 + lane;
+      const bool in = i < C;
+      const int v = in && vv[i] != 0, w = in && ww[i] != 0;
+      const SlotLinks o = slot_links(k, F, q, lane, base, v, w,
+                                     in ? fb[i] : 0, in ? ch[i] : 0, &cr,
+                                     &cw);
+      if (in) {
+        jb[i] = (short)o.prev;          // level 0 of the jump pointers
+        jc[i] = (short)o.pin;
+        slot[i] = o.didx;               // rank within its direction
+      }
+    }
+    __syncwarp();
+    const int nr = cr, nw = cw;
+
+    // ---- 2. per-request tables and carried-state gathers ----------------
+    for (int q = 0; q < K; ++q) {
+      const int i = q * 32 + lane;
+      if (i >= C) break;
+      const int prev = jb[i], pin = jc[i];
+      const Req r = request_tables(k, F, base + i, vv[i] != 0, ww[i] != 0,
+                                   fb[i], ch[i], row[i], prev, pin, slot[i],
+                                   at(row, prev), at(fb, pin), ir, iw, nr,
+                                   nw);
+      n.add(r);
+      lat[i] = r.lat;
+      head0[i] = r.head0;
+      bank0[i] = r.bank0;
+      bus0[i] = r.bus0;
+      info[i] = r.info;
+      ghead[i] = r.gh;
+      slot[i] = r.slot;
+      done[i] = 0.0f;
+      F[k.o_a0 + i] = r.we;
+      I[k.o_p0 + i] = pin;
+      F[k.o_b0 + i] = r.lb;
+      I[k.o_q0 + i] = prev;
+    }
+    __syncwarp();
+
+    // ---- 3. W, V: sums along the channel / bank links, pointer jumping --
+    float *wa = F + k.o_a0, *wb = F + k.o_a1, *va = F + k.o_b0,
+          *vb = F + k.o_b1;
+    int *pa = I + k.o_p0, *pb = I + k.o_p1, *qa = I + k.o_q0,
+        *qb = I + k.o_q1;
+    int lc = 0, lbk = 0;
+    for (int r = 0; r < k.levels; ++r) {
+      int anyc = 0, anyb = 0;
+      for (int q = 0; q < K; ++q) {
+        const int i = q * 32 + lane;
+        if (i >= C) break;
+        const int pc = pa[i], pk = qa[i];
+        if (r > 0) {
+          jc[r * C + i] = (short)pc;
+          jb[r * C + i] = (short)pk;
+        }
+        anyc |= pc >= 0;
+        anyb |= pk >= 0;
+        jump_step(wa[i], pc, at(wa, pc), at(pa, pc), &wb[i], &pb[i]);
+        jump_step(va[i], pk, at(va, pk), at(qa, pk), &vb[i], &qb[i]);
+      }
+      anyc = __any_sync(kFull, anyc);
+      anyb = __any_sync(kFull, anyb);
+      __syncwarp();
+      swap_ptr(wa, wb);
+      swap_ptr(pa, pb);
+      swap_ptr(va, vb);
+      swap_ptr(qa, qb);
+      if (anyc) lc = r + 1;
+      if (anyb) lbk = r + 1;
+      if (!anyc && !anyb) break;
+    }
+    const float* W = wa;
+    const float* V = va;
+    for (int q = 0; q < K; ++q) {
+      const int i = q * 32 + lane;
+      if (i >= C) break;
+      const int prev = jb[i];
+      gprev[i] = prune_link(k, prev, lat[i], W[i], at(W, prev));
+    }
+    __syncwarp();
+
+    // ---- 4. fixed point: Jacobi passes (the iterate in `done`) ----------
+    float* const m0 = F + k.o_m0;
+    float* const m1 = F + k.o_m1;
+    for (int passes = 1;; ++passes) {
+      float carry = -INFINITY;
+      for (int q = 0; q < K; ++q) {
+        const int i = q * 32 + lane;
+        const bool in = i < C;
+        float key = -INFINITY, head = 0.0f;
+        if (in) {
+          head = head_time(head0[i], ghead[i], at(done, ghead[i]));
+          key = scan_key(info[i], head, tt[i]);
+        }
+        float total;
+        const float ex = lane_excl_max(key, lane, &total);
+        if (in)
+          m0[i] = pass_start(k, info[i], tt[i], head, shift, carry, ex,
+                             bank0[i], gprev[i], at(done, gprev[i]), lat[i],
+                             done[i], W[i]);
+        carry = fmaxf(carry, total);
+      }
+      __syncwarp();
+      float *cur = m0, *nxt = m1;
+      for (int r = 0; r < lc; ++r) {    // max along the channel links
+        for (int q = 0; q < K; ++q) {
+          const int i = q * 32 + lane;
+          if (i >= C) break;
+          const int j = jc[r * C + i];
+          nxt[i] = link_max(cur[i], j, at(cur, j));
+        }
+        __syncwarp();
+        swap_ptr(cur, nxt);
+      }
+      for (int q = 0; q < K; ++q) {
+        const int i = q * 32 + lane;
+        if (i >= C) break;
+        cur[i] = chan_to_bank(info[i], cur[i], W[i], bus0[i], V[i]);
+      }
+      __syncwarp();
+      for (int r = 0; r < lbk; ++r) {   // max along the bank links
+        for (int q = 0; q < K; ++q) {
+          const int i = q * 32 + lane;
+          if (i >= C) break;
+          const int j = jb[r * C + i];
+          nxt[i] = link_max(cur[i], j, at(cur, j));
+        }
+        __syncwarp();
+        swap_ptr(cur, nxt);
+      }
+      int moved = 0;
+      for (int q = 0; q < K; ++q) {
+        const int i = q * 32 + lane;
+        if (i >= C) break;
+        moved |= settle(k, info[i], cur[i], V[i], &done[i]);
+      }
+      __syncwarp();
+      if (last_pass(k, passes, moved)) break;
+    }
+
+    // ---- 5. outputs; advance the carried state --------------------------
+    float gmax = -INFINITY;
+    for (int q = 0; q < K; ++q) {
+      const int i = q * 32 + lane;
+      if (i >= C) break;
+      const float head = head_time(head0[i], ghead[i], at(done, ghead[i]));
+      done_out[sbase + base + i] = done[i];
+      gmax = fmaxf(gmax, scan_key(info[i], head, tt[i]));
+      commit(k, F, info[i], fb[i], ch[i], row[i], slot[i], done[i]);
+    }
+    shift = fmaxf(shift, warp_max(gmax));
+    ir += nr;
+    iw += nw;
+    __syncwarp();
+  }
+  write_stream(stream, lane, shift, n, shift_out, cnt_out);
+}
+
+template <typename Kern>
+int launch_kernel(Kern kern, const float* t, const int* fb, const int* ch,
+                  const int* row, const int* w, const int* v, float* done,
+                  float* shift, int* cnt, const Cfg& k, int sms, int optin,
+                  cudaStream_t stream) {
+  const size_t warp_bytes = (size_t)k.warp_words * 4;
+  if (warp_bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
+  // streams per block: the fewest warps on the busiest SM (one wave of
+  // blocks spread evenly), ties to the larger block
+  int warps = 1;
+  long best = -1;
+  for (int wpb = kWarpsMax; wpb >= 1; wpb >>= 1) {
+    if ((size_t)wpb * warp_bytes > (size_t)optin) continue;
+    const long blocks = (k.S + wpb - 1) / wpb;
+    const long busiest = (blocks + sms - 1) / sms * wpb;
+    if (best < 0 || busiest < best) {
+      best = busiest;
+      warps = wpb;
+    }
+  }
+  const size_t smem = (size_t)warps * warp_bytes;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const unsigned blocks = (unsigned)((k.S + warps - 1) / warps);
+  kern<<<blocks, 32 * warps, smem, stream>>>(t, fb, ch, row, w, v, done,
+                                             shift, cnt, k);
+  return (int)cudaGetLastError();
+}
+
+Cfg make_cfg(int S, int nc, int C, int channels, int banks_per_channel,
+             int tRCD, int tRP, int tCAS, int read_queue, int write_queue,
+             int max_passes, float busy, float tol) {
+  Cfg k{};
+  k.S = S;
+  k.nc = nc;
+  k.C = C;
+  k.K = (C + 31) / 32;
+  k.levels = 1;
+  while ((1 << k.levels) < C) ++k.levels;
+  k.ch_n = channels;
+  k.n_banks = channels * banks_per_channel;
+  k.tRCD = tRCD;
+  k.tRP = tRP;
+  k.tCAS = tCAS;
+  k.Qr = read_queue;
+  k.Qw = write_queue;
+  k.cap = max_passes > 0 ? max_passes : C + 2;
+  k.busy = busy;
+  k.tol = tol;
+  k.intra_heads = read_queue < C || write_queue < C;
+  layout(k, C > 64);
+  return k;
 }
 
 }  // namespace
 
-extern "C" size_t replay_megakernel_smem_bytes(int C, int n_banks, int ch_n,
-                                               int n_qg, int Qr, int Qw,
-                                               int n_cores) {
-  return sizeof(float) * ((size_t)2 * n_banks + ch_n + (size_t)n_qg * Qr +
-                          (size_t)n_qg * Qw + 2 * (size_t)n_qg + n_cores + 4 +
-                          (size_t)16 * C);
-}
-
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
+// Takes one core and one queue group per direction: n_cores != 1 or
+// n_qg != 1 is refused with cudaErrorInvalidValue, and the core-id input
+// is not read.
 extern "C" int replay_megakernel_launch(
     const float* t, const int* fb, const int* ch, const int* row,
     const int* w, const int* v, const int* cid, float* done, float* shift,
@@ -347,38 +913,26 @@ extern "C" int replay_megakernel_launch(
     int tRCD, int tRP, int tCAS, int read_queue, int write_queue,
     int n_cores, int n_qg, int max_passes, float busy, float tol,
     void* stream) {
-  Cfg k;
-  k.nc = nc;
-  k.C = C;
-  k.ch_n = channels;
-  k.bk_n = banks_per_channel;
-  k.n_banks = channels * banks_per_channel;
-  k.tRCD = tRCD;
-  k.tRP = tRP;
-  k.tCAS = tCAS;
-  k.Qr = read_queue;
-  k.Qw = write_queue;
-  k.n_cores = n_cores;
-  k.n_qg = n_qg;
-  k.cap = max_passes > 0 ? max_passes : C + 2;
-  k.busy = busy;
-  k.tol = tol;
-  k.intra_heads = read_queue < C || write_queue < C;
+  (void)cid;
+  if (n_cores != 1 || n_qg != 1) return (int)cudaErrorInvalidValue;
   if (S <= 0 || nc <= 0) return (int)cudaSuccess;
-  if (C < 1 || C > 1024) return (int)cudaErrorInvalidValue;
-  size_t smem = replay_megakernel_smem_bytes(C, k.n_banks, channels, n_qg,
-                                             read_queue, write_queue, n_cores);
-  int dev = 0, optin = 0;
+  if (C < 1 || C > 1024 || (long)nc * C > 0x7fffffffL || channels < 1 ||
+      banks_per_channel < 1 || read_queue < 1 || write_queue < 1)
+    return (int)cudaErrorInvalidValue;
+  const Cfg k = make_cfg(S, nc, C, channels, banks_per_channel, tRCD, tRP,
+                         tCAS, read_queue, write_queue, max_passes, busy,
+                         tol);
+  int dev = 0, optin = 0, sms = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        replay_megakernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  replay_megakernel<<<S, C, smem, (cudaStream_t)stream>>>(
-      t, fb, ch, row, w, v, cid, done, shift, cnt, k);
-  return (int)cudaGetLastError();
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (C <= 32)
+    return launch_kernel(replay_regs<1>, t, fb, ch, row, w, v, done, shift,
+                         cnt, k, sms, optin, s);
+  if (C <= 64)
+    return launch_kernel(replay_regs<2>, t, fb, ch, row, w, v, done, shift,
+                         cnt, k, sms, optin, s);
+  return launch_kernel(replay_smem, t, fb, ch, row, w, v, done, shift, cnt,
+                       k, sms, optin, s);
 }

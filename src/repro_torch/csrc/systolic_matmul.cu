@@ -6,32 +6,42 @@
 // stationary one, O (T, C) in the promoted dtype of the two. Inputs are
 // float32, bfloat16 or float16 in any mix.
 //
-// Design. A plain tiled product on the CUDA cores: each block owns a 64 x 64
-// tile of O, its 256 threads a 4 x 4 micro-tile each, strided by 16 rows and
-// 16 columns so that shared-memory reads are conflict-free and the stores
-// of a warp's 16 neighbouring threads hit neighbouring addresses. The
-// reduction walks R in steps of 16: a 64 x 16 tile of x (stored transposed)
-// and a 16 x 64 tile of w go to shared memory as float32, and every thread
-// accumulates with float32 FMAs. The sum is rounded once, to O's dtype, at
-// the store. No tensor cores: TF32 would keep about three decimal digits,
-// outside the float32 contract of the fold plane.
+// What bounds it on this card: latency. A fold of the vit_base path
+// (197 x 128 x 128) reads 0.26 MB and does 6.5 MFLOP, about 0.1 us at the
+// float32 rate of the CUDA cores; what a fold costs is the time to get
+// its operands from memory into enough SMs and one dependent FMA chain of
+// R steps per output. A 64 x 64 tiling gave such a fold 8 blocks, each
+// walking R in 16-deep load-barrier-compute rounds with nothing in flight
+// during the FMAs.
 //
-// Bound on this card: a fold of the vit_base path (197 x 128 x 128) reads
-// 0.26 MB and does 6.5 MFLOP, about 0.1 us at the float32 rate of the CUDA
-// cores, far below a launch's cost; this simple form is bound by that
-// launch and by the few blocks (8) such a fold has.
+// Design. Many small output tiles: each block owns a 16 x 16 tile of O
+// (a 197 x 128 fold gets 13 x 8 = 104 blocks), its 64 threads one row and
+// four neighbouring columns each. A block stages the operand panels it
+// needs, x rows (16 x R) and w columns (R x 16), in shared memory in the
+// operands' own dtypes, 128 deep at a time: each stage is issued as
+// 16-byte `cp.async` copies (zero-filled past the ragged edges), then one
+// barrier, then the FMAs. At R <= 128 (every fold on a 128-row array) a
+// block's whole panels arrive in one stage; a longer R runs a ring of two
+// stages, the next stage's copies in flight during the current one's
+// FMAs. Where an operand's base address or row pitch is not 16-byte
+// aligned (a view offset into a larger tensor, R or C not a multiple of
+// 16 bytes) that operand's panels are loaded element by element instead,
+// into the same layout. Each output is one float32 accumulator, summed
+// over k in ascending order with FMAs on the CUDA cores and rounded once,
+// to O's dtype, at the store: TF32 tensor cores would keep about three
+// decimal digits, outside the float32 contract of the fold plane, and at
+// these sizes buy nothing.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBM = 64;      // O rows per block
-constexpr int kBN = 64;      // O columns per block
-constexpr int kBK = 16;      // reduction step
-constexpr int kTM = 4;       // O rows per thread (strided by 16)
-constexpr int kTN = 4;       // O columns per thread (strided by 16)
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);
+constexpr int kBM = 16;      // O rows per block
+constexpr int kBN = 16;      // O columns per block
+constexpr int kBK = 128;     // reduction depth per stage
+constexpr int kThreads = kBM * (kBN / 4);   // one row x 4 columns each
 
 // dtype codes of the C entry point (the wrapper's `_DTYPE_CODE`)
 constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
@@ -55,60 +65,152 @@ __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half_rn(v);
 }
 
+// four neighbouring w values of one stage row, as float32
+__device__ __forceinline__ void load4(const float* p, float* b) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  b[0] = v.x;
+  b[1] = v.y;
+  b[2] = v.z;
+  b[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* b) {
+  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 lo = __bfloat1622float2(q[0]);
+  const float2 hi = __bfloat1622float2(q[1]);
+  b[0] = lo.x;
+  b[1] = lo.y;
+  b[2] = hi.x;
+  b[3] = hi.y;
+}
+__device__ __forceinline__ void load4(const __half* p, float* b) {
+  const __half2* q = reinterpret_cast<const __half2*>(p);
+  const float2 lo = __half22float2(q[0]);
+  const float2 hi = __half22float2(q[1]);
+  b[0] = lo.x;
+  b[1] = lo.y;
+  b[2] = hi.x;
+  b[3] = hi.y;
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !valid (no read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename TX, typename TW>
+struct Stage {
+  static constexpr int kVX = 16 / sizeof(TX);      // x elements per 16 B
+  static constexpr int kVW = 16 / sizeof(TW);
+  static constexpr int kXP = kBK + kVX;            // x row pitch (padded)
+  TX xs[2][kBM * kXP];     // x panel rows, k contiguous
+  TW ws[2][kBK * kBN];     // w panel, one row of 16 columns per k
+};
+
+// Issue stage `st` (reduction rows k0 .. k0 + kBK) into buffer `b`.
+template <typename TX, typename TW>
+__device__ __forceinline__ void load_stage(Stage<TX, TW>& sm, int b,
+                                           const TX* __restrict__ x,
+                                           const TW* __restrict__ w,
+                                           long long row0, long long col0,
+                                           int k0, int T, int R, int C,
+                                           bool vec_x, bool vec_w) {
+  using S = Stage<TX, TW>;
+  TX* xs = sm.xs[b];
+  TW* ws = sm.ws[b];
+  if (vec_x) {
+    constexpr int per_row = kBK / S::kVX;
+    for (int e = threadIdx.x; e < kBM * per_row; e += kThreads) {
+      const int m = e / per_row, kc = (e % per_row) * S::kVX;
+      const long long r = row0 + m;
+      const bool ok = r < T && k0 + kc < R;
+      cp_async16(xs + m * S::kXP + kc, ok ? x + r * R + k0 + kc : x, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kBM * kBK; e += kThreads) {
+      const int m = e / kBK, kk = e % kBK;
+      const long long r = row0 + m;
+      xs[m * S::kXP + kk] =
+          (r < T && k0 + kk < R) ? x[r * R + k0 + kk] : from_f32<TX>(0.0f);
+    }
+  }
+  if (vec_w) {
+    constexpr int per_row = kBN / S::kVW;
+    for (int e = threadIdx.x; e < kBK * per_row; e += kThreads) {
+      const int kk = e / per_row, nc = (e % per_row) * S::kVW;
+      const long long c = col0 + nc;
+      const bool ok = k0 + kk < R && c < C;
+      cp_async16(ws + kk * kBN + nc,
+                 ok ? w + (long long)(k0 + kk) * C + c : w, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kBK * kBN; e += kThreads) {
+      const int kk = e / kBN, n = e % kBN;
+      const long long c = col0 + n;
+      ws[kk * kBN + n] = (k0 + kk < R && c < C)
+                             ? w[(long long)(k0 + kk) * C + c]
+                             : from_f32<TW>(0.0f);
+    }
+  }
+  cp_async_commit();
+}
+
 template <typename TX, typename TW, typename TO>
 __global__ void __launch_bounds__(kThreads)
 matmul_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-              TO* __restrict__ out, int T, int R, int C) {
-  __shared__ float xs[kBK][kBM + 1];     // x tile, transposed
-  __shared__ float ws[kBK][kBN];
-  const int tx = threadIdx.x % (kBN / kTN);
-  const int ty = threadIdx.x / (kBN / kTN);
-  const long long row0 = (long long)blockIdx.x * kBM;
-  const long long col0 = (long long)blockIdx.y * kBN;
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+              TO* __restrict__ out, int T, int R, int C, int col_tiles,
+              bool vec_x, bool vec_w) {
+  using S = Stage<TX, TW>;
+  __shared__ __align__(16) unsigned char raw[sizeof(S)];
+  S& sm = *reinterpret_cast<S*>(raw);
+  const long long tile = blockIdx.x;
+  const long long row0 = tile / col_tiles * kBM;
+  const long long col0 = tile % col_tiles * kBN;
+  const int tr = threadIdx.x >> 2;          // this thread's tile row
+  const int tc = (threadIdx.x & 3) * 4;     // its first tile column
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 
-  for (int k0 = 0; k0 < R; k0 += kBK) {
-    for (int e = threadIdx.x; e < kBM * kBK; e += kThreads) {
-      const int m = e / kBK, k = e % kBK;
-      const long long gr = row0 + m;
-      const int gk = k0 + k;
-      xs[k][m] = (gr < T && gk < R) ? to_f32(x[gr * R + gk]) : 0.0f;
-    }
-    for (int e = threadIdx.x; e < kBK * kBN; e += kThreads) {
-      const int k = e / kBN, n = e % kBN;
-      const int gk = k0 + k;
-      const long long gc = col0 + n;
-      ws[k][n] = (gk < R && gc < C) ? to_f32(w[(long long)gk * C + gc])
-                                    : 0.0f;
+  const int stages = (R + kBK - 1) / kBK;
+  if (stages > 0)
+    load_stage(sm, 0, x, w, row0, col0, 0, T, R, C, vec_x, vec_w);
+  for (int st = 0; st < stages; ++st) {
+    if (st + 1 < stages) {   // the ring: next stage in flight during this one
+      load_stage(sm, (st + 1) & 1, x, w, row0, col0, (st + 1) * kBK, T, R, C,
+                 vec_x, vec_w);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const TX* xr = sm.xs[st & 1] + tr * S::kXP;
+    const TW* wc = sm.ws[st & 1] + tc;
+    const int kmax = min(kBK, R - st * kBK);
+#pragma unroll 8
+    for (int k = 0; k < kmax; ++k) {
+      const float a = to_f32(xr[k]);
+      float b[4];
+      load4(wc + k * kBN, b);
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float a[kTM], b[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = xs[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) b[j] = ws[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < 4; ++j) acc[j] = fmaf(a, b[j], acc[j]);
     }
-    __syncthreads();
+    __syncthreads();           // before the ring overwrites this buffer
   }
+  const long long r = row0 + tr;
+  if (r >= T) return;
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const long long r = row0 + ty + 16 * i;
-    if (r >= T) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const long long c = col0 + tx + 16 * j;
-      if (c < C) out[r * C + c] = from_f32<TO>(acc[i][j]);
-    }
+  for (int j = 0; j < 4; ++j) {
+    const long long c = col0 + tc + j;
+    if (c < C) out[r * C + c] = from_f32<TO>(acc[j]);
   }
 }
 
@@ -119,15 +221,29 @@ struct Promoted { using type = float; };
 template <typename T>
 struct Promoted<T, T> { using type = T; };
 
+// 16-byte copies need the operand's base and row pitch 16-byte aligned
+bool aligned16(const void* p, long long row_elems, int elem_bytes) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (row_elems * elem_bytes) % 16 == 0;
+}
+
+// one block per kBM x kBN tile of O
+long long grid_blocks(int T, int C) {
+  return ((long long)T + kBM - 1) / kBM * (((long long)C + kBN - 1) / kBN);
+}
+
 template <typename TX, typename TW>
 int launch(const void* x, const void* w, void* out, int T, int R, int C,
            cudaStream_t stream) {
   using TO = typename Promoted<TX, TW>::type;
-  const dim3 grid((unsigned)((T + kBM - 1) / kBM),
-                  (unsigned)((C + kBN - 1) / kBN));
-  matmul_kernel<TX, TW, TO><<<grid, kThreads, 0, stream>>>(
+  const long long col_tiles = ((long long)C + kBN - 1) / kBN;
+  const long long tiles = grid_blocks(T, C);
+  if (T < 1 || C < 1 || R < 0 || tiles > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  matmul_kernel<TX, TW, TO><<<(unsigned)tiles, kThreads, 0, stream>>>(
       static_cast<const TX*>(x), static_cast<const TW*>(w),
-      static_cast<TO*>(out), T, R, C);
+      static_cast<TO*>(out), T, R, C, (int)col_tiles,
+      aligned16(x, R, sizeof(TX)), aligned16(w, C, sizeof(TW)));
   return (int)cudaGetLastError();
 }
 
@@ -146,8 +262,9 @@ int launch_w(const void* x, const void* w, void* out, int T, int R, int C,
 
 // x: (T, R), w: (R, C), out: (T, C) in promote_types(x, w), all row-major
 // and contiguous; dtype codes 0 = float32, 1 = bfloat16, 2 = float16. T
-// and C must be >= 1 and (C + 63) / 64 at most 65,535. Launches on
-// `stream` and returns the CUDA error of the launch (0 = none).
+// and C must be >= 1 and ceil(T / 16) * ceil(C / 16) below 2^31; any
+// alignment is taken. Launches on `stream` and returns the CUDA error of
+// the launch (0 = none).
 extern "C" int systolic_matmul_launch(const void* x, const void* w, void* out,
                                       int T, int R, int C, int x_dtype,
                                       int w_dtype, void* stream) {
@@ -159,4 +276,10 @@ extern "C" int systolic_matmul_launch(const void* x, const void* w, void* out,
     case kF16: return launch_w<__half>(x, w, out, T, R, C, w_dtype, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of the kernel's grid for a (T, C) output, as the launch counts
+// them.
+extern "C" long long systolic_matmul_blocks(int T, int C) {
+  return grid_blocks(T, C);
 }

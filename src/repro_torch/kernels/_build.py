@@ -50,6 +50,7 @@ class CudaLibrary:
         self.entry = entry
         self.argtypes = list(argtypes)
         self.log = ""
+        self._dll = None
         self._fn = None
         self._lock = threading.Lock()
 
@@ -72,8 +73,18 @@ class CudaLibrary:
                     raise RuntimeError(f"nvcc failed to build "
                                        f"{self.source.name}:\n{self.log}")
                 os.replace(tmp, so)
-            fn = getattr(ctypes.CDLL(str(so)), self.entry)
+            self._dll = ctypes.CDLL(str(so))
+            fn = getattr(self._dll, self.entry)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
             return fn
+
+    def function(self, name: str, argtypes: Sequence, restype):
+        """Another C function of the same library, building it first if
+        needed."""
+        self.load()
+        fn = getattr(self._dll, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        return fn

@@ -4,8 +4,9 @@ A port of `repro.kernels.replay.chunkmath`, the chunk step the Pallas
 megakernel runs, on tensors with a leading stream axis: inputs are
 (S, C), one row per stream. The CUDA kernel
 (`csrc/replay_megakernel.cu`) computes the same tables and passes with
-one thread per request; this module is what the CPU tests run and what
-the kernel is held against on the card.
+one warp per stream, as maxima and sums along each request's links to
+its same-bank and same-channel predecessors; this module is what the CPU
+tests run and what the kernel is held against on the card.
 
 Semantics (the reference per-request scan, `core.dram._reference_scan`):
 

@@ -2,9 +2,9 @@
 wrapper, and its plain PyTorch version.
 
 Replaces the Pallas kernel `repro.kernels.replay.megakernel.replay_megakernel`.
-One launch replays a whole batch of decoded request streams: one thread
-block per stream, the chunk loop and the stream's architectural state
-inside the block (see the note at the top of
+One launch replays a whole batch of decoded request streams: one warp
+per stream, several streams per block, the chunk loop and the stream's
+architectural state inside the warp (see the note at the top of
 `csrc/replay_megakernel.cu`).
 
 - `prepare` pads (..., n) request arrays into the kernel's (S, npad)
@@ -20,8 +20,8 @@ inside the block (see the note at the top of
 `core.replay.replay_decoded` picks between the two. Both replay each
 stream as one core's, with one in-flight queue per direction (the
 sweep's streams of multi-core designs included, as in the reference
-sweep): the C entry point's `n_cores` and `n_qg` are fixed at 1 here, and
-its core-id input is all zeros.
+sweep): the C entry point's `n_cores` and `n_qg` are fixed at 1 here
+(the kernel refuses any other value), and its core-id input is all zeros.
 """
 from __future__ import annotations
 

@@ -33,8 +33,6 @@ WAVEFRONT_LAUNCHES = 0
 
 # dtype codes of the C entry points
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# the matmul kernel's grid has ceil(C / 64) blocks along y
-_MAX_C = 64 * 65535
 
 _MATMUL = CudaLibrary("systolic_matmul.cu", "systolic_matmul_launch",
                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
@@ -66,6 +64,14 @@ def build_wavefront():
     return fn
 
 
+def matmul_blocks(T: int, C: int) -> int:
+    """Blocks of the matmul kernel's grid for a (T, C) output, as the
+    kernel counts them (builds the kernel)."""
+    fn = _MATMUL.function("systolic_matmul_blocks", [ctypes.c_int] * 2,
+                          ctypes.c_longlong)
+    return int(fn(T, C))
+
+
 def _check_cuda(x: torch.Tensor, name: str) -> None:
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
@@ -86,8 +92,9 @@ def systolic_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if w.device != x.device:
         raise ValueError(f"w is on {w.device}, x on {x.device}")
     (T, R), C = x.shape, w.shape[1]
-    if max(T, R) >= 2 ** 31 or C > _MAX_C:
-        raise ValueError(f"fold {T} x {R} x {C} exceeds the kernel's grid")
+    if max(T, R, C) >= 2 ** 31:
+        raise ValueError(f"fold {T} x {R} x {C} exceeds the kernel's int32 "
+                         f"sizes")
     out = torch.empty((T, C), dtype=out_dtype, device=x.device)
     if T == 0 or C == 0:
         return out                  # nothing to launch

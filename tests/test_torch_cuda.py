@@ -37,18 +37,37 @@ def _streams(seed, n, dev, *, burst=None, batch=(), t_scale=1.0):
             torch.tensor(rng.random(shape) < 0.9, device=dev))
 
 
-@pytest.mark.parametrize("case", ["random", "queue_saturation", "chunk_65"])
+# (name, chunk C, DramConfig kwargs, queue-saturating traffic, tol, cap)
+_REPLAY_CASES = [
+    ("random", 64, {}, False, 0.25, None),
+    ("queue_saturation", 64, dict(read_queue=8, write_queue=8), True, 0.25,
+     None),
+    ("chunk_65", 64, {}, False, 0.25, None),
+] + [(f"chunk_c{c}", c, {}, False, 0.25, None)
+     for c in (1, 16, 31, 32, 33, 64, 65, 128, 1024)] + [
+    # in-flight rings shorter than the chunk: the in-chunk queue heads
+    ("small_queue_c64", 64, dict(read_queue=4, write_queue=2), True, 0.25,
+     None),
+    ("small_queue_c33", 33, dict(read_queue=8, write_queue=8), True, 0.25,
+     None),
+    ("small_queue_c128", 128, dict(read_queue=16, write_queue=4), True, 0.25,
+     None),
+] + [(f"tol0_cap{cap}", 64, dict(channels=1, banks_per_channel=1), True,
+      0.0, cap) for cap in (1, 2, None)]
+
+
+@pytest.mark.parametrize("case", [c[0] for c in _REPLAY_CASES])
 def test_kernel_matches_plain_version(dev, case):
-    cfg = DramConfig(read_queue=8, write_queue=8) \
-        if case == "queue_saturation" else DramConfig()
+    _, C, dram, saturate, tol, cap = next(c for c in _REPLAY_CASES
+                                          if c[0] == case)
+    cfg = DramConfig(**dram)
     n = 65 if case == "chunk_65" else 512
     t, addr, w, v = _streams(1, n, dev, batch=(4,),
-                             burst=64 if case == "queue_saturation" else None,
-                             t_scale=0.01 if case == "queue_saturation"
-                             else 1.0)
+                             burst=64 if saturate else None,
+                             t_scale=0.01 if saturate else 1.0)
     fb, ch, row = decode_requests(addr, cfg)
-    ins = mk.prepare(t, fb, ch, row, w, v, 64)
-    kw = dict(cfg=cfg, busy=64 / 19.2, C=64, max_passes=None, tol=0.25)
+    ins = mk.prepare(t, fb, ch, row, w, v, C)
+    kw = dict(cfg=cfg, busy=64 / 19.2, C=C, max_passes=cap, tol=tol)
     before = mk.LAUNCHES
     dk, sk, ck = mk.launch_cuda(ins, **kw)
     torch.cuda.synchronize()
@@ -57,6 +76,29 @@ def test_kernel_matches_plain_version(dev, case):
     assert torch.equal(ck, cp)
     torch.testing.assert_close(dk, dp, rtol=1e-3, atol=5e-2)
     torch.testing.assert_close(sk, sp, rtol=1e-3, atol=5e-2)
+
+
+def test_kernel_refuses_more_than_one_core_or_queue_group(dev):
+    """The C entry point takes one core and one queue group per direction;
+    it refuses others with an error code (cudaErrorInvalidValue) before
+    launching."""
+    import ctypes
+    cfg = DramConfig()
+    ins = mk.prepare(torch.zeros((1, 64), device=dev),
+                     *(torch.zeros((1, 64), dtype=torch.int32, device=dev)
+                       for _ in range(5)), 64)
+    done = torch.empty((1, 64), device=dev)
+    shift = torch.empty((1, 2), device=dev)
+    cnt = torch.empty((1, 4), dtype=torch.int32, device=dev)
+    launch = mk.build()
+    stream = torch.cuda.current_stream().cuda_stream
+    for n_cores, n_qg in ((2, 1), (1, 2)):
+        err = launch(*(x.data_ptr() for x in ins), done.data_ptr(),
+                     shift.data_ptr(), cnt.data_ptr(), 1, 1, 64, cfg.channels,
+                     cfg.banks_per_channel, cfg.tRCD, cfg.tRP, cfg.tCAS,
+                     cfg.read_queue, cfg.write_queue, n_cores, n_qg, -1,
+                     ctypes.c_float(64 / 19.2), ctypes.c_float(0.25), stream)
+        assert err == 1, (n_cores, n_qg, err)
 
 
 def test_study_runs_on_the_card_by_default(dev):
@@ -108,7 +150,9 @@ def test_layout_study_runs_on_the_card(dev):
 
 
 @pytest.mark.parametrize("T,R,C", [(197, 128, 128), (300, 32, 130),
-                                   (1, 128, 128), (0, 8, 8), (65, 17, 1)])
+                                   (1, 128, 128), (0, 8, 8), (65, 17, 1)] + [
+    (T, R, C) for T in (1, 196, 197, 300) for R in (1, 3, 127, 128, 129, 300)
+    for C in (1, 128, 130)])
 @pytest.mark.parametrize("xd,wd", [("float32", "float32"),
                                    ("bfloat16", "bfloat16"),
                                    ("float16", "float16"),
@@ -132,6 +176,35 @@ def test_systolic_matmul_kernel_matches_plain_version(dev, T, R, C, xd, wd):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", ["x", "w", "both"])
+def test_systolic_matmul_kernel_takes_misaligned_operands(dev, dt, offset):
+    """Operands whose data_ptr is not 16-byte aligned (contiguous views one
+    element into a larger buffer) take the kernel's element-wise loads and
+    give the plain version's result."""
+    from repro_torch.kernels.systolic import systolic as sk
+    from repro_torch.kernels.systolic.ref import systolic_matmul_reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, R, C = 197, 128, 128
+    g = torch.Generator(device=dev).manual_seed(7)
+    dtype = getattr(torch, dt)
+
+    def operand(rows, cols, shifted):
+        buf = torch.randn(rows * cols + 1, generator=g, device=dev).to(dtype)
+        return (buf[1:] if shifted else buf[:-1]).view(rows, cols)
+
+    x = operand(T, R, offset in ("x", "both"))
+    w = operand(R, C, offset in ("w", "both"))
+    assert (x.data_ptr() % 16 != 0) == (offset in ("x", "both"))
+    assert (w.data_ptr() % 16 != 0) == (offset in ("w", "both"))
+    got = sk.systolic_matmul(x, w)
+    torch.cuda.synchronize()
+    want = systolic_matmul_reference(x, w)
+    tol = dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32 \
+        else dict(rtol=2e-2, atol=1e-4)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
 def test_systolic_kernels_refuse_what_they_do_not_take(dev):
     from repro_torch.kernels.ellpack import ellpack as ek
     from repro_torch.kernels.systolic import systolic as sk
@@ -150,6 +223,14 @@ def test_systolic_kernels_refuse_what_they_do_not_take(dev):
         ek.ellpack_pack(xi, m=4)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ek.ellpack_pack(torch.ones(4, 8), m=4)
+
+
+@pytest.mark.parametrize("T,C,blocks", [
+    (197, 128, 104), (196, 128, 104), (1, 128, 8), (1, 1, 1), (17, 130, 18),
+    (2 ** 31 - 1, 2 ** 31 - 1, 2 ** 54)])
+def test_systolic_matmul_grid_has_one_block_per_tile(dev, T, C, blocks):
+    from repro_torch.kernels.systolic import systolic as sk
+    assert sk.matmul_blocks(T, C) == blocks
 
 
 @pytest.mark.parametrize("Ts,R,C,n_cycles", [
