@@ -15,11 +15,15 @@ own line; any failure exits non-zero before the final result line:
      version (and the per-request reference scan) on adversarial streams
      and on 256 random streams of 4,096 requests: counts exact, completion
      times within 1e-3 relative; the bank-conflict kernel against its
-     plain version on adversarial rows and on 1,000,000 random rows of
-     k = 128: exactly equal; the fold matmul (float32 within 1e-5,
-     bfloat16 and float16 within 2e-2), the wavefront kernel and the
-     ELLPACK packer (exactly equal) against their plain versions on edge
-     shapes: empty inputs, B = 1, T = 1, ragged tiles, mixed dtypes;
+     plain version on adversarial rows at k across every instance
+     boundary (1 to 1,024), on rows of 64-bit keys (lines up to
+     2^31 - 1, 1,024 banks), on ids one element into a buffer and on
+     1,000,000 random rows of k = 128: exactly equal; the fold matmul
+     (float32 within 1e-5, bfloat16 and float16 within 2e-2), the
+     wavefront kernel (both entries, and its closed form) and the ELLPACK
+     packer (exactly equal) against their plain versions on edge shapes:
+     empty inputs, B = 1, T = 1, T < 0, n_cycles % 4 != 0, T = 60,000,
+     ragged tiles, mixed dtypes;
   4. the paper's named studies on the card (`edp_array_size`,
      `dataflow_dram_flip`, `sparse_speedup`): every claim holds, the
      frames agree with the same studies run on the CPU, the replay engine
@@ -40,8 +44,12 @@ own line; any failure exits non-zero before the final result line:
      replay launch per trace group); layout-on rows never faster than
      their layout-off twins; the whole frame against the same sweep on
      the CPU, per column; the wall time per fidelity (three runs each),
-     profiled fast and trace sweeps, and the conflict kernel against its
-     plain version, timed, on the largest layout group's launch;
+     profiled fast and trace sweeps (the conflict kernel's device time
+     among them), and the conflict kernel against its plain version,
+     timed, on the largest layout group's launch; then each conflict
+     instance that can take the rows (register widths and shared memory)
+     timed on that launch and on random rows of 128 M ids at k = 32, 64,
+     128 and 256, with 32-bit and with 64-bit keys;
   7. this slice's path, the fold plane: every fold of every GEMM instance
      of vit_base on a 128 x 128 WS array (5,844 `simulate_fold` calls,
      float32 operands from a seeded numpy generator), each with one
@@ -55,7 +63,8 @@ own line; any failure exits non-zero before the final result line:
      bfloat16 2e-2); a profiled first encoder layer;
   8. `batched_fold_activity`: one launch per (workload, array) for
      {resnet18, vit_base} x {32, 64, 128} (counts reset just before),
-     equal to the plain version, each row summing to T R C;
+     equal to the plain version and the closed form, each row summing to
+     T R C;
   9. ELLPACK on all 50 vit_base weight matrices pruned exactly 2:4, 4:8
      and row-wise (m = 8), one `pack_with_report` launch each (count
      reset just before): values and indices equal to the plain version,
@@ -64,7 +73,10 @@ own line; any failure exits non-zero before the final result line:
   10. the three kernels timed at their path shapes (CUDA graphs of 20
      calls, CUDA events), beside their plain versions, `torch.matmul`
      and their bounds; the matmul also at each distinct fold shape of
-     the fold pass, with its grid's block count;
+     the fold pass, with its grid's block count; the wavefront kernel
+     also on one qkv fold through its one-fold entry, beside the same
+     fold through the batched entry and beside the launch floor, an
+     empty kernel launched the same way (graph replay and host loop);
   11. a `{"kernels": [...]}` line (all five kernels), the nvidia-smi line,
      and last `{"ok": true, "device": {...}}`.
 
@@ -128,9 +140,11 @@ def timed_cuda(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profile_run(fn) -> dict:
+def profile_run(fn, kernels=()) -> dict:
     """Wall time of one `fn()` under torch.profiler, the device busy time
-    (kernels and copies) and the top device operations."""
+    (kernels and copies), the top device operations, and for each name in
+    `kernels` the device ms and calls of the operations whose name holds
+    it (`kernel_ms`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -152,11 +166,16 @@ def profile_run(fn) -> dict:
                              e.count)
     busy_ms = sum(v[0] for v in dev_ms.values())
     top = sorted(dev_ms.items(), key=lambda kv: -kv[1][0])[:8]
+    kernel_ms = {name: dict(ms=sum(v[0] for k, v in dev_ms.items()
+                                   if name in k),
+                            calls=sum(v[1] for k, v in dev_ms.items()
+                                      if name in k))
+                 for name in kernels}
     return dict(profiled_wall_ms=wall * 1e3, device_busy_ms=busy_ms,
                 device_busy_share=(busy_ms / (wall * 1e3)) if busy_ms
                 else None,
                 top_device_ops=[dict(name=k[:80], ms=v[0], calls=v[1])
-                                for k, v in top])
+                                for k, v in top], kernel_ms=kernel_ms)
 
 
 def host_ms(fn, reps: int) -> float:
@@ -198,23 +217,6 @@ def timed_graph(fn, reps: int = 20, replays: int = 5) -> float:
     ms = start.elapsed_time(stop) / (reps * replays)
     del graph
     return ms
-
-
-def wavefront_closed_form(Ts: torch.Tensor, *, R: int, C: int,
-                          n_cycles: int) -> torch.Tensor:
-    """Active PEs per cycle, (B,) T -> (B, n_cycles) int32, in O(1) per
-    (fold, cycle): the points (t, r, c) with t + r + c = n inside the
-    T x R x C box, by inclusion-exclusion over its three upper faces; the
-    non-negative triples summing to k number a (a + 1) / 2 with a = k + 1."""
-    n = torch.arange(n_cycles, dtype=torch.int64, device=Ts.device)[None, :]
-    T = Ts.to(torch.int64)[:, None]
-    act = torch.zeros((Ts.shape[0], n_cycles), dtype=torch.int64,
-                      device=Ts.device)
-    for sign, off in ((1, 0), (-1, T), (-1, R), (-1, C), (1, T + R),
-                      (1, T + C), (1, R + C), (-1, T + R + C)):
-        a = torch.clamp_min(n - off + 1, 0)
-        act += sign * (a * (a + 1) // 2)
-    return act.to(torch.int32)
 
 
 def within(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float):
@@ -413,7 +415,7 @@ def main() -> int:
                     max_slowdown=int(got.max()) if got.numel() else 0)
 
     ccases = []
-    for k in (1, 31, 32, 33, 128, 1024):
+    for k in (1, 31, 32, 33, 64, 65, 127, 128, 129, 256, 257, 1024):
         for ports in (1, 2, 4):
             for banks in (2, 8, 32):
                 rng = np.random.default_rng(k * 100 + ports * 10 + banks)
@@ -428,6 +430,26 @@ def main() -> int:
                                             bank, banks, ports))
     ccases.append(conflict_case("empty", np.zeros((0, 128)),
                                 np.zeros((0, 128)), 32, 1))
+    # 64-bit keys: lines up to 2^31 - 1 and 1,024 banks, at every
+    # instance width; and ids one element into a buffer (element loads)
+    for k in (32, 64, 128, 256, 257):
+        rng = np.random.default_rng(k)
+        line = rng.integers(0, 2 ** 31 - 1, (300, k), endpoint=True)
+        line[::3] = rng.integers(0, 64, (100, k)) * (2 ** 31 // 64)
+        bank = rng.integers(0, 1024, (300, k))
+        line[0], bank[0] = 2 ** 31 - 1, 1023
+        ccases.append(conflict_case(f"wide_k{k}", line, bank, 1024, 2))
+    for k in (32, 128, 256):
+        rng = np.random.default_rng(k + 1)
+        buf_l = torch.zeros(300 * k + 1, dtype=torch.int32, device=dev)
+        buf_b = torch.zeros_like(buf_l)
+        buf_l[1:] = torch.as_tensor(rng.integers(0, 11, 300 * k),
+                                    dtype=torch.int32)
+        buf_b[1:] = torch.as_tensor(rng.integers(0, 32, 300 * k),
+                                    dtype=torch.int32)
+        ccases.append(conflict_case(f"misaligned_k{k}",
+                                    buf_l[1:].view(300, k),
+                                    buf_b[1:].view(300, k), 32, 1))
     g = torch.Generator(device=dev).manual_seed(0)
     big_line = torch.randint(0, 64, (1_000_000, 128), generator=g,
                              device=dev, dtype=torch.int32)
@@ -480,13 +502,22 @@ def main() -> int:
     for Ts, R, C, n_cycles in (([197], 128, 128, 451), ([1], 128, 128, 300),
                                ([16, 32, 64, 100, 0], 8, 8, 78),
                                ([], 8, 8, 10),
-                               (list(range(1, 400, 7)), 64, 32, 512)):
+                               (list(range(1, 400, 7)), 64, 32, 512),
+                               ([5, 9, 13, -2, 0], 7, 3, 41),
+                               ([60_000], 2, 3, 70_001),
+                               ([0], 128, 128, 3), ([1], 1, 1, 1)):
         t = torch.tensor(Ts, dtype=torch.int32, device=dev)
         got = syk.wavefront_activity_batched(t, R=R, C=C, n_cycles=n_cycles)
+        one = (syk.wavefront_activity(Ts[0], R=R, C=C, n_cycles=n_cycles,
+                                      device=dev) if len(Ts) == 1 else None)
         torch.cuda.synchronize()
-        if not torch.equal(got, sref.wavefront_activity_plain(
-                t, R=R, C=C, n_cycles=n_cycles)):
+        want = sref.wavefront_activity_plain(t, R=R, C=C, n_cycles=n_cycles)
+        if not (torch.equal(got, want) and torch.equal(
+                got, sref.wavefront_closed_form(t, R=R, C=C,
+                                                n_cycles=n_cycles))):
             fail(f"wavefront kernel differs from plain for Ts={Ts[:4]}...")
+        if one is not None and not torch.equal(one, want[0]):
+            fail(f"one-fold wavefront entry differs from plain for T={Ts}")
         ncases["wavefront_activity"] += 1
     for rows, K, m, keep, dt in ((768, 3072, 4, 0, torch.float32),
                                  (33, 48, 4, 0, torch.float32),
@@ -727,7 +758,8 @@ def main() -> int:
     phase("feature_sweep", **feat_info)
     report["feature_sweep"] = feat_info
     for fid in ("fast", "trace"):
-        prof = profile_run(lambda: fsweep.fidelity(fid).run())
+        prof = profile_run(lambda: fsweep.fidelity(fid).run(),
+                           kernels=("conflict",))
         phase(f"feature_{fid}_profile", **prof)
         report[f"feature_{fid}_profile"] = prof
 
@@ -746,8 +778,11 @@ def main() -> int:
     line, bank = line.reshape(-1, r_cap), bank.reshape(-1, r_cap)
     rows = int(line.shape[0])
     kwc = dict(num_banks=lay_cfg.num_banks, ports=lay_cfg.ports_per_bank)
-    conflict_ms = timed_cuda(lambda: ck.conflict_slowdown(line, bank, **kwc),
-                             reps=20)
+    # device time by graph replay; `loop_ms` by events around a host loop
+    # (the earlier measure, from when the kernel outlasted a launch)
+    conflict_ms = timed_graph(lambda: ck.conflict_slowdown(line, bank, **kwc))
+    conflict_loop_ms = timed_cuda(
+        lambda: ck.conflict_slowdown(line, bank, **kwc), reps=20)
     got = ck.conflict_slowdown(line, bank, **kwc)
     conflict_plain_ms = host_ms(
         lambda: conflict_slowdown_reference(line, bank, **kwc), reps=5)
@@ -755,23 +790,62 @@ def main() -> int:
     if not torch.equal(got, want):
         fail("largest layout group: conflict kernel differs from plain")
     # the least time: each id read once (line and bank, int32), each
-    # slowdown written once; one operation per (j', j < j) pair test of the
-    # first-occurrence formulation, at the float32 non-tensor rate (the
-    # card's integer compares issue on the same pipes at no higher rate)
+    # slowdown written once; the k log2 k compares of a comparison sort per
+    # row, at the float32 non-tensor rate (the card's integer compares
+    # issue on the same pipes at no higher rate)
     c_bytes = rows * r_cap * 8 + rows * 4
-    c_ops = rows * r_cap * (r_cap - 1) / 2
+    c_ops = rows * r_cap * np.log2(r_cap)
     c_bytes_ms = c_bytes / HBM_BYTES_PER_S * 1e3
     c_ops_ms = c_ops / FP32_OPS_PER_S * 1e3
     layout_group = dict(
         designs=len(gcfgs), gemms=len(gemms), distinct_rows=R.tolist(),
         rows=rows, k=r_cap, kernel_ms=conflict_ms,
-        plain_ms=conflict_plain_ms, max_abs_err=0,
+        loop_ms=conflict_loop_ms, plain_ms=conflict_plain_ms, max_abs_err=0,
         mean_slowdown=float(got.double().mean()), bytes=c_bytes, ops=c_ops,
         bytes_ms=c_bytes_ms, ops_ms=c_ops_ms,
         bound_ms=max(c_bytes_ms, c_ops_ms),
         bound_by="bytes" if c_bytes_ms >= c_ops_ms else "operations")
     phase("largest_layout_group", **layout_group)
     report["largest_layout_group"] = layout_group
+
+    # ---- each conflict instance, timed: the largest layout group, then
+    # random rows of 128 M ids at k = 32 / 64 / 128 / 256 with small ids
+    # (32-bit keys) and with lines up to 2^31 - 1 (64-bit keys); every
+    # instance that can take k, each equal to the plain version; device
+    # time by graph replay
+    def instance_times(lt, bt, banks, reps):
+        k = int(lt.shape[1])
+        want = conflict_slowdown_reference(lt, bt, num_banks=banks, ports=1)
+        out = {}
+        for inst in [w for w in ck.INSTANCES if w == -1 or w >= k]:
+            got = ck.conflict_slowdown(lt, bt, num_banks=banks,
+                                       instance=inst)
+            if not torch.equal(got, want):
+                fail(f"conflict instance {inst}, k={k}: differs from plain")
+            out["smem" if inst == -1 else f"regs{inst}"] = timed_graph(
+                lambda: ck.conflict_slowdown(lt, bt, num_banks=banks,
+                                             instance=inst), reps=reps)
+        return out
+
+    cinst = dict(default=dict((str(k), ck.instance_for(k))
+                              for k in (32, 64, 128, 129, 256, 257)),
+                 largest_layout_group=instance_times(
+                     line, bank, lay_cfg.num_banks, 20))
+    g = torch.Generator(device=dev).manual_seed(1)
+    for k in (32, 64, 128, 256):
+        n = (1 << 27) // k
+        for ids in ("narrow", "wide"):
+            hi = 64 if ids == "narrow" else 2 ** 31 - 1
+            lt = torch.randint(0, hi, (n, k), generator=g, device=dev,
+                               dtype=torch.int32)
+            bt = torch.randint(0, 32, (n, k), generator=g, device=dev,
+                               dtype=torch.int32)
+            t = instance_times(lt, bt, 32, 5)
+            t["bound_ms"] = (n * k * 8 + n * 4) / HBM_BYTES_PER_S * 1e3
+            cinst[f"random_{n}x{k}_{ids}"] = t
+            del lt, bt
+    phase("conflict_instances", **cinst)
+    report["conflict_instances"] = cinst
 
     # ---- 7. this slice's path: every vit_base fold on a 128 x 128 WS array
     from repro_torch.core.accelerator import SparsityConfig, tpu_like_config
@@ -932,7 +1006,8 @@ def main() -> int:
     phase("vit_base_fold_pass", **fold_info)
     report["vit_base_fold_pass"] = fold_info
     layer0 = [j for j in jobs if j[0].name.startswith("vitb_0_")]
-    prof = profile_run(lambda: fold_pass(layer0))
+    prof = profile_run(lambda: fold_pass(layer0),
+                       kernels=("wavefront", "matmul_kernel"))
     prof["folds"] = sum(int(j[4].shape[0] * j[4].shape[1]) for j in layer0)
     phase("fold_pass_layer0_profile", **prof)
     report["fold_pass_layer0_profile"] = prof
@@ -950,8 +1025,11 @@ def main() -> int:
                                              n_cycles=n_cycles)
             plain = sref.wavefront_activity_plain(tt, R=arr, C=arr,
                                                   n_cycles=n_cycles)
-            if not torch.equal(act, plain):
-                fail(f"batched activity {wname} {arr}: kernel != plain")
+            if not torch.equal(act, plain) or not torch.equal(
+                    act, sref.wavefront_closed_form(tt, R=arr, C=arr,
+                                                    n_cycles=n_cycles)):
+                fail(f"batched activity {wname} {arr}: kernel != plain or "
+                     f"the closed form")
             if not torch.equal(act.sum(1, dtype=torch.int64),
                                tt.to(torch.int64) * arr * arr):
                 fail(f"batched activity {wname} {arr}: a row does not sum "
@@ -1097,17 +1175,48 @@ def main() -> int:
     # C(k + 2, 2) the non-negative triples summing to k; held equal to the
     # kernel here, so the bound counts these operations, not the row loop
     got_wv = syk.wavefront_activity_batched(big_t, **wave_kw)
-    if not torch.equal(got_wv, wavefront_closed_form(big_t, **wave_kw)):
+    if not torch.equal(got_wv, sref.wavefront_closed_form(big_t,
+                                                          **wave_kw)):
         fail("wavefront kernel differs from the inclusion-exclusion form")
     # each fold's T read once, each count written once
     wv_bytes = len(rs) * 4 + len(rs) * big_n * 4
     # per (fold, cycle) and term: the offset subtracted, one added, the
     # clamp at 0, one added, a multiply, a halving and the accumulation
     wv_ops = len(rs) * big_n * 8 * 7
-    # one vit_base qkv fold's wavefront launch on the fold pass
+    # one vit_base qkv fold's wavefront launch on the fold pass: the
+    # one-fold entry (T an argument), and the batched entry on a one-element
+    # T tensor made per call as the fold pass made it before; beside them
+    # the floor, an empty kernel launched the same way (ctypes, the
+    # library's own entry), by graph replay and by host loop
     fold_wv_n = T0 + 2 * A - 2
     fold_wv_bound_ms = max((4 + fold_wv_n * 4) / HBM_BYTES_PER_S,
                            fold_wv_n * 8 * 7 / FP32_OPS_PER_S) * 1e3
+    one_kw = dict(R=A, C=A, n_cycles=fold_wv_n)
+    if not torch.equal(syk.wavefront_activity(T0, device=dev, **one_kw),
+                       sref.wavefront_activity_reference(T0, A, A,
+                                                         device=dev)):
+        fail("qkv fold: the one-fold wavefront entry differs from the "
+             "closed form")
+
+    def one_fold():
+        syk.wavefront_activity(T0, device=dev, **one_kw)
+
+    def one_tensor():
+        syk.wavefront_activity_batched(
+            torch.full((1,), T0, dtype=torch.int32, device=dev), **one_kw)
+
+    floor_kw = {}
+    for name, fn in (("floor", syk.launch_floor), ("scalar_T", one_fold),
+                     ("tensor_T", one_tensor), ("floor_2", syk.launch_floor),
+                     ("scalar_T_2", one_fold)):
+        floor_kw[name] = dict(graph_ms=timed_graph(fn),
+                              loop_ms=timed_cuda(fn, 200))
+    wv_one = dict(T=T0, n_cycles=fold_wv_n, bound_ms=fold_wv_bound_ms,
+                  runs=floor_kw,
+                  ms=min(floor_kw["scalar_T"]["graph_ms"],
+                         floor_kw["scalar_T_2"]["graph_ms"]),
+                  floor_ms=min(floor_kw["floor"]["graph_ms"],
+                               floor_kw["floor_2"]["graph_ms"]))
     er, eK, em = 768, 3072, 4                # the mlp2 weight, 2:4
     mlp2 = pruned(er, eK, em, 2)
     ep = dict(ms=timed_graph(lambda: ek.ellpack_pack(mlp2, m=em)),
@@ -1130,7 +1239,8 @@ def main() -> int:
     timings["systolic_matmul"].update(shape=[T0, A, A], max_abs_err=mm_abs)
     timings["wavefront_activity"].update(
         folds=len(rs), n_cycles=big_n, R=A, C=A,
-        qkv_fold_n_cycles=fold_wv_n, qkv_fold_bound_ms=fold_wv_bound_ms)
+        qkv_fold_n_cycles=fold_wv_n, qkv_fold_bound_ms=fold_wv_bound_ms,
+        qkv_fold=wv_one)
     timings["ellpack_pack"].update(shape=[er, eK], m=em, keep=em // 2)
     phase("fold_ellpack_timings", **timings)
     report["fold_ellpack_timings"] = timings

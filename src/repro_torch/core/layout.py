@@ -60,9 +60,10 @@ def slowdown_per_cycle(line: torch.Tensor, bank: torch.Tensor,
 
 def streaming_access_pattern(R: int, n_cycles: int, lead_stride: int,
                              elem_stride: int = 1, *,
-                             device="cpu") -> torch.Tensor:
+                             device="cuda") -> torch.Tensor:
     """Flat element indices accessed per cycle by a streaming operand port:
-    cycle t reads R elements {t*lead_stride + r*elem_stride} (int64)."""
+    cycle t reads R elements {t*lead_stride + r*elem_stride} (int64), on
+    `device` (CUDA unless the caller asks for the CPU)."""
     t = torch.arange(n_cycles, device=device)[:, None]
     r = torch.arange(R, device=device)[None, :]
     return t * lead_stride + r * elem_stride

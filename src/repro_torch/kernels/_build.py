@@ -52,6 +52,7 @@ class CudaLibrary:
         self.log = ""
         self._dll = None
         self._fn = None
+        self._others = {}
         self._lock = threading.Lock()
 
     def load(self):
@@ -82,9 +83,13 @@ class CudaLibrary:
 
     def function(self, name: str, argtypes: Sequence, restype):
         """Another C function of the same library, building it first if
-        needed."""
+        needed (typed once, then cached)."""
         self.load()
-        fn = getattr(self._dll, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = restype
-        return fn
+        with self._lock:
+            fn = self._others.get(name)
+            if fn is None:
+                fn = getattr(self._dll, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = restype
+                self._others[name] = fn
+            return fn

@@ -2,8 +2,10 @@
 wrapper.
 
 Replaces the Pallas kernel `repro.kernels.conflict.conflict.conflict_slowdown`.
-One launch computes the per-cycle slowdown of every row: one warp per row,
-the row's ids in shared memory (see the note at the top of
+One launch computes the per-cycle slowdown of every row: for k <= 256 a
+few lanes of a warp hold a row's (bank, line) pairs as packed keys, sort
+them in registers and count the distinct pairs per bank by scans; longer
+rows go to a shared-memory instance (see the note at the top of
 `csrc/conflict_slowdown.cu`). `conflict_slowdown` builds the kernel on
 first use (`kernels._build`), checks its inputs and launches it on the
 current CUDA stream; every launch adds one to `LAUNCHES`. It launches or
@@ -22,13 +24,16 @@ from .._build import CudaLibrary
 # it to show the main path went through the kernel).
 LAUNCHES = 0
 
-# the kernel keeps 3 int32 per id for each of its 4 warps in shared memory,
+# the shared-memory instance keeps 3 int32 per id for each of its 4 warps,
 # at most the 227 KB a block may use
 MAX_K = (227 * 1024) // (4 * 3 * 4)
+# the kernel's instances: register widths (rows of up to that many ids) and
+# -1, shared memory (any k); 0 lets the kernel pick by k
+INSTANCES = (32, 64, 128, 256, -1)
 
 _LIB = CudaLibrary("conflict_slowdown.cu", "conflict_slowdown_launch",
-                   [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_void_p])
+                   [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 # ptxas report (registers, shared memory, spills) of the last build
 BUILD_LOG = ""
 
@@ -42,11 +47,24 @@ def build():
     return fn
 
 
+def instance_for(k: int) -> int:
+    """The instance the kernel runs for rows of k ids (builds the kernel):
+    the smallest register width of `INSTANCES` that holds k, or -1."""
+    fn = _LIB.function("conflict_slowdown_instance", [ctypes.c_int],
+                       ctypes.c_int)
+    return int(fn(k))
+
+
 def conflict_slowdown(line: torch.Tensor, bank: torch.Tensor, *,
-                      num_banks: int, ports: int = 1) -> torch.Tensor:
+                      num_banks: int, ports: int = 1,
+                      instance: int = 0) -> torch.Tensor:
     """(cycles, k) int32 line/bank ids on a CUDA device -> (cycles,) int32
     slowdown, >= 1: per cycle, max over banks of ceil(distinct (bank, line)
     pairs in the bank / ports).
+
+    `instance` 0 lets the kernel pick its instance by k (`instance_for`);
+    tests and measurements name one of `INSTANCES` to run it on rows it
+    can take.
 
     Bank ids must lie in [0, num_banks): the layout stage's `flat_ids`
     keeps them there, and the wrapper does not check it. (The kernel counts
@@ -72,6 +90,10 @@ def conflict_slowdown(line: torch.Tensor, bank: torch.Tensor, *,
     if k > MAX_K:
         raise ValueError(f"k = {k} ids per cycle exceed the kernel's "
                          f"shared-memory limit of {MAX_K}")
+    if instance != 0 and (instance not in INSTANCES
+                          or 0 < instance < k or (instance > 0 and k == 0)):
+        raise ValueError(f"instance {instance} cannot take rows of k = {k} "
+                         f"ids (instances: {INSTANCES})")
     out = torch.empty((rows,), dtype=torch.int32, device=line.device)
     if rows == 0:
         return out                  # nothing to launch
@@ -79,7 +101,7 @@ def conflict_slowdown(line: torch.Tensor, bank: torch.Tensor, *,
     with torch.cuda.device(line.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(line.data_ptr(), bank.data_ptr(), out.data_ptr(),
-                     rows, k, int(ports), stream)
+                     rows, k, int(ports), int(instance), stream)
     if err != 0:
         raise RuntimeError(f"conflict kernel launch failed: CUDA error {err} "
                            f"(rows={rows}, k={k})")

@@ -47,14 +47,27 @@ def batched_fold_activity(Ts: torch.Tensor, *, R: int, C: int,
     return wavefront_activity_plain(Ts, R=R, C=C, n_cycles=n_cycles)
 
 
+def fold_activity(T: int, *, R: int, C: int, n_cycles: int,
+                  device) -> torch.Tensor:
+    """One fold of T stream elements -> (n_cycles,) int32 active PEs per
+    wavefront cycle on `device`: one CUDA launch with T as its argument on
+    a CUDA device, the plain version on the CPU."""
+    if torch.device(device).type == "cuda":
+        from .systolic import wavefront_activity
+        return wavefront_activity(T, R=R, C=C, n_cycles=n_cycles,
+                                  device=device)
+    Ts = torch.tensor([T], dtype=torch.int32, device=device)
+    return wavefront_activity_plain(Ts, R=R, C=C, n_cycles=n_cycles)[0]
+
+
 def simulate_fold(x: torch.Tensor, w: torch.Tensor) -> FoldSim:
     """Simulate one WS fold on the tensors' device: x (T, R) streamed,
     w (R, C) stationary."""
     T, R = x.shape
     C = w.shape[1]
     out = fold_output(x, w)
-    Ts = torch.full((1,), T, dtype=torch.int32, device=x.device)
-    wave = batched_fold_activity(Ts, R=R, C=C, n_cycles=T + R + C - 2)[0]
+    wave = fold_activity(T, R=R, C=C, n_cycles=T + R + C - 2,
+                         device=x.device)
     preload = torch.full((R,), C, dtype=torch.int32, device=x.device)
     active = torch.cat([preload, wave])       # weight rows shift in first
     cycles = total_cycles_ws(T, R, C)

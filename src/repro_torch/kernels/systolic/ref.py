@@ -11,6 +11,9 @@ cycle-accurate oracle they are held against.
 - `systolic_matmul_reference` and `wavefront_activity_plain`: the plain
   versions of the two CUDA kernels (`systolic.py`), which `ops.py` runs
   for CPU tensors.
+- `wavefront_closed_form`: the wavefront kernel's own formulation, O(1)
+  per (fold, cycle) in 64-bit arithmetic, held against the plain version
+  in the tests and against the kernel on the card.
 """
 from __future__ import annotations
 
@@ -113,6 +116,27 @@ def wavefront_activity_plain(Ts: torch.Tensor, *, R: int, C: int,
         hi = torch.minimum(t_last, n - r)
         act += torch.clamp_min(hi - lo + 1, 0)
     return act
+
+
+def wavefront_closed_form(Ts: torch.Tensor, *, R: int, C: int,
+                          n_cycles: int) -> torch.Tensor:
+    """Active PEs per cycle, (B,) T -> (B, n_cycles) int32, as the CUDA
+    kernel computes it: the points (t, r, c) with t + r + c = n inside the
+    T x R x C box (T < 0 taken as 0), by inclusion-exclusion over its three
+    upper faces, eight terms g(n - off) with g(k) = (k + 1)(k + 2) / 2 the
+    non-negative triples summing to k. The terms are int64 (they pass
+    int32 once n - off exceeds about 46,000); cut to int32 their sum equals
+    the kernel's, which adds the same terms modulo 2^32, grouped as
+    F(n) - F(n - T)."""
+    n = torch.arange(n_cycles, dtype=torch.int64, device=Ts.device)[None, :]
+    T = Ts.to(torch.int64).clamp_min(0)[:, None]
+    act = torch.zeros((Ts.shape[0], n_cycles), dtype=torch.int64,
+                      device=Ts.device)
+    for sign, off in ((1, 0), (-1, T), (-1, R), (-1, C), (1, T + R),
+                      (1, T + C), (1, R + C), (-1, T + R + C)):
+        a = torch.clamp_min(n - off + 1, 0)
+        act += sign * (a * (a + 1) // 2)
+    return act.to(torch.int32)
 
 
 def total_cycles_ws(T: int, R: int, C: int) -> int:

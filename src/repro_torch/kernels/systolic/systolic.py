@@ -8,8 +8,9 @@ their wrappers.
 - `wavefront_activity_batched` replaces
   `repro.kernels.systolic.systolic.wavefront_activity`, batched by
   construction: a (B,) int32 array of stream lengths -> (B, n_cycles)
-  active-PE counts in one launch (`csrc/wavefront_activity.cu`);
-  `wavefront_activity` is its B = 1 case.
+  active-PE counts in one launch, in closed form
+  (`csrc/wavefront_activity.cu`); `wavefront_activity` is its one-fold
+  entry, which takes T as a kernel argument.
 
 Each builds its kernel on first use (`kernels._build`), checks its inputs
 and launches on the current CUDA stream; every launch adds one to
@@ -41,6 +42,9 @@ _WAVEFRONT = CudaLibrary("wavefront_activity.cu", "wavefront_activity_launch",
                          [ctypes.c_void_p] * 2
                          + [ctypes.c_longlong] + [ctypes.c_int] * 3
                          + [ctypes.c_void_p])
+_WAVEFRONT_SCALAR = ("wavefront_activity_scalar_launch",
+                     [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p], ctypes.c_int)
 # ptxas reports (registers, shared memory, spills) of the last builds
 MATMUL_BUILD_LOG = ""
 WAVEFRONT_BUILD_LOG = ""
@@ -110,6 +114,15 @@ def systolic_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _check_wavefront_shape(R: int, C: int, n_cycles: int) -> None:
+    if R < 1 or C < 1 or n_cycles < 0:
+        raise ValueError(f"need R, C >= 1 and n_cycles >= 0, got R={R}, "
+                         f"C={C}, n_cycles={n_cycles}")
+    if n_cycles + R + C >= 2 ** 31:
+        raise ValueError(f"n_cycles = {n_cycles} overflows the kernel's "
+                         f"int32 cycle index")
+
+
 def wavefront_activity_batched(Ts: torch.Tensor, *, R: int, C: int,
                                n_cycles: int) -> torch.Tensor:
     """(B,) int32 stream lengths on a CUDA device -> (B, n_cycles) int32
@@ -121,12 +134,7 @@ def wavefront_activity_batched(Ts: torch.Tensor, *, R: int, C: int,
     if Ts.dtype != torch.int32:
         raise TypeError(f"Ts must be torch.int32, got {Ts.dtype}")
     _check_cuda(Ts, "Ts")
-    if R < 1 or C < 1 or n_cycles < 0:
-        raise ValueError(f"need R, C >= 1 and n_cycles >= 0, got R={R}, "
-                         f"C={C}, n_cycles={n_cycles}")
-    if n_cycles + R + C >= 2 ** 31:
-        raise ValueError(f"n_cycles = {n_cycles} overflows the kernel's "
-                         f"int32 cycle index")
+    _check_wavefront_shape(R, C, n_cycles)
     B = Ts.shape[0]
     out = torch.empty((B, n_cycles), dtype=torch.int32, device=Ts.device)
     if B == 0 or n_cycles == 0:
@@ -143,9 +151,41 @@ def wavefront_activity_batched(Ts: torch.Tensor, *, R: int, C: int,
     return out
 
 
-def wavefront_activity(T: torch.Tensor, *, R: int, C: int,
-                       n_cycles: int) -> torch.Tensor:
-    """The B = 1 case: a one-element int32 CUDA tensor T -> (n_cycles,)
-    int32 active PEs per wavefront cycle."""
-    return wavefront_activity_batched(T.reshape(1), R=R, C=C,
-                                      n_cycles=n_cycles)[0]
+def wavefront_activity(T: int, *, R: int, C: int, n_cycles: int,
+                       device="cuda") -> torch.Tensor:
+    """One fold of T stream elements -> (n_cycles,) int32 active PEs per
+    wavefront cycle on the CUDA `device`, T passed to the kernel as an
+    argument (no device tensor holds it)."""
+    global WAVEFRONT_LAUNCHES
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the wavefront kernel runs on a CUDA device, got "
+                         f"{device}")
+    T = int(T)
+    if not -2 ** 31 <= T < 2 ** 31:
+        raise ValueError(f"T = {T} is not an int32")
+    _check_wavefront_shape(R, C, n_cycles)
+    out = torch.empty((n_cycles,), dtype=torch.int32, device=device)
+    if n_cycles == 0:
+        return out                  # nothing to launch
+    build_wavefront()
+    launch = _WAVEFRONT.function(*_WAVEFRONT_SCALAR)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(T, out.data_ptr(), n_cycles, R, C, stream)
+    if err != 0:
+        raise RuntimeError(f"wavefront kernel launch failed: CUDA error "
+                           f"{err} (T={T}, n_cycles={n_cycles}, R={R})")
+    WAVEFRONT_LAUNCHES += 1
+    return out
+
+
+def launch_floor() -> None:
+    """Launch the wavefront library's empty kernel once on the current CUDA
+    stream, through ctypes as the entries above launch theirs: the floor
+    under any launch of this path, for measurements. Not counted."""
+    fn = _WAVEFRONT.function("wavefront_empty_launch", [ctypes.c_void_p],
+                             ctypes.c_int)
+    err = fn(torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")

@@ -107,8 +107,11 @@ def test_study_runs_on_the_card_by_default(dev):
     assert res.meta["engine"] == "cuda" and res.claims_ok()
 
 
-@pytest.mark.parametrize("k", [1, 31, 32, 33, 128])
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 64, 65, 127, 128, 129, 256,
+                               257, 1024])
 def test_conflict_kernel_matches_plain_version(dev, k):
+    """k across every instance boundary: the register widths 32, 64, 128
+    and 256 and the shared-memory instance past them."""
     from repro_torch.kernels.conflict import conflict as ck
     from repro_torch.kernels.conflict import conflict_slowdown_reference
     for ports in (1, 2, 4):
@@ -129,6 +132,82 @@ def test_conflict_kernel_matches_plain_version(dev, k):
             want = conflict_slowdown_reference(lt, bt, num_banks=banks,
                                                ports=ports)
             assert torch.equal(got, want), (k, ports, banks)
+
+
+def _wide_rows(k, banks, seed, rows=257):
+    """Rows of 64-bit keys (lines up to 2^31 - 1, banks up to banks - 1),
+    rows of 32-bit keys, and the edge rows of the CPU model's tests."""
+    rng = np.random.default_rng(seed)
+    top = 2 ** 31 - 1
+    line = rng.integers(0, 11, (rows, k))
+    bank = rng.integers(0, banks, (rows, k))
+    half = rows // 2
+    line[:half] = rng.integers(0, top, (half, k), endpoint=True)
+    line[half:half + 20] = rng.integers(0, 40, (20, k)) * (top // 40)
+    j = np.arange(k)
+    line[-1], bank[-1] = top, banks - 1              # one pair, wide
+    line[-2], bank[-2] = top - j, banks - 1 - j % 2  # all distinct, wide
+    line[-3], bank[-3] = np.where(j % 2, top, 0), banks - 1
+    line[-4], bank[-4] = j // banks, j % banks       # distinct, narrow
+    return line, bank
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 64, 65, 127, 128, 129, 256,
+                               257])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_conflict_kernel_instances_wide_ids_and_misaligned_rows(dev, k,
+                                                                shifted):
+    """Every instance that can take k (each register width >= k and shared
+    memory) equals the plain version on rows of 64-bit and 32-bit keys,
+    num_banks 1,024, lines up to 2^31 - 1; `shifted` puts the ids one
+    element into a buffer (data_ptr not 16-byte aligned), which takes the
+    element loads, as a k % 4 != 0 row pitch does."""
+    from repro_torch.kernels.conflict import conflict as ck
+    from repro_torch.kernels.conflict import conflict_slowdown_reference
+    banks = 1024
+    line, bank = _wide_rows(k, banks, seed=k)
+
+    def ids(a):
+        buf = torch.zeros(a.size + 1, dtype=torch.int32, device=dev)
+        t = buf[1:] if shifted else buf[:-1]
+        t.copy_(torch.tensor(a.reshape(-1), dtype=torch.int32))
+        return t.view(a.shape)
+
+    lt, bt = ids(line), ids(bank)
+    assert (lt.data_ptr() % 16 != 0) == shifted and lt.is_contiguous()
+    widths = [w for w in ck.INSTANCES if w == -1 or w >= k]
+    assert ck.instance_for(k) == (widths[0] if k <= 256 else -1)
+    for ports in (1, 3):
+        want = conflict_slowdown_reference(lt, bt, num_banks=banks,
+                                           ports=ports)
+        for inst in [0] + widths:
+            got = ck.conflict_slowdown(lt, bt, num_banks=banks, ports=ports,
+                                       instance=inst)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (k, shifted, ports, inst)
+
+
+def test_conflict_kernel_refuses_what_it_does_not_take(dev):
+    from repro_torch.kernels.conflict import conflict as ck
+    x = torch.zeros((4, 33), dtype=torch.int32, device=dev)
+    for inst in (32, 7, 512):
+        with pytest.raises(ValueError, match="instance"):
+            ck.conflict_slowdown(x, x, num_banks=8, instance=inst)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ck.conflict_slowdown(x.cpu(), x.cpu(), num_banks=8)
+    with pytest.raises(ValueError, match="int32"):
+        ck.conflict_slowdown(x.long(), x.long(), num_banks=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.conflict_slowdown(x.t(), x.t(), num_banks=8)
+    wide = torch.zeros((2, ck.MAX_K + 1), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared-memory limit"):
+        ck.conflict_slowdown(wide, wide, num_banks=8)
+    # the C entry point refuses a register instance narrower than k
+    launch = ck.build()
+    out = torch.empty(4, dtype=torch.int32, device=dev)
+    err = launch(x.data_ptr(), x.data_ptr(), out.data_ptr(), 4, 33, 1, 32,
+                 torch.cuda.current_stream().cuda_stream)
+    assert err == 1                           # cudaErrorInvalidValue
 
 
 def test_layout_study_runs_on_the_card(dev):
@@ -236,20 +315,66 @@ def test_systolic_matmul_grid_has_one_block_per_tile(dev, T, C, blocks):
 @pytest.mark.parametrize("Ts,R,C,n_cycles", [
     ([197], 128, 128, 197 + 254), ([1], 128, 128, 300),
     ([16, 32, 64, 100, 0], 8, 8, 78), ([], 8, 8, 10),
-    (list(range(1, 400, 7)), 64, 32, 512)])
+    (list(range(1, 400, 7)), 64, 32, 512),
+    ([5, 9, 13, -2, 0], 7, 3, 41),           # n_cycles % 4 != 0, T < 0
+    ([60_000], 2, 3, 70_001)])                # terms past int32
 def test_wavefront_kernel_matches_plain_version(dev, Ts, R, C, n_cycles):
     from repro_torch.kernels.systolic import systolic as sk
-    from repro_torch.kernels.systolic.ref import wavefront_activity_plain
+    from repro_torch.kernels.systolic.ref import (wavefront_activity_plain,
+                                                  wavefront_closed_form)
     t = torch.tensor(Ts, dtype=torch.int32, device=dev)
     before = sk.WAVEFRONT_LAUNCHES
     got = sk.wavefront_activity_batched(t, R=R, C=C, n_cycles=n_cycles)
     torch.cuda.synchronize()
     assert sk.WAVEFRONT_LAUNCHES == before + (1 if Ts else 0)
-    assert torch.equal(got, wavefront_activity_plain(t, R=R, C=C,
-                                                     n_cycles=n_cycles))
+    want = wavefront_activity_plain(t, R=R, C=C, n_cycles=n_cycles)
+    assert torch.equal(got, want)
+    assert torch.equal(got, wavefront_closed_form(t, R=R, C=C,
+                                                  n_cycles=n_cycles))
     if len(Ts) == 1:
-        one = sk.wavefront_activity(t, R=R, C=C, n_cycles=n_cycles)
+        one = sk.wavefront_activity(Ts[0], R=R, C=C, n_cycles=n_cycles,
+                                    device=dev)
         assert torch.equal(one, got[0])
+
+
+@pytest.mark.parametrize("T", [-3, 0, 1, 197, 60_000])
+@pytest.mark.parametrize("n_cycles", [1, 3, 450, 451, 70_002])
+def test_wavefront_scalar_entry_matches_batched_and_plain(dev, T, n_cycles):
+    """The one-fold entry (T a kernel argument) against the batched entry
+    and the plain version; one counted launch each."""
+    from repro_torch.kernels.systolic import systolic as sk
+    from repro_torch.kernels.systolic.ref import wavefront_activity_plain
+    t = torch.tensor([T], dtype=torch.int32, device=dev)
+    before = sk.WAVEFRONT_LAUNCHES
+    one = sk.wavefront_activity(T, R=128, C=96, n_cycles=n_cycles,
+                                device=dev)
+    many = sk.wavefront_activity_batched(t, R=128, C=96, n_cycles=n_cycles)
+    torch.cuda.synchronize()
+    assert sk.WAVEFRONT_LAUNCHES == before + 2
+    assert one.shape == (n_cycles,) and one.dtype == torch.int32
+    assert torch.equal(one, many[0])
+    assert torch.equal(one, wavefront_activity_plain(
+        t, R=128, C=96, n_cycles=n_cycles)[0])
+
+
+def test_wavefront_kernel_unaligned_output_and_launch_floor(dev):
+    """An output one element into a buffer takes the scalar stores; the
+    empty kernel launches."""
+    from repro_torch.kernels.systolic import systolic as sk
+    from repro_torch.kernels.systolic.ref import wavefront_activity_plain
+    Ts = torch.tensor([3, 50, 17], dtype=torch.int32, device=dev)
+    buf = torch.full((3 * 61 + 1,), -7, dtype=torch.int32, device=dev)
+    launch = sk.build_wavefront()
+    err = launch(Ts.data_ptr(), buf[1:].data_ptr(), 3, 61, 9, 5,
+                 torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    sk.launch_floor()
+    torch.cuda.synchronize()
+    assert int(buf[0]) == -7
+    assert torch.equal(buf[1:].view(3, 61), wavefront_activity_plain(
+        Ts, R=9, C=5, n_cycles=61))
+    with pytest.raises(ValueError, match="CUDA device"):
+        sk.wavefront_activity(5, R=4, C=4, n_cycles=10, device="cpu")
 
 
 @pytest.mark.parametrize("rows,K,m,keep,dt", [

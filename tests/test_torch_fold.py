@@ -145,6 +145,40 @@ def test_wavefront_closed_form_matches_reference(T, R, C):
     assert int(got.sum()) == T * R * C and int(got.max()) <= R * C
 
 
+@pytest.mark.parametrize("T,R,C,n_cycles", [
+    (0, 8, 8, 20), (1, 8, 8, 20), (1, 1, 1, 3), (37, 16, 8, 70),
+    (37, 1, 8, 50), (37, 16, 1, 40),                  # R = 1, C = 1
+    (100, 32, 16, 60),                                # n_cycles < T + R + C - 2
+    (100, 8, 32, 400),                                # n_cycles > T + R + C - 2
+    (60_000, 2, 3, 70_000)])                          # terms past int32
+def test_wavefront_closed_form_equals_pallas_kernel(T, R, C, n_cycles):
+    """The CUDA kernel's closed form against the interpret-mode Pallas
+    kernel and the plain row sum, exactly."""
+    got = tsys.wavefront_closed_form(torch.tensor([T], dtype=torch.int32),
+                                     R=R, C=C, n_cycles=n_cycles)
+    assert got.dtype == torch.int32 and got.shape == (1, n_cycles)
+    # long windows in 8,192-cycle blocks: fewer interpreted grid steps
+    want = np.asarray(rsys.wavefront_activity(
+        jnp.int32(T), R=R, C=C, n_cycles=n_cycles,
+        blk_n=256 if n_cycles <= 4096 else 8192, interpret=True))
+    np.testing.assert_array_equal(got[0].numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), tsys.wavefront_activity_plain(
+            torch.tensor([T], dtype=torch.int32), R=R, C=C,
+            n_cycles=n_cycles).numpy())
+    assert int(got.sum()) == T * R * C or n_cycles < T + R + C - 2
+
+
+def test_wavefront_closed_form_batched_and_negative_T():
+    """A batch of folds, T < 0 among them (the row sum counts it as 0)."""
+    Ts = torch.tensor([-5, 0, 1, 16, 300, 7], dtype=torch.int32)
+    got = tsys.wavefront_closed_form(Ts, R=12, C=5, n_cycles=97)
+    np.testing.assert_array_equal(
+        got.numpy(), tsys.wavefront_activity_plain(Ts, R=12, C=5,
+                                                   n_cycles=97).numpy())
+    assert int(got[:2].abs().sum()) == 0
+
+
 @pytest.mark.parametrize("array,T", [(16, 64), (8, 37)])
 def test_instantaneous_power_trace_matches_reference(array, T):
     (jx, jw), (tx, tw) = _operands(array + T, T, array, array)

@@ -1,9 +1,11 @@
 """The PyTorch port's layout stage on the CPU against the JAX reference: the
 bank-conflict kernel's plain version equals the Pallas kernel (interpret
 mode) and its jnp reference exactly, on the reference's own cases and on
-adversarial rows; the streaming layout model and `evaluate_layout` match
-within 1e-6 relative. The CUDA kernel itself is held against the plain
-version on the card (`test_torch_cuda.py`, `chip_smoke.py`)."""
+adversarial rows; so does a plain model of the CUDA kernel's register
+formulation (packed keys, a bitonic sort, run counts by scans); the
+streaming layout model and `evaluate_layout` match within 1e-6 relative.
+The CUDA kernel itself is held against the plain version on the card
+(`test_torch_cuda.py`, `chip_smoke.py`)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -84,6 +86,101 @@ def test_plain_version_equals_pallas_kernel_adversarial(k):
                 err_msg=f"k={k} ports={ports} banks={banks}")
 
 
+def _register_model(line, bank, ports):
+    """The CUDA kernel's register instances in plain PyTorch, on (rows, k)
+    int32 ids with 1 <= k <= 256: rows padded to K = 32 E with element 0's
+    key; per row, 32-bit keys bank << lbits | line when the ids are
+    non-negative and fit in 31 bits together, else 64-bit keys with the
+    bank in the high word; the kernel's one-direction bitonic network on
+    the element index (its in-lane and shuffle steps are the same
+    compare-exchanges, whichever lane holds an element);
+    firsts where a key differs from its predecessor; P their inclusive
+    count, M the max-scan of P at bank-run starts; slowdown max(1,
+    ceil(max (P - M + 1) / ports)). Returns (slowdowns, rows that took
+    32-bit keys)."""
+    line = torch.as_tensor(line, dtype=torch.int32).to(torch.int64)
+    bank = torch.as_tensor(bank, dtype=torch.int32).to(torch.int64)
+    rows, k = line.shape
+    K = 32
+    while K < k:
+        K *= 2
+    assert K <= 256
+    pad = torch.arange(K) >= k
+    idx = torch.where(pad, 0, torch.arange(K).clamp_max(k - 1))
+    line, bank = line[:, idx], bank[:, idx]
+    lbits = torch.tensor([int(v).bit_length() for v in
+                          (line[:, :k] & 0xFFFFFFFF).max(1).values])
+    bbits = torch.tensor([int(v).bit_length() for v in
+                          (bank[:, :k] & 0xFFFFFFFF).max(1).values])
+    narrow = lbits + bbits <= 31
+    shift = torch.where(narrow, lbits, 32)[:, None]
+    key = ((bank & 0xFFFFFFFF) << shift) | (line & 0xFFFFFFFF)
+    i = torch.arange(K)
+    s = 2
+    while s <= K:
+        # the mirror i ^ (s - 1), then i ^ j for j = s / 4 .. 1; the
+        # smaller key goes to the lower index
+        steps, j = [(i ^ (s - 1), s // 2)], s // 4
+        while j:
+            steps.append((i ^ j, j))
+            j //= 2
+        for partner, low_bit in steps:
+            p = key[:, partner]
+            key = torch.where((i & low_bit) == 0, torch.minimum(key, p),
+                              torch.maximum(key, p))
+        s *= 2
+    assert bool((key[:, 1:] >= key[:, :-1]).all())
+    prev = torch.cat([key[:, :1] - 1, key[:, :-1]], 1)
+    b, pb = key >> shift, prev >> shift
+    b[:, 0], pb[:, 0] = 0, -1                      # element 0 starts a run
+    P = torch.cumsum((key != prev).to(torch.int64), 1)
+    M = torch.cummax(torch.where(b != pb, P, 0), 1).values
+    worst = (P - M + 1).max(1).values
+    return (torch.clamp_min(-(-worst // ports), 1).to(torch.int32).numpy(),
+            narrow.numpy())
+
+
+def _register_rows(k, banks, seed):
+    """Random rows, then: lines at 0 and 2^31 - 1, a bank at banks - 1,
+    an all-equal row, an all-distinct row (in one bank and spread),
+    and random lines up to 2^31 - 1 (64-bit keys)."""
+    rng = np.random.default_rng(seed)
+    line = rng.integers(0, 11, (14, k))
+    bank = rng.integers(0, banks, (14, k))
+    j = np.arange(k)
+    top = 2 ** 31 - 1
+    line[0], bank[0] = np.where(j % 2, top, 0), banks - 1
+    line[1], bank[1] = 0, 0                              # all equal
+    line[2], bank[2] = top, banks - 1                    # all equal, wide
+    line[3], bank[3] = j, 0                              # distinct, one bank
+    line[4], bank[4] = j // banks, j % banks             # distinct, spread
+    line[5], bank[5] = top - j, banks - 1 - j % 2        # distinct, wide
+    line[6] = rng.integers(0, top, k, endpoint=True)     # wide random
+    line[7], bank[7] = line[6], banks - 1
+    line[8] = np.where(j % 3 == 0, top, line[8])
+    return line.astype(np.int32), bank.astype(np.int32)
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 64, 65, 128, 129, 256])
+def test_register_formulation_equals_pallas_kernel(k):
+    """The packed-key sort and the sorted-run counts give the interpret-mode
+    Pallas kernel's and the plain version's slowdown exactly, for ports
+    1-4, with both key widths reached."""
+    banks = 1024
+    line, bank = _register_rows(k, banks, seed=k)
+    narrow_seen = set()
+    for ports in (1, 2, 3, 4):
+        got, narrow = _register_model(line, bank, ports)
+        narrow_seen.update(narrow.tolist())
+        want = np.asarray(r_pallas(jnp.asarray(line), jnp.asarray(bank),
+                                   num_banks=banks, ports=ports,
+                                   interpret=True))
+        np.testing.assert_array_equal(got, want, err_msg=f"ports={ports}")
+        np.testing.assert_array_equal(got, _port(line, bank, banks, ports),
+                                      err_msg=f"ports={ports}")
+    assert narrow_seen == {True, False}
+
+
 def test_plain_version_known_rows():
     k, banks = 8, 4
     line, bank = _adversarial(k, banks)
@@ -145,6 +242,17 @@ def test_id_maps_match_reference():
     for a, b in zip(tlay.flat_ids(torch.from_numpy(idx), cfg, 2),
                     rlay.flat_ids(jnp.asarray(idx), rcfg, 2)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("R,n_cycles,lead,elem", [(32, 128, 1, 197),
+                                                  (8, 5, 3, 151_936)])
+def test_streaming_access_pattern_matches_reference(R, n_cycles, lead, elem):
+    """On the CPU when asked (the default is the card)."""
+    got = tlay.streaming_access_pattern(R, n_cycles, lead, elem,
+                                        device="cpu")
+    want = rlay.streaming_access_pattern(R, n_cycles, lead, elem)
+    assert got.shape == (n_cycles, R) and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("banks,R,stride", [(2, 32, 197), (16, 32, 197),
