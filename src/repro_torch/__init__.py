@@ -15,9 +15,11 @@ from .api import (Study, StudyResult, get_preset, get_study, list_presets,
 from .core.accelerator import (AcceleratorConfig, CoreConfig, DramConfig,
                                MemoryConfig, tpu_like_config)
 from .core.workloads import Op
+from .trace.contention import multicore_contention
 from .trace.generator import DEFAULT_SPEC, TraceSpec
 
 __all__ = ["Study", "StudyResult", "get_preset", "get_study",
            "list_presets", "list_studies", "preset_grid", "studies",
            "AcceleratorConfig", "CoreConfig", "DramConfig", "MemoryConfig",
-           "tpu_like_config", "Op", "DEFAULT_SPEC", "TraceSpec"]
+           "tpu_like_config", "Op", "DEFAULT_SPEC", "TraceSpec",
+           "multicore_contention"]

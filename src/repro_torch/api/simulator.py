@@ -96,12 +96,13 @@ class _Flavor:
         return self.Pr * self.Pc
 
 
-def _flavor(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op]
-            ) -> _Flavor:
+def _flavor(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
+            core_index: int = 0) -> _Flavor:
     """The group's flavor, validating what the Study plan guarantees: one
     core grid and layout on or off throughout. A per-op N:M override must
     form a valid SparsityConfig with every design's row_wise flag, as the
-    per-op pipeline requires (ValueError otherwise)."""
+    per-op pipeline requires (ValueError otherwise). The layout row bound
+    follows the analysed core `core_index`."""
     Pr, Pc = cfgs[0].mesh_rows, cfgs[0].mesh_cols
     if any((c.mesh_rows, c.mesh_cols) != (Pr, Pc) for c in cfgs):
         raise ValueError("sweep group mixes core-grid shapes")
@@ -122,18 +123,20 @@ def _flavor(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op]
         representation=cfgs[0].sparsity.representation,
         layout=(dataclasses.replace(cfgs[0].layout, enabled=True)
                 if with_layout else None),
-        r_cap=(_pow2_cap(max(c.cores[0].rows for c in cfgs))
+        r_cap=(_pow2_cap(max(c.cores[core_index].rows for c in cfgs))
                if with_layout else 0))
 
 
-def _columns(cfgs: Sequence[AcceleratorConfig], fl: _Flavor, device):
+def _columns(cfgs: Sequence[AcceleratorConfig], fl: _Flavor, device,
+             core_index: int = 0):
     """float32 design columns: (designs, 1) per scalar field, which
     broadcasts against the (ops,) workload arrays the way the reference
     vmaps over designs, and (designs, 1, cores) per per-core field (the
-    core axis last). The single-core fields R and C are core 0's."""
+    core axis last). The single-core fields R and C are those of core
+    `core_index`; the SIMD fields stay core 0's, as in the reference."""
     cols = {
-        "R": [c.cores[0].rows for c in cfgs],
-        "C": [c.cores[0].cols for c in cfgs],
+        "R": [c.cores[core_index].rows for c in cfgs],
+        "C": [c.cores[core_index].cols for c in cfgs],
         "lanes": [c.cores[0].simd_lanes for c in cfgs],
         "lat": [c.cores[0].simd_latency for c in cfgs],
         "if_b": [c.memory.ifmap_sram_bytes for c in cfgs],
@@ -226,7 +229,7 @@ def _gemm_arrays(ops: Sequence[Op], device):
 
 def decoded_streams(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
                     dataflow: str, word_bytes: int, dram: DramConfig, spec,
-                    device):
+                    device, core_index: int = 0):
     """Generate and decode the demand streams of every unique stream
     design x gemm op, driven by each op's effective compute window and
     its sparsity-shrunk DRAM traffic: returns (t, flat_bank, ch, row,
@@ -234,9 +237,9 @@ def decoded_streams(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
     compression `scale` and the design -> stream map `smap`."""
     from ..core.dram import decode_requests
     from ..trace.generator import gemm_request_stream
-    fl = _flavor(cfgs, ops)
+    fl = _flavor(cfgs, ops, core_index)
     sidx, smap = _stream_dedup(cfgs)
-    d = _columns([cfgs[i] for i in sidx], fl, device)
+    d = _columns([cfgs[i] for i in sidx], fl, device, core_index)
     g = _gemm_arrays(ops, device)
     M, N, K = g["M"], g["N"], g["K"]
     sp, mc = _features(d, g, fl)
@@ -253,12 +256,12 @@ def decoded_streams(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
 
 
 def _trace_stalls(cfgs, ops, dataflow, word_bytes, dram, spec, engine,
-                  device):
+                  device, core_index: int = 0):
     """(designs, ops) cycle-accurate stalls: one batched replay of every
     unique stream, scaled and gathered back per design."""
     from ..core.dram import replay_requests
     streams, scale, smap = decoded_streams(cfgs, ops, dataflow, word_bytes,
-                                           dram, spec, device)
+                                           dram, spec, device, core_index)
     stall = replay_requests(*streams, dram, spec.gran_bytes,
                             engine=engine).stall_cycles
     return (stall * scale)[smap]
@@ -343,26 +346,30 @@ def _sweep_batched(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
                    dataflow: str, word_bytes: int, ert: ERT = DEFAULT_ERT, *,
                    dram: Optional[DramConfig] = None, spec=None,
                    engine: Optional[str] = None,
-                   device: Union[str, torch.device] = "cuda"
-                   ) -> Dict[str, np.ndarray]:
+                   device: Union[str, torch.device] = "cuda",
+                   core_index: int = 0) -> Dict[str, np.ndarray]:
     """Simulate `ops` on every design of one static group (shared dataflow,
     word size, core grid, layout flavor and sparse representation, and
     DramConfig at trace fidelity); returns float64 numpy columns, one value
-    per design. `dram` set means trace fidelity.
+    per design. `dram` set means trace fidelity. `core_index` names the
+    core a heterogeneous mesh is analysed through: the array geometry R, C
+    and the layout row bound are that core's (the SIMD lanes and latency
+    stay core 0's, as in the reference).
     """
     for c in cfgs:
         refuse_outside_slice(c)
         if (c.dataflow, c.memory.word_bytes) != (dataflow, word_bytes):
             raise ValueError("sweep group mixes dataflows or word sizes")
-    fl = _flavor(cfgs, ops)
+    fl = _flavor(cfgs, ops, core_index)
     device = torch.device(device)
-    d = _columns(cfgs, fl, device)
+    d = _columns(cfgs, fl, device, core_index)
     g = _gemm_arrays(ops, device)
     stall = None
     if dram is not None:
         from ..trace.generator import DEFAULT_SPEC
         stall = _trace_stalls(cfgs, ops, dataflow, word_bytes, dram,
-                              spec or DEFAULT_SPEC, engine, device)
+                              spec or DEFAULT_SPEC, engine, device,
+                              core_index)
     res = _design_metrics(d, g, dataflow, word_bytes, ert, fl, stall)
     return {k: v.detach().cpu().numpy().astype(np.float64)
             for k, v in res.items()}

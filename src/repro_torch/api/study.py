@@ -21,8 +21,11 @@ paper's analyses ship as named studies with machine-checkable claims
 (`studies.edp_array_size`, `studies.dataflow_dram_flip`,
 `studies.sparse_speedup`).
 
+Custom evaluators (`Study.evaluator`) run one cell at a time, outside the
+batched groups; the named study `multicore_contention` is one.
+
 Not in this slice: the on-disk cell cache, `force_fallback`, the farm
-wire format (`to_spec`), `concat`/`topk`, the CLI, and custom evaluators.
+wire format (`to_spec`), `concat`/`topk` and the CLI.
 """
 from __future__ import annotations
 
@@ -108,6 +111,7 @@ class BatchGroup:
 class StudyPlan:
     cells: List[StudyCell]
     groups: List[BatchGroup]
+    per_cell: List[int] = dataclasses.field(default_factory=list)
 
     def __len__(self) -> int:
         return len(self.cells)
@@ -121,9 +125,10 @@ class StudyResult:
     """Pandas-free columnar frame: numpy columns + axis metadata.
 
     Axis columns (`design`, `workload`, `fidelity`) are object arrays of
-    labels; metric columns are float64; `batched` is 1.0 (every cell of
-    this port runs batched); `cell_status` is 1.0 for failed cells
-    (non-finite canonical metrics), which `argbest`/`pareto` never pick.
+    labels; metric columns are float64; `batched` is 1.0 for a cell of
+    the batched sweep and 0.0 for an evaluator's cell; `cell_status` is
+    1.0 for failed cells (an evaluator that raised, or non-finite
+    canonical metrics), which `argbest`/`pareto` never pick.
     `meta["engine"]` names the replay engine that ran ("cuda",
     "torch:plain" or "reference") when a fidelity replayed DRAM streams.
     """
@@ -144,7 +149,7 @@ class StudyResult:
     @property
     def fraction_batched(self) -> float:
         """Fraction of cells that executed through the batched sweep (1.0
-        = the whole study ran batched; every cell of this port does)."""
+        = the whole study ran batched)."""
         if not len(self) or "batched" not in self.columns:
             return 1.0
         return float(np.mean(self.columns["batched"]))
@@ -319,6 +324,8 @@ class Study:
         self._ert: ERT = DEFAULT_ERT
         self._engine: Optional[str] = None
         self._spec = None
+        self._core_index: int = 0
+        self._evaluator: Optional[Callable] = None
         self._claims: List[Tuple[str, Callable]] = []
 
     # ---- axes --------------------------------------------------------------
@@ -400,22 +407,42 @@ class Study:
 
     # ---- options -----------------------------------------------------------
     def options(self, *, ert: Optional[ERT] = None,
-                engine: Optional[str] = None, spec=None) -> "Study":
-        """Execution knobs shared by every cell: the energy table, the
-        replay engine (`core.replay.ENGINES`) and the trace spec."""
+                engine: Optional[str] = None, trace_spec=None,
+                core_index: Optional[int] = None,
+                force_fallback: Optional[bool] = None) -> "Study":
+        """Execution knobs shared by every cell, with the reference's
+        keywords: the energy table, the replay engine
+        (`core.replay.ENGINES`), the trace spec and the core a
+        heterogeneous mesh is analysed through. `force_fallback=True`
+        needs the per-op engine and is refused."""
         from ..core import replay as _rp
+        if force_fallback:
+            raise NotImplementedError(
+                "force_fallback runs every cell through the per-op engine, "
+                "which comes with module item 8 of the PyTorch port "
+                "(ROADMAP.md)")
         if ert is not None:
             self._ert = ert
         if engine is not None:
             self._engine = _rp.resolve_engine(engine)
-        if spec is not None:
-            self._spec = spec
+        if trace_spec is not None:
+            self._spec = trace_spec
+        if core_index is not None:
+            self._core_index = int(core_index)
         return self
 
-    def evaluator(self, fn) -> "Study":
-        raise NotImplementedError(
-            "custom evaluators run through the per-op engine, which comes "
-            "with module item 8 of the PyTorch port (ROADMAP.md)")
+    def evaluator(self, fn: Callable) -> "Study":
+        """Custom per-cell evaluator replacing the batched sweep (e.g. the
+        multi-core contention study). The port calls it as
+        `fn(config, ops, fidelity, device=device)`: the reference's
+        `(config, ops, fidelity)` plus the device the study runs on, which
+        the port makes explicit. Its cells run one at a time
+        (`batched = 0.0`); a cell whose evaluator raises anything but
+        `ValueError` becomes a failed cell (`cell_status = 1.0`), while a
+        `ValueError` (an invalid configuration) propagates. The reference's
+        content-hash cell cache is not ported (module item 8)."""
+        self._evaluator = fn
+        return self
 
     def claim(self, name: str, fn: Callable[[StudyResult], bool]) -> "Study":
         """Attach a machine-checkable paper claim, evaluated on the frame
@@ -435,13 +462,15 @@ class Study:
     def plan(self) -> StudyPlan:
         """Compile the cross-product into cells + batchable groups. Cell
         order (= frame row order): fidelity-major, then workload, design
-        fastest. `run` refuses NoC-enabled cells, which are outside this
-        slice (NotImplementedError)."""
+        fastest. With an evaluator every cell runs on its own (`per_cell`)
+        and no group is formed. `run` refuses NoC-enabled cells of the
+        batched sweep, which are outside this slice
+        (NotImplementedError)."""
         if not self._designs:
             raise ValueError("Study has no designs; call .designs(...)")
         if not self._workloads:
             raise ValueError("Study has no workloads; call .workloads(...)")
-        if "cycle" in self._fidelities:
+        if "cycle" in self._fidelities and self._evaluator is None:
             raise NotImplementedError(
                 "'cycle' fidelity runs through the per-op engine, which "
                 "comes with module item 8 of the PyTorch port (ROADMAP.md)")
@@ -451,6 +480,9 @@ class Study:
                 for label, cfg in self._designs:
                     cells.append(StudyCell(len(cells), label, wname, fid,
                                            cfg))
+        if self._evaluator is not None:
+            return StudyPlan(cells=cells, groups=[],
+                             per_cell=[c.index for c in cells])
         by_key: Dict[tuple, List[int]] = {}
         for c in cells:
             cfg = c.config
@@ -481,15 +513,29 @@ class Study:
                 [plan.cells[i].config for i in grp.cells],
                 self._workloads[grp.workload], grp.dataflow, grp.word_bytes,
                 self._ert, dram=grp.dram, spec=self._spec_for(grp.fidelity),
-                engine=self._engine, device=device)
+                engine=self._engine, device=device,
+                core_index=self._core_index)
             vals["edp"] = _edp(vals["energy_pj"], vals["total_cycles"])
             for j, i in enumerate(grp.cells):
                 results[i] = {k: float(v[j]) for k, v in vals.items()}
                 results[i]["batched"] = 1.0
                 _flag_non_finite(results[i])
+        for i in plan.per_cell:
+            cell = plan.cells[i]
+            try:
+                m = {k: float(v) for k, v in self._evaluator(
+                    cell.config, self._workloads[cell.workload],
+                    cell.fidelity, device=device).items()}
+            except ValueError:
+                raise    # invalid configuration: loud, never a failed cell
+            except Exception:  # noqa: BLE001 -- one bad cell, study lives
+                m = {"cell_status": 1.0}
+            m["batched"] = 0.0
+            results[i] = m
+            _flag_non_finite(results[i])
         res = self._frame(plan.cells, [results[i]
                                        for i in range(len(plan.cells))])
-        if "trace" in self._fidelities:
+        if any(f in ("trace", "cycle") for f in self._fidelities):
             res.meta["engine"] = _rp.resolve_engine_runtime(self._engine,
                                                             device)
         res.meta["device"] = str(device)
@@ -499,6 +545,10 @@ class Study:
                results: List[Dict[str, float]]) -> StudyResult:
         metric_names = [m for m in METRIC_COLUMNS
                         if any(m in r for r in results)]
+        # an evaluator's own metrics follow the canonical ones, sorted
+        metric_names += sorted({k for r in results for k in r}
+                               - set(metric_names)
+                               - {"batched", "cell_status"})
         cols: Dict[str, np.ndarray] = {
             "design": np.array([c.design for c in cells], dtype=object),
             "workload": np.array([c.workload for c in cells], dtype=object),
@@ -617,6 +667,44 @@ def dataflow_dram_flip() -> Study:
                 "total_cycles", axis="design", baseline="os")["ws"][0])
             > float(r.filter(fidelity="fast").compare(
                 "total_cycles", axis="design", baseline="os")["ws"][0]))
+    return s
+
+
+@register_study("multicore_contention")
+def multicore_contention_study(channels: Sequence[int] = (1, 2, 4),
+                               gemm: Tuple[int, int, int] = (512, 2048, 1024),
+                               spec=None) -> Study:
+    """Shared-DRAM contention across channel counts on the MCM package:
+    per-core demand traces merged through shared channels vs each core
+    alone (`simulate_multicore_contention`). The shared run never beats
+    isolation, contention is material (>10% makespan inflation), and
+    adding channels relieves the shared makespan. Its cells run through
+    the study's evaluator, one per design, on the study's device."""
+    from ..core.multicore import contention_summary
+    from .presets import get_preset
+    M, N, K = gemm
+
+    def cell(cfg: AcceleratorConfig, ops: Sequence[Op], fidelity: str, *,
+             device) -> Dict[str, float]:
+        o = ops[0]
+        return contention_summary(cfg, o.M, o.N, o.K, spec=spec,
+                                  device=device)
+
+    s = (Study("multicore_contention")
+         .designs({f"ch{c}": get_preset("mcm-4x32", channels=c)
+                   for c in channels})
+         .workloads({f"gemm-{M}x{N}x{K}": [Op("gemm", M, N, K)]})
+         .fidelity("trace")
+         .options(trace_spec=spec)
+         .evaluator(cell))
+    s.claim("shared_never_beats_isolated",
+            lambda r: bool((r["makespan_shared"]
+                            >= r["makespan_isolated"] - 1e-6).all()))
+    s.claim("contention_is_material",
+            lambda r: bool((r["contention_slowdown"] > 1.1).all()))
+    s.claim("more_channels_relieve_shared_makespan",
+            lambda r: bool(np.all(np.diff(
+                r["makespan_shared"][np.argsort(r["channels"])]) <= 0.0)))
     return s
 
 

@@ -193,7 +193,7 @@ def replay_requests(t_issue, flat_bank, ch, row, is_write, valid,
                                 cfg, gran_bytes, chunk=chunk)
         done = torch.where(valid, out["done"], ti)
         rt = out["latency"]
-        shift = out["shift"]
+        shift = out["shift"][..., 0]
         hits, misses, conflicts = out["hits"], out["misses"], out["conflicts"]
     return _finalize(ti, valid, done, rt, shift, hits, misses, conflicts,
                      cfg, gran_bytes, busy)

@@ -24,7 +24,7 @@ once. The eager `simulate_multicore` delegates to the same model.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -227,6 +227,51 @@ def simulate_multicore(cfg: AcceleratorConfig, M: int, N: int, K: int,
         l2_fit=bool(l2_fit), l2_spill_elems=float(spill),
         footprint_l1=float(fp_l1["total"]), footprint_l2=float(fp_l2["total"]),
         reduce_elems=float(fp_l1["reduce_elems"]))
+
+
+def simulate_multicore_contention(cfg: AcceleratorConfig, M: int, N: int,
+                                  K: int, scheme: str = "spatial",
+                                  private_channels: bool = False,
+                                  spec=None, device="cuda"):
+    """Shared-DRAM contention for one partitioned GEMM, on `device` (CUDA
+    unless the caller asks for the CPU): per-core demand traces merged
+    through the shared channels, against each core alone on the memory
+    system. Returns a `trace.contention.ContentionResult` with per-core
+    stall inflation.
+
+    private_channels: pin core c's bursts to channel c; with one core per
+    channel the contention path then decomposes exactly into the isolated
+    runs.
+    """
+    from ..trace.contention import multicore_contention
+    return multicore_contention(cfg, M, N, K, scheme=scheme,
+                                private_channels=private_channels, spec=spec,
+                                device=device)
+
+
+def contention_summary(cfg: AcceleratorConfig, M: int, N: int, K: int,
+                       scheme: str = "spatial",
+                       private_channels: bool = False,
+                       spec=None, device="cuda") -> Dict[str, float]:
+    """`simulate_multicore_contention` flattened to a metric dict: the cell
+    evaluator of the `multicore_contention` named study. Infinite stall
+    inflations (cores that only stall under contention) are reported as a
+    count, not a column value, so the frame stays CSV-safe."""
+    r = simulate_multicore_contention(cfg, M, N, K, scheme,
+                                      private_channels, spec, device)
+    finite = [x for x in r.stall_inflation if np.isfinite(x)]
+    return dict(
+        channels=float(cfg.dram.channels),
+        cores=float(cfg.num_cores),
+        makespan_isolated=float(r.makespan_isolated),
+        makespan_shared=float(r.makespan_shared),
+        contention_slowdown=float(r.makespan_shared
+                                  / max(r.makespan_isolated, 1e-9)),
+        max_stall_inflation=float(max(finite)) if finite else 1.0,
+        cores_stalled_only_shared=float(len(r.stall_inflation)
+                                        - len(finite)),
+        row_hits=float(r.row_hits), row_misses=float(r.row_misses),
+        row_conflicts=float(r.row_conflicts))
 
 
 def best_multicore(cfg: AcceleratorConfig, M: int, N: int, K: int,

@@ -54,16 +54,24 @@ def replay_decoded(t_issue, flat_bank, ch, row, is_write, valid,
                    cfg: DramConfig, gran_bytes: int = 64, *,
                    chunk: Optional[int] = None,
                    max_passes: Optional[int] = None,
-                   tol: float = DEFAULT_TOL):
+                   tol: float = DEFAULT_TOL, n_cores: int = 1,
+                   core_id=None, per_channel_queues: bool = False):
     """Chunked replay of pre-decoded request streams of shape (..., n),
-    one single-core stream per leading index: one CUDA kernel launch for
-    CUDA tensors (which launches or raises), the kernel's plain PyTorch
-    version for CPU tensors.
+    one stream per leading index: one CUDA kernel launch for CUDA tensors
+    (which launches or raises), the kernel's plain PyTorch version for
+    CPU tensors.
+
+    A stream may merge `n_cores` cores: `core_id` (..., n) names each
+    request's core (None: all core 0), and each core keeps its own
+    backpressure shift. `per_channel_queues` gives every channel its own
+    in-flight read and write rings (the shared-DRAM semantics of
+    `trace.contention.simulate_shared_dram`); the default is one global
+    ring pair, `simulate_dram`'s.
 
     Returns a dict: the raw per-request completion `done` (0 where
     ~valid; callers substitute their no-op value), the round-trip
-    `latency`, the backpressure `shift` (...) and the exact row
-    hit/empty/conflict counters.
+    `latency`, the per-core backpressure `shift` (..., n_cores) and the
+    exact row hit/empty/conflict counters.
     """
     from ..kernels.replay import megakernel as mk
     n = t_issue.shape[-1]
@@ -72,9 +80,11 @@ def replay_decoded(t_issue, flat_bank, ch, row, is_write, valid,
     C = max(1, min(C, max(n, 1)))
     busy = max(1.0, gran_bytes / cfg.bandwidth_bytes_per_cycle)
     passes = None if max_passes is None else max(1, int(max_passes))
+    n_qg = cfg.channels if per_channel_queues else 1
     kw = dict(cfg=cfg, busy=float(busy), C=C, max_passes=passes,
-              tol=float(tol))
-    ins = mk.prepare(t_issue, flat_bank, ch, row, is_write, valid, C)
+              tol=float(tol), n_cores=int(n_cores), n_qg=n_qg)
+    ins = mk.prepare(t_issue, flat_bank, ch, row, is_write, valid, C,
+                     core_id)
     if resolve_engine_runtime(None, t_issue.device) == "cuda":
         done, shift, cnt = mk.launch_cuda(ins, **kw)
     else:
@@ -85,5 +95,5 @@ def replay_decoded(t_issue, flat_bank, ch, row, is_write, valid,
     ti = t_issue.to(torch.float32)
     cnt = cnt.reshape(batch + (4,))
     return dict(done=done, latency=torch.where(vmask, done - ti, 0.0),
-                shift=shift.reshape(batch),
+                shift=shift.reshape(batch + (int(n_cores),)),
                 hits=cnt[..., 0], misses=cnt[..., 1], conflicts=cnt[..., 2])

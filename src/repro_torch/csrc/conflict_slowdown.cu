@@ -43,9 +43,13 @@
 //   the same pair, and each first element counts the first elements of
 //   its bank (two O(k^2) broadcast loops).
 //
-// No num_banks-sized table exists, so both take any bank count.
-// Contract: bank ids lie in [0, num_banks) (the layout stage's `flat_ids`
-// keeps them there); the kernels never index by a bank id.
+// No num_banks-sized table exists, so both take any bank count. An id whose
+// bank lies outside [0, num_banks), negative included, is counted in no
+// bank, as the Pallas kernel's one-hot against iota(num_banks) drops it:
+// both instances mask it at load time (one unsigned compare per id) into
+// the pair (num_banks, 0). All such ids share that one pair, which adds a
+// bank of one distinct pair, below the floor of 1 the slowdown has anyway.
+// The layout stage's `flat_ids` never makes such an id.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -69,10 +73,19 @@ struct RowIds {
   int bank[kE];
 };
 
+// An id outside [0, num_banks) becomes the pair (num_banks, 0).
+__device__ __forceinline__ void drop_out_of_range(int& line, int& bank,
+                                                  int num_banks) {
+  if ((unsigned)bank >= (unsigned)num_banks) {
+    bank = num_banks;
+    line = 0;
+  }
+}
+
 __device__ __forceinline__ void load_row(const int* __restrict__ lr,
                                          const int* __restrict__ br, int k,
                                          int base, bool in_rows, bool vec,
-                                         RowIds& ids) {
+                                         int num_banks, RowIds& ids) {
   if (vec) {
 #pragma unroll
     for (int q = 0; q < kE; q += 4) {
@@ -94,6 +107,9 @@ __device__ __forceinline__ void load_row(const int* __restrict__ lr,
       ids.bank[e] = in ? br[base + e] : 0;
     }
   }
+#pragma unroll
+  for (int e = 0; e < kE; ++e)
+    drop_out_of_range(ids.line[e], ids.bank[e], num_banks);
 }
 
 template <typename Key>
@@ -229,8 +245,8 @@ __device__ __forceinline__ int row_worst(const RowIds& ids, int k, int l,
 template <int L>
 __global__ void __launch_bounds__(kRegThreads)
 conflict_regs(const int* __restrict__ line, const int* __restrict__ bank,
-              int* __restrict__ out, long long rows, int k, int ports,
-              bool vec) {
+              int* __restrict__ out, long long rows, int k, int num_banks,
+              int ports, bool vec) {
   constexpr int kRowsPerWarp = 32 / L;
   const int lane = threadIdx.x & 31;
   const int l = lane % L;
@@ -242,7 +258,8 @@ conflict_regs(const int* __restrict__ line, const int* __restrict__ bank,
   if (r - lane / L >= rows) return;              // the whole warp is past
   for (; r - lane / L < rows; r += step) {
     RowIds cur;
-    load_row(line + r * k, bank + r * k, k, l * kE, r < rows, vec, cur);
+    load_row(line + r * k, bank + r * k, k, l * kE, r < rows, vec,
+             num_banks, cur);
     // 32-bit keys when the warp's ids are non-negative and the bank and
     // line bits fit in 31 together (ids past k and past the last row are
     // 0, so they leave the test unchanged)
@@ -268,7 +285,8 @@ constexpr int kSmemWarps = 4;           // warps (rows in flight) per block
 
 __global__ void __launch_bounds__(kSmemWarps * 32)
 conflict_smem(const int* __restrict__ line, const int* __restrict__ bank,
-              int* __restrict__ out, long long rows, int k, int ports) {
+              int* __restrict__ out, long long rows, int k, int num_banks,
+              int ports) {
   extern __shared__ int smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -281,8 +299,10 @@ conflict_smem(const int* __restrict__ line, const int* __restrict__ bank,
     const int* lr = line + r * k;
     const int* br = bank + r * k;
     for (int j = lane; j < k; j += 32) {
-      s_line[j] = lr[j];
-      s_bank[j] = br[j];
+      int l = lr[j], b = br[j];
+      drop_out_of_range(l, b, num_banks);
+      s_line[j] = l;
+      s_bank[j] = b;
     }
     __syncwarp();
     // 1. first occurrences
@@ -322,7 +342,7 @@ int sm_count() {
 
 template <int L>
 int launch_regs(const int* line, const int* bank, int* out, long long rows,
-                int k, int ports, cudaStream_t stream) {
+                int k, int num_banks, int ports, cudaStream_t stream) {
   const bool vec = k % 4 == 0 && ((uintptr_t)line & 15) == 0
                    && ((uintptr_t)bank & 15) == 0;
   constexpr int kRowsPerBlock = kRegThreads / 32 * (32 / L);
@@ -334,7 +354,7 @@ int launch_regs(const int* line, const int* bank, int* out, long long rows,
   const long long cap = (long long)sm_count() * (resident > 0 ? resident : 1);
   if (blocks > cap) blocks = cap;
   conflict_regs<L><<<(unsigned)blocks, kRegThreads, 0, stream>>>(
-      line, bank, out, rows, k, ports, vec);
+      line, bank, out, rows, k, num_banks, ports, vec);
   return (int)cudaGetLastError();
 }
 
@@ -351,6 +371,7 @@ extern "C" int conflict_slowdown_instance(int k) {
 }
 
 // line, bank: (rows, k) int32, row-major and contiguous; out: (rows,) int32.
+// Ids whose bank lies outside [0, num_banks) count in no bank.
 // `instance`: 0 picks by k (`conflict_slowdown_instance`); 32, 64, 128 or
 // 256 runs that register instance (k must not exceed it); -1 runs the
 // shared-memory instance. Launches on `stream` and returns the CUDA error
@@ -358,18 +379,27 @@ extern "C" int conflict_slowdown_instance(int k) {
 // cannot take k).
 extern "C" int conflict_slowdown_launch(const int* line, const int* bank,
                                         int* out, long long rows, int k,
-                                        int ports, int instance,
-                                        void* stream) {
+                                        int num_banks, int ports,
+                                        int instance, void* stream) {
   if (instance == 0) instance = conflict_slowdown_instance(k);
   if (instance > 0 && (k < 1 || k > instance))
     return (int)cudaErrorInvalidValue;
+  if (num_banks < 1) return (int)cudaErrorInvalidValue;
   if (rows <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (instance) {
-    case 32: return launch_regs<32 / kE>(line, bank, out, rows, k, ports, s);
-    case 64: return launch_regs<64 / kE>(line, bank, out, rows, k, ports, s);
-    case 128: return launch_regs<128 / kE>(line, bank, out, rows, k, ports, s);
-    case 256: return launch_regs<256 / kE>(line, bank, out, rows, k, ports, s);
+    case 32:
+      return launch_regs<32 / kE>(line, bank, out, rows, k, num_banks, ports,
+                                   s);
+    case 64:
+      return launch_regs<64 / kE>(line, bank, out, rows, k, num_banks, ports,
+                                   s);
+    case 128:
+      return launch_regs<128 / kE>(line, bank, out, rows, k, num_banks, ports,
+                                   s);
+    case 256:
+      return launch_regs<256 / kE>(line, bank, out, rows, k, num_banks, ports,
+                                   s);
     case -1: break;
     default: return (int)cudaErrorInvalidValue;
   }
@@ -383,6 +413,6 @@ extern "C" int conflict_slowdown_launch(const int* line, const int* bank,
   long long blocks = (rows + kSmemWarps - 1) / kSmemWarps;
   if (blocks > 132LL * 16) blocks = 132LL * 16;
   conflict_smem<<<(unsigned)blocks, kSmemWarps * 32, smem, s>>>(
-      line, bank, out, rows, k, ports);
+      line, bank, out, rows, k, num_banks, ports);
   return (int)cudaGetLastError();
 }

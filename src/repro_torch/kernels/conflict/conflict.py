@@ -33,7 +33,7 @@ INSTANCES = (32, 64, 128, 256, -1)
 
 _LIB = CudaLibrary("conflict_slowdown.cu", "conflict_slowdown_launch",
                    [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 # ptxas report (registers, shared memory, spills) of the last build
 BUILD_LOG = ""
 
@@ -66,10 +66,10 @@ def conflict_slowdown(line: torch.Tensor, bank: torch.Tensor, *,
     tests and measurements name one of `INSTANCES` to run it on rows it
     can take.
 
-    Bank ids must lie in [0, num_banks): the layout stage's `flat_ids`
-    keeps them there, and the wrapper does not check it. (The kernel counts
-    distinct lines per bank id without a `num_banks`-sized table, so it
-    needs `num_banks` only for this contract.)"""
+    An id whose bank lies outside [0, num_banks), negative included, is
+    counted in no bank, as the reference's one-hot drops it: the kernel
+    masks it at load time (the layout stage's `flat_ids` never makes
+    one)."""
     global LAUNCHES
     if line.dim() != 2 or line.shape != bank.shape:
         raise ValueError(f"line and bank must be (cycles, k) of one shape, "
@@ -101,7 +101,8 @@ def conflict_slowdown(line: torch.Tensor, bank: torch.Tensor, *,
     with torch.cuda.device(line.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(line.data_ptr(), bank.data_ptr(), out.data_ptr(),
-                     rows, k, int(ports), int(instance), stream)
+                     rows, k, int(num_banks), int(ports), int(instance),
+                     stream)
     if err != 0:
         raise RuntimeError(f"conflict kernel launch failed: CUDA error {err} "
                            f"(rows={rows}, k={k})")

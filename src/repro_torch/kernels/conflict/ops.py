@@ -15,8 +15,9 @@ from ...core.accelerator import LayoutConfig
 def per_cycle_slowdown(line: torch.Tensor, bank: torch.Tensor, *,
                        num_banks: int, ports: int = 1) -> torch.Tensor:
     """(cycles, k) line/bank ids -> (cycles,) int32 slowdown, >= 1: the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors. Bank
-    ids must lie in [0, num_banks)."""
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors. An id
+    whose bank lies outside [0, num_banks) is counted in no bank, as in the
+    reference."""
     if line.is_cuda:
         from .conflict import conflict_slowdown
         return conflict_slowdown(line.to(torch.int32).contiguous(),

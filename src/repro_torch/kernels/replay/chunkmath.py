@@ -8,13 +8,18 @@ one warp per stream, as maxima and sums along each request's links to
 its same-bank and same-channel predecessors; this module is what the CPU
 tests run and what the kernel is held against on the card.
 
-Semantics (the reference per-request scan, `core.dram._reference_scan`):
+Semantics (the reference per-request scans, `core.dram._reference_scan`
+and, for a merged multi-core stream, `trace.contention`'s
+`_reference_shared_scan`):
 
-  head      = ring[dir_idx % Q]       (in-flight window, per direction)
-  issue_ok  = max(t + shift, head)
+  head      = ring[group][dir_idx[group] % Q]   (in-flight window, per
+                                       direction and queue group: one
+                                       group, or one per channel)
+  issue_ok  = max(t + shift[core], head)
   ready     = max(issue_ok, bank_free[bank])
   done      = max(ready + lat, bus_free[channel]) + busy
-  shift    += max(0, issue_ok - (t + shift))   == running max of head - t
+  shift[core] += max(0, issue_ok - (t + shift[core]))
+                                    == running max of head - t per core
 
 Within a chunk the serial recurrences are closed per fixed-point pass:
 the channel chain as a weighted max-plus prefix (W is the inclusive
@@ -28,10 +33,12 @@ result.
 Masks follow the row = consumer / column = producer convention:
 `mask[s, i, j]` is True when request j (column) feeds request i.
 
-Each stream is replayed as one core's, with one in-flight queue per
-direction: the reference's per-channel queue groups and per-core shifts
-(its `n_qg` and `core_id`) come back with the shared-DRAM contention
-slice.
+Every request carries a core id in [0, n_cores): its issue shift is its
+core's, seeded by the carried `shift[core]` and raised by the earlier
+requests of the same core. The in-flight rings are per queue group:
+`n_qg = 1` (one ring pair per stream, the sweep's case) or
+`n_qg = channels` (one per channel, the shared-DRAM contention path). With
+`n_cores = n_qg = 1` every table and pass is the single-core replay's.
 """
 from __future__ import annotations
 
@@ -65,26 +72,31 @@ class ChunkTables(NamedTuple):
     """Order-only per-chunk tables (no carried state involved)."""
     mbank: torch.Tensor      # (S, C, C) same-bank & valid-j & j <= i
     mchan: torch.Tensor      # (S, C, C) same-channel & valid-j & j <= i
-    mshift: torch.Tensor     # (S, C, C) valid-j & j < i
+    mshift: torch.Tensor     # (S, C, C) same-core & valid-j & j < i
     gprev: torch.Tensor      # (S, C)    pruned prev same-bank index, or -1
     ghead: torch.Tensor      # (S, C)    in-chunk queue-head source, or -1
     intra: torch.Tensor      # (S, C)    has a same-bank predecessor here
     row_prev: torch.Tensor   # (S, C)    its row (-1 where ~intra)
     lat_intra: torch.Tensor  # (S, C)    its row-buffer latency, else 0
     W: torch.Tensor          # (S, C)    inclusive channel weight prefix
-    rdx: torch.Tensor        # (S, C)    read index within the chunk
+    qg: torch.Tensor         # (S, C)    queue group (0 for invalid)
+    core: torch.Tensor       # (S, C)    core id (0 for invalid)
+    rdx: torch.Tensor        # (S, C)    read index within (chunk, group)
     wdx: torch.Tensor        # (S, C)
-    nr: torch.Tensor         # (S,)      reads in this chunk
-    nw: torch.Tensor         # (S,)
+    nr: torch.Tensor         # (S, n_qg) reads per group in this chunk
+    nw: torch.Tensor         # (S, n_qg)
     surv_r: torch.Tensor     # (S, C)    last writer of its ring slot
     surv_w: torch.Tensor     # (S, C)
     last_b: torch.Tensor     # (S, C)    last valid request of its bank
     last_c: torch.Tensor     # (S, C)    last valid request of its channel
 
 
-def chunk_tables(fb, ch, row, w, v, *, cfg: DramConfig,
-                 busy: float) -> ChunkTables:
-    """Everything about one chunk that depends only on stream order."""
+def chunk_tables(fb, ch, row, w, v, cid=None, *, cfg: DramConfig,
+                 busy: float, n_cores: int = 1, n_qg: int = 1
+                 ) -> ChunkTables:
+    """Everything about one chunk that depends only on stream order.
+    `cid` (S, C) holds the core ids (None: all core 0); `n_qg` is 1 or
+    `cfg.channels` (the queue group is then the channel)."""
     C = fb.shape[-1]
     dev = fb.device
     idx = torch.arange(C, device=dev)
@@ -117,33 +129,38 @@ def chunk_tables(fb, ch, row, w, v, *, cfg: DramConfig,
     W_prev = _pick(W, prev, 0.0)
     gprev = torch.where(intra & (lat_intra + busy > W - W_prev), prev, -1)
 
-    mshift = vj & strict
+    core = (torch.zeros_like(fb) if cid is None
+            else torch.where(v, cid.to(fb.dtype), 0))
+    mshift = (core[..., None, :] == core[..., :, None]) & vj & strict
 
-    # per-direction indices within the chunk
+    # queue groups, and per-direction indices within (chunk, group)
+    qg = torch.where(v, ch, 0) if n_qg > 1 else torch.zeros_like(fb)
+    same_g = qg[..., None, :] == qg[..., :, None]
     rm = v & ~w
     wm = v & w
-    rdx = (rm[..., None, :] & strict).sum(-1).to(torch.int32)
-    wdx = (wm[..., None, :] & strict).sum(-1).to(torch.int32)
-    nr = rm.sum(-1).to(torch.int32)
-    nw = wm.sum(-1).to(torch.int32)
+    rdx = (same_g & rm[..., None, :] & strict).sum(-1).to(torch.int32)
+    wdx = (same_g & wm[..., None, :] & strict).sum(-1).to(torch.int32)
+    g_oh = qg[..., None, :] == torch.arange(n_qg, device=dev)[:, None]
+    nr = (g_oh & rm[..., None, :]).sum(-1).to(torch.int32)
+    nw = (g_oh & wm[..., None, :]).sum(-1).to(torch.int32)
 
-    # in-chunk queue-head source: the same-direction request exactly Q
-    # back, when it falls inside this chunk
+    # in-chunk queue-head source: the same-(group, direction) request
+    # exactly Q back, when it falls inside this chunk
     Qr, Qw = cfg.read_queue, cfg.write_queue
     if Qr < C or Qw < C:
         eq_r = (rdx[..., None, :] == rdx[..., :, None] - Qr) & \
-            rm[..., None, :] & rm[..., :, None]
+            rm[..., None, :] & rm[..., :, None] & same_g
         eq_w = (wdx[..., None, :] == wdx[..., :, None] - Qw) & \
-            wm[..., None, :] & wm[..., :, None]
+            wm[..., None, :] & wm[..., :, None] & same_g
         src = torch.where(w[..., :, None], eq_w, eq_r)
         ghead = rowmax(src, idx.expand_as(fb), -1)
     else:
         ghead = torch.full_like(fb, -1)
 
     # ring survivors: a request is the last writer of its slot iff it is
-    # among the last Q of its direction in the chunk
-    surv_r = rm & (rdx + Qr >= nr[..., None])
-    surv_w = wm & (wdx + Qw >= nw[..., None])
+    # among the last Q of its (group, direction) in the chunk
+    surv_r = rm & (rdx + Qr >= torch.gather(nr, -1, qg.long()))
+    surv_w = wm & (wdx + Qw >= torch.gather(nw, -1, qg.long()))
 
     # the last valid request of each bank / channel writes its state
     last_b = v & ~(same_bank & vj & later).any(-1)
@@ -151,8 +168,8 @@ def chunk_tables(fb, ch, row, w, v, *, cfg: DramConfig,
 
     return ChunkTables(
         mbank=mbank, mchan=mchan, mshift=mshift, gprev=gprev, ghead=ghead,
-        intra=intra, row_prev=row_prev, lat_intra=lat_intra, W=W,
-        rdx=rdx, wdx=wdx, nr=nr, nw=nw,
+        intra=intra, row_prev=row_prev, lat_intra=lat_intra, W=W, qg=qg,
+        core=core, rdx=rdx, wdx=wdx, nr=nr, nw=nw,
         surv_r=surv_r, surv_w=surv_w, last_b=last_b, last_c=last_c)
 
 
@@ -161,15 +178,15 @@ class ChunkState(NamedTuple):
     bank_free: torch.Tensor   # (S, B)
     open_row: torch.Tensor    # (S, B) int32, -1 = no open row
     bus_free: torch.Tensor    # (S, ch_n)
-    ring_r: torch.Tensor      # (S, Qr) in-flight read completions
-    ring_w: torch.Tensor      # (S, Qw)
-    ir: torch.Tensor          # (S,) reads admitted so far
-    iw: torch.Tensor          # (S,)
-    shift: torch.Tensor       # (S,) queue backpressure
+    ring_r: torch.Tensor      # (S, n_qg, Qr) in-flight read completions
+    ring_w: torch.Tensor      # (S, n_qg, Qw)
+    ir: torch.Tensor          # (S, n_qg) reads admitted so far
+    iw: torch.Tensor          # (S, n_qg)
+    shift: torch.Tensor       # (S, n_cores) queue backpressure
 
 
 def init_state(S: int, *, n_banks: int, ch_n: int, Qr: int, Qw: int,
-               device) -> ChunkState:
+               device, n_cores: int = 1, n_qg: int = 1) -> ChunkState:
     f32, i32 = torch.float32, torch.int32
 
     def z(*shape, dtype=f32):
@@ -178,8 +195,8 @@ def init_state(S: int, *, n_banks: int, ch_n: int, Qr: int, Qw: int,
     return ChunkState(
         bank_free=z(n_banks),
         open_row=torch.full((S, n_banks), -1, dtype=i32, device=device),
-        bus_free=z(ch_n), ring_r=z(Qr), ring_w=z(Qw), ir=z(dtype=i32),
-        iw=z(dtype=i32), shift=z())
+        bus_free=z(ch_n), ring_r=z(n_qg, Qr), ring_w=z(n_qg, Qw),
+        ir=z(n_qg, dtype=i32), iw=z(n_qg, dtype=i32), shift=z(n_cores))
 
 
 def iterate_fixed_point(one_pass, zero, *, cap: int, tol: float):
@@ -220,6 +237,7 @@ def chunk_resolve(state: ChunkState, tab: ChunkTables, t, row, w, v, fb,
     Qr, Qw = cfg.read_queue, cfg.write_queue
     C = t.shape[-1]
     f32 = torch.float32
+    S, n_qg = state.ir.shape
 
     # carried-state gathers (0 for invalid requests, whose ids are never
     # used as indices)
@@ -238,11 +256,14 @@ def chunk_resolve(state: ChunkState, tab: ChunkTables, t, row, w, v, fb,
 
     bank0 = gather0(state.bank_free, fb)
     bus0 = gather0(state.bus_free, ch)
-    shift0 = torch.where(v, state.shift[:, None], 0.0)
-    sl_r = ((tab.rdx + state.ir[:, None]) % Qr).long()
-    sl_w = ((tab.wdx + state.iw[:, None]) % Qw).long()
-    head0 = torch.where(w, torch.gather(state.ring_w, -1, sl_w),
-                        torch.gather(state.ring_r, -1, sl_r))
+    shift0 = gather0(state.shift, tab.core)
+    qg = tab.qg.long()
+    sl_r = ((tab.rdx + torch.gather(state.ir, -1, qg)) % Qr).long()
+    sl_w = ((tab.wdx + torch.gather(state.iw, -1, qg)) % Qw).long()
+    at_r, at_w = qg * Qr + sl_r, qg * Qw + sl_w     # (group, slot), flat
+    ring_r, ring_w = state.ring_r.reshape(S, -1), state.ring_w.reshape(S, -1)
+    head0 = torch.where(w, torch.gather(ring_w, -1, at_w),
+                        torch.gather(ring_r, -1, at_r))
     intra_heads = Qr < C or Qw < C
     W = tab.W
     V = rowsum(tab.mbank, torch.where(v, lat + busy, 0.0))
@@ -270,9 +291,10 @@ def chunk_resolve(state: ChunkState, tab: ChunkTables, t, row, w, v, fb,
     done, passes = iterate_fixed_point(one_pass, torch.zeros_like(t),
                                        cap=cap, tol=tol)
 
-    # final derived state
+    # final derived state: each core's shift takes the maximum of its
+    # requests' head - t (-inf where invalid, so they change nothing)
     g = torch.where(v, heads(done) - t, _NEG)
-    shift = torch.maximum(state.shift, g.amax(-1))
+    shift = state.shift.scatter_reduce(-1, tab.core.long(), g, "amax")
 
     def put(x, k, val, m):
         """x[k] = val where m (the writers of one slot are unique)."""
@@ -283,8 +305,8 @@ def chunk_resolve(state: ChunkState, tab: ChunkTables, t, row, w, v, fb,
     bank_free = put(state.bank_free, fb, done, tab.last_b)
     open_row = put(state.open_row, fb, row, tab.last_b)
     bus_free = put(state.bus_free, ch, done, tab.last_c)
-    ring_r = put(state.ring_r, sl_r, done, tab.surv_r)
-    ring_w = put(state.ring_w, sl_w, done, tab.surv_w)
+    ring_r = put(ring_r, at_r, done, tab.surv_r).reshape(S, n_qg, Qr)
+    ring_w = put(ring_w, at_w, done, tab.surv_w).reshape(S, n_qg, Qw)
 
     new_state = ChunkState(
         bank_free=bank_free, open_row=open_row, bus_free=bus_free,

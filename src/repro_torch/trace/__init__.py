@@ -1,1 +1,12 @@
-"""Dataflow-aware DRAM demand-trace generation (PyTorch port)."""
+"""Dataflow-aware DRAM demand-trace generation (PyTorch port), with the
+shared-DRAM multi-core contention path over merged per-core traces."""
+from .contention import (ContentionResult, SharedDramResult, core_subgemm,
+                         multicore_contention, simulate_shared_dram)
+from .generator import (DEFAULT_SPEC, REGION_SPAN, TraceSpec,
+                        gemm_request_stream)
+
+__all__ = [
+    "DEFAULT_SPEC", "REGION_SPAN", "TraceSpec", "gemm_request_stream",
+    "ContentionResult", "SharedDramResult", "core_subgemm",
+    "multicore_contention", "simulate_shared_dram",
+]

@@ -106,7 +106,7 @@ def _stable_order(key):
 def gemm_request_stream(dataflow: str, M, N, K, R, C, comp,
                         ifmap_elems, filter_elems, ofmap_write_elems,
                         ofmap_read_elems, word_bytes: int = 2,
-                        spec: TraceSpec = DEFAULT_SPEC):
+                        spec: TraceSpec = DEFAULT_SPEC, scale=None):
     """Synthesize the demand-request streams of a batch of GEMMs.
 
     Every numeric argument is a float32 tensor; they broadcast against
@@ -114,6 +114,11 @@ def gemm_request_stream(dataflow: str, M, N, K, R, C, comp,
     (t_issue, addr, is_write, valid, scale): float32, int64, bool and bool
     tensors of shape batch + (spec.cap,), sorted by issue time along the
     last axis, and the float32 compression factor of shape batch.
+
+    `scale` overrides the compression factor (rounded to float32, as the
+    reference's traced scalar is): the multi-core contention path passes
+    one common scale so every core's stream is compressed coherently; by
+    default each GEMM picks its own.
     """
     f32 = torch.float32
     args = torch.broadcast_tensors(M, N, K, R, C, comp, ifmap_elems,
@@ -137,10 +142,19 @@ def gemm_request_stream(dataflow: str, M, N, K, R, C, comp,
     total_bytes = ((region_bytes[..., 0] + region_bytes[..., 1])
                    + region_bytes[..., 2]) + region_bytes[..., 3]
     n_total = total_bytes / gran                      # fractional requests
-    n_model = torch.clamp(torch.ceil(n_total), min=1.0, max=float(cap))
-    scale = n_total / n_model
+    if scale is None:
+        n_model = torch.clamp(torch.ceil(n_total), min=1.0, max=float(cap))
+        scale = n_total / n_model
+    else:
+        scale = torch.broadcast_to(
+            torch.as_tensor(scale, dtype=f32, device=dev), n_total.shape)
+        # n_total / scale, in XLA's form of the chained division
+        safe = torch.clamp_min(scale, 1e-9)
+        n_model = torch.clamp(torch.ceil(total_bytes / (gran * safe)),
+                              min=1.0, max=float(cap))
 
-    # region boundaries in model-request units (sum == n_model)
+    # region boundaries in model-request units (sum == n_model when the
+    # GEMM picked its own scale)
     # The reference's chained divisions a / b / c are compiled by XLA as
     # a / (b * c); they are written that way here so the rounding agrees.
     safe_scale = torch.clamp_min(scale, 1e-9)

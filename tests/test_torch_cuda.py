@@ -1,7 +1,7 @@
-"""Tests of the port that need an NVIDIA card: the CUDA replay,
-bank-conflict, fold matmul, wavefront and ELLPACK kernels against their
-plain PyTorch versions, the fold plane against the CPU, and studies on the
-default device.
+"""Tests of the port that need an NVIDIA card: the CUDA replay (single-
+and multi-core), bank-conflict, fold matmul, wavefront and ELLPACK kernels
+against their plain PyTorch versions, the fold plane and the contention
+path against the CPU, and studies on the default device.
 Each skips (inside the test) on a machine without CUDA; run them on the
 card with
 
@@ -78,27 +78,126 @@ def test_kernel_matches_plain_version(dev, case):
     torch.testing.assert_close(sk, sp, rtol=1e-3, atol=5e-2)
 
 
-def test_kernel_refuses_more_than_one_core_or_queue_group(dev):
-    """The C entry point takes one core and one queue group per direction;
-    it refuses others with an error code (cudaErrorInvalidValue) before
-    launching."""
+def _merged(seed, n, S, cores, dev, *, saturate):
+    """Seeded merged streams of `cores` cores: (t, addr, w, v, cid)."""
+    rng = np.random.default_rng(seed)
+    shape = (S, n)
+    t = np.sort(rng.uniform(0, 3.0 * n, shape), axis=-1)
+    if saturate:
+        t, addr = t * 0.01, rng.integers(0, 64, shape) * 64
+    else:
+        addr = (rng.integers(0, 1 << 22, shape) // 64) * 64
+    return (torch.tensor(t.astype(np.float32), device=dev),
+            torch.tensor(addr, device=dev),
+            torch.tensor(rng.random(shape) < 0.3, device=dev),
+            torch.tensor(rng.random(shape) < 0.9, device=dev),
+            torch.tensor(rng.integers(0, cores, shape).astype(np.int32),
+                         device=dev))
+
+
+# (chunk C, cores, channels = queue groups, queues): both instances
+# (C = 32 and 64 in registers, 128 in shared memory), up to the 16 cores
+# of the contention path and a private 16-channel case
+_MC_CASES = [(C, cores, ch, q) for C in (32, 64, 128) for cores in (2, 4, 16)
+             for ch in (1, 2, 4, 16) for q in ((8, 4), (128, 128))]
+
+
+@pytest.mark.parametrize("C,cores,channels,queues", _MC_CASES)
+def test_multicore_kernel_matches_plain_version(dev, C, cores, channels,
+                                                queues):
+    """The multi-core, per-channel-queue mode against `run_plain` on the
+    card: counts exact, done and per-core shift within 1e-3."""
+    cfg = DramConfig(channels=channels, read_queue=queues[0],
+                     write_queue=queues[1])
+    t, addr, w, v, cid = _merged(C + cores * 10 + channels, 400, 4, cores,
+                                 dev, saturate=queues == (8, 4))
+    fb, ch, row = decode_requests(addr, cfg)
+    ins = mk.prepare(t, fb, ch, row, w, v, C, cid)
+    kw = dict(cfg=cfg, busy=64 / 19.2, C=C, max_passes=None, tol=0.25,
+              n_cores=cores, n_qg=channels)
+    before = mk.LAUNCHES
+    dk, sk, ck = mk.launch_cuda(ins, **kw)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES == before + 1 and sk.shape == (4, cores)
+    dp, sp, cp, _ = mk.run_plain(ins, **kw)
+    assert torch.equal(ck, cp)
+    torch.testing.assert_close(dk, dp, rtol=1e-3, atol=5e-2)
+    torch.testing.assert_close(sk, sp, rtol=1e-3, atol=5e-2)
+
+
+@pytest.mark.parametrize("C", [32, 64, 128, 1024])
+def test_multicore_instance_at_one_core_is_the_single_core_one(dev, C):
+    """n_cores = n_qg = 1 through the multi-core instance (`grouped`)
+    equals the single-core instance bit for bit."""
+    for saturate, q in ((True, (8, 4)), (False, (128, 128))):
+        cfg = DramConfig(read_queue=q[0], write_queue=q[1])
+        t, addr, w, v, cid = _merged(C, 1500, 6, 1, dev, saturate=saturate)
+        fb, ch, row = decode_requests(addr, cfg)
+        ins = mk.prepare(t, fb, ch, row, w, v, C, cid)
+        kw = dict(cfg=cfg, busy=64 / 19.2, C=C, max_passes=None, tol=0.25)
+        one = mk.launch_cuda(ins, **kw)
+        grouped = mk.launch_cuda(ins, grouped=True, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(one, grouped):
+            assert torch.equal(a, b), (C, q)
+
+
+def test_kernel_refuses_modes_beyond_its_limits(dev):
+    """The wrapper refuses n_cores and n_qg beyond the kernel's stated
+    limits with ValueError; the C entry point refuses them too, with
+    cudaErrorInvalidValue, before launching."""
     import ctypes
-    cfg = DramConfig()
+    cfg = DramConfig(channels=2)
     ins = mk.prepare(torch.zeros((1, 64), device=dev),
                      *(torch.zeros((1, 64), dtype=torch.int32, device=dev)
                        for _ in range(5)), 64)
+    kw = dict(cfg=cfg, busy=64 / 19.2, C=64, max_passes=None, tol=0.25)
+    for bad in (dict(n_cores=mk.MAX_CORES + 1), dict(n_cores=0),
+                dict(n_qg=3)):
+        with pytest.raises(ValueError, match="n_cores|n_qg"):
+            mk.launch_cuda(ins, **kw, **bad)
+    wide = DramConfig(channels=mk.MAX_QUEUE_GROUPS + 1)
+    with pytest.raises(ValueError, match="queue groups"):
+        mk.launch_cuda(ins, **dict(kw, cfg=wide),
+                       n_qg=mk.MAX_QUEUE_GROUPS + 1)
     done = torch.empty((1, 64), device=dev)
-    shift = torch.empty((1, 2), device=dev)
+    shift = torch.empty((1, 64), device=dev)
     cnt = torch.empty((1, 4), dtype=torch.int32, device=dev)
     launch = mk.build()
     stream = torch.cuda.current_stream().cuda_stream
-    for n_cores, n_qg in ((2, 1), (1, 2)):
+    for n_cores, n_qg, channels in ((mk.MAX_CORES + 1, 1, 2), (2, 3, 2),
+                                    (1, mk.MAX_QUEUE_GROUPS + 1,
+                                     mk.MAX_QUEUE_GROUPS + 1)):
         err = launch(*(x.data_ptr() for x in ins), done.data_ptr(),
-                     shift.data_ptr(), cnt.data_ptr(), 1, 1, 64, cfg.channels,
+                     shift.data_ptr(), cnt.data_ptr(), 1, 1, 64, channels,
                      cfg.banks_per_channel, cfg.tRCD, cfg.tRP, cfg.tCAS,
-                     cfg.read_queue, cfg.write_queue, n_cores, n_qg, -1,
+                     cfg.read_queue, cfg.write_queue, n_cores, n_qg, 1, -1,
                      ctypes.c_float(64 / 19.2), ctypes.c_float(0.25), stream)
         assert err == 1, (n_cores, n_qg, err)
+
+
+def test_contention_on_the_card_matches_the_cpu(dev):
+    """`multicore_contention` on the card (two kernel launches) against
+    the same call on the CPU, shared and private routing."""
+    import repro_torch as rt
+    from repro_torch.core.multicore import simulate_multicore_contention
+    cfg = rt.get_preset("mcm-4x32", channels=4)
+    for private in (False, True):
+        before = mk.LAUNCHES
+        gpu = simulate_multicore_contention(cfg, 512, 2048, 1024,
+                                            private_channels=private,
+                                            spec=rt.TraceSpec(cap=1024))
+        assert mk.LAUNCHES == before + 2
+        cpu = simulate_multicore_contention(cfg, 512, 2048, 1024,
+                                            private_channels=private,
+                                            spec=rt.TraceSpec(cap=1024),
+                                            device="cpu")
+        assert (gpu.row_hits, gpu.row_misses, gpu.row_conflicts) == \
+            (cpu.row_hits, cpu.row_misses, cpu.row_conflicts)
+        np.testing.assert_allclose(gpu.per_core_stall_shared,
+                                   cpu.per_core_stall_shared, rtol=1e-3)
+        np.testing.assert_allclose(gpu.per_core_stall_isolated,
+                                   cpu.per_core_stall_isolated, rtol=1e-3)
 
 
 def test_study_runs_on_the_card_by_default(dev):
@@ -111,7 +210,9 @@ def test_study_runs_on_the_card_by_default(dev):
                                257, 1024])
 def test_conflict_kernel_matches_plain_version(dev, k):
     """k across every instance boundary: the register widths 32, 64, 128
-    and 256 and the shared-memory instance past them."""
+    and 256 and the shared-memory instance past them; rows with bank ids
+    outside [0, num_banks), negative ones included, which count in no
+    bank, through every instance that can take k."""
     from repro_torch.kernels.conflict import conflict as ck
     from repro_torch.kernels.conflict import conflict_slowdown_reference
     for ports in (1, 2, 4):
@@ -123,6 +224,9 @@ def test_conflict_kernel_matches_plain_version(dev, k):
             line[0], bank[0] = j, 0                  # all in one bank
             line[1], bank[1] = j // banks, j % banks  # all pairs distinct
             line[2], bank[2] = 7, banks - 1          # one pair repeated
+            line[3], bank[3] = j, banks              # all past the banks
+            line[4], bank[4] = j, np.where(j % 2, -1, 0)  # half negative
+            bank[5:40] = rng.integers(-3, banks + 3, (35, k))
             lt = torch.tensor(line, dtype=torch.int32, device=dev)
             bt = torch.tensor(bank, dtype=torch.int32, device=dev)
             before = ck.LAUNCHES
@@ -132,6 +236,10 @@ def test_conflict_kernel_matches_plain_version(dev, k):
             want = conflict_slowdown_reference(lt, bt, num_banks=banks,
                                                ports=ports)
             assert torch.equal(got, want), (k, ports, banks)
+            for inst in [w for w in ck.INSTANCES if w == -1 or w >= k]:
+                got = ck.conflict_slowdown(lt, bt, num_banks=banks,
+                                           ports=ports, instance=inst)
+                assert torch.equal(got, want), (k, ports, banks, inst)
 
 
 def _wide_rows(k, banks, seed, rows=257):
@@ -205,7 +313,7 @@ def test_conflict_kernel_refuses_what_it_does_not_take(dev):
     # the C entry point refuses a register instance narrower than k
     launch = ck.build()
     out = torch.empty(4, dtype=torch.int32, device=dev)
-    err = launch(x.data_ptr(), x.data_ptr(), out.data_ptr(), 4, 33, 1, 32,
+    err = launch(x.data_ptr(), x.data_ptr(), out.data_ptr(), 4, 33, 8, 1, 32,
                  torch.cuda.current_stream().cuda_stream)
     assert err == 1                           # cudaErrorInvalidValue
 

@@ -75,7 +75,8 @@ def _studies(designs, workloads, fidelity, spec=None):
            .workloads({k: _ref_ops(v) for k, v in workloads.items()})
            .fidelity(fidelity))
     if spec is not None:
-        port = port.options(spec=rt.TraceSpec(**dataclasses.asdict(spec)))
+        port = port.options(
+            trace_spec=rt.TraceSpec(**dataclasses.asdict(spec)))
         ref = ref.options(trace_spec=spec)
     return port, ref
 

@@ -86,10 +86,11 @@ def test_plain_version_equals_pallas_kernel_adversarial(k):
                 err_msg=f"k={k} ports={ports} banks={banks}")
 
 
-def _register_model(line, bank, ports):
+def _register_model(line, bank, ports, num_banks=None):
     """The CUDA kernel's register instances in plain PyTorch, on (rows, k)
-    int32 ids with 1 <= k <= 256: rows padded to K = 32 E with element 0's
-    key; per row, 32-bit keys bank << lbits | line when the ids are
+    int32 ids with 1 <= k <= 256: with `num_banks`, an id whose bank lies
+    outside [0, num_banks) first becomes the pair (num_banks, 0); rows
+    padded to K = 32 E with element 0's key; per row, 32-bit keys bank << lbits | line when the ids are
     non-negative and fit in 31 bits together, else 64-bit keys with the
     bank in the high word; the kernel's one-direction bitonic network on
     the element index (its in-lane and shuffle steps are the same
@@ -100,6 +101,10 @@ def _register_model(line, bank, ports):
     32-bit keys)."""
     line = torch.as_tensor(line, dtype=torch.int32).to(torch.int64)
     bank = torch.as_tensor(bank, dtype=torch.int32).to(torch.int64)
+    if num_banks is not None:
+        out = (bank < 0) | (bank >= num_banks)
+        line = torch.where(out, 0, line)
+        bank = torch.where(out, num_banks, bank)
     rows, k = line.shape
     K = 32
     while K < k:

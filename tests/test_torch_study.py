@@ -64,7 +64,7 @@ def test_mixed_trace_grid_matches_reference():
     port = (rt.Study().designs(rt.preset_grid(**kw))
             .workloads({"r6": [TOp(**dataclasses.asdict(o)) for o in ops]})
             .fidelity("fast", "trace")
-            .options(spec=rt.TraceSpec(cap=512)).run(device="cpu"))
+            .options(trace_spec=rt.TraceSpec(cap=512)).run(device="cpu"))
     assert len(port) == 36
     assert_frames_match(ref, port)
 
@@ -134,8 +134,14 @@ def test_cells_outside_the_slice_raise(name, make):
 
 
 def test_custom_evaluator_is_refused():
+    """Custom evaluators are ported; what stays refused with them is the
+    per-op engine's `force_fallback`, which names module item 8. The
+    options take the reference's keywords only (`trace_spec=`)."""
+    s = rt.Study().evaluator(lambda cfg, ops, fid, device: {})
     with pytest.raises(NotImplementedError, match="module item 8"):
-        rt.Study().evaluator(lambda cfg, ops, fid: {})
+        s.options(force_fallback=True)
+    with pytest.raises(TypeError):
+        s.options(spec=rt.TraceSpec())
 
 
 def test_run_defaults_to_cuda_and_never_falls_back():
