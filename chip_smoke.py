@@ -27,9 +27,11 @@ own line; any failure exits non-zero before the final result line:
      exactly equal; the fold matmul
      (float32 within 1e-5, bfloat16 and float16 within 2e-2), the
      wavefront kernel (both entries, and its closed form) and the ELLPACK
-     packer (exactly equal) against their plain versions on edge shapes:
-     empty inputs, B = 1, T = 1, T < 0, n_cycles % 4 != 0, T = 60,000,
-     ragged tiles, mixed dtypes;
+     packer (exactly equal, each case aligned and as a view one element
+     into its buffer, which takes the scalar path: float32 m = 2, 4, 8,
+     16, bfloat16 and float16 m = 4, 8, 16, keep 3 and 6) against their plain
+     versions on edge shapes: empty inputs, B = 1, T = 1, T < 0,
+     n_cycles % 4 != 0, T = 60,000, ragged tiles, mixed dtypes;
   4. the paper's named studies on the card (`edp_array_size`,
      `dataflow_dram_flip`, `sparse_speedup`): every claim holds, the
      frames agree with the same studies run on the CPU, the replay engine
@@ -78,7 +80,10 @@ own line; any failure exits non-zero before the final result line:
      kept count within 1 % of its expectation;
   10. the three kernels timed at their path shapes (CUDA graphs of 20
      calls, CUDA events), beside their plain versions, `torch.matmul`
-     and their bounds; the matmul also at each distinct fold shape of
+     and their bounds; the ELLPACK packer's vector path on the mlp2
+     weight (2:4 float32) beside the same weight one element into its
+     buffer (the scalar path), 4:8 float32 and bfloat16 at m = 8; the
+     matmul also at each distinct fold shape of
      the fold pass, with its grid's block count; the wavefront kernel
      also on one qkv fold through its one-fold entry, beside the same
      fold through the batched entry and beside the launch floor, an
@@ -92,7 +97,18 @@ own line; any failure exits non-zero before the final result line:
      routing over 2 channels and private routing over 16) held against the
      plain version on the card, timed beside their bounds; shared never
      below isolated, and the private-channel decomposition's gap;
-  12. a `{"kernels": [...]}` line (all five kernels), the nvidia-smi line,
+  12. the fifth slice's path, the routed NoC plane: the named study
+     `nop_bound` at its defaults (pods of 64, 256 and 1,024 cores, GEMMs
+     of 2,048): its six claims, the zero-load pair bit for bit, its frame
+     against the same study on the CPU, its wall (three runs) and a
+     profile; a fast-fidelity pod sweep of 22 designs up to 4,096 cores
+     (mesh, torus and ring) on vit_base and a trace-fidelity pod sweep of
+     6 designs on resnet18 (replay count reset just before: one launch per
+     group), each frame against the CPU's; the contention path on a
+     16-core NoC pod, whose routed skew must add queueing delay to the
+     hop offsets, both replays held to 1e-5 against the plain version on
+     the card;
+  13. a `{"kernels": [...]}` line (all five kernels), the nvidia-smi line,
      and last `{"ok": true, "device": {...}}`.
 
 Writes the measurements to chiprun_out/chip_smoke.json as well.
@@ -133,14 +149,32 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
 
 
-def frame_rel_err(res, ref) -> dict:
-    """Per metric column of two study frames: max |a - b| / |b|."""
+# the metric columns a NoC-free design's row leaves NaN
+NOC_COLUMNS = ("noc_stall_cycles", "noc_link_util", "allreduce_cycles")
+
+
+def frame_rel_err(res, ref, noc_free=()) -> dict:
+    """Per metric column of two study frames: max |a - b| / |b|; inf where
+    a value is NaN in either frame, except in the NoC columns on the rows
+    of the designs named in `noc_free` (designs without a NoC), which
+    must be NaN in both."""
     out = {}
+    skip = np.isin(np.asarray(res["design"]), list(noc_free))
     for c in res.column_names():
         if c in ("design", "workload", "fidelity"):
             continue
         a, b = np.asarray(res[c], float), np.asarray(ref[c], float)
-        out[c] = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+        if a.shape != b.shape:
+            out[c] = float("inf")
+            continue
+        nan = skip if c in NOC_COLUMNS else np.zeros(len(a), bool)
+        if not (np.isnan(a[nan]).all() and np.isnan(b[nan]).all()) \
+                or np.isnan(a[~nan]).any() or np.isnan(b[~nan]).any():
+            out[c] = float("inf")
+            continue
+        out[c] = float(np.max(np.abs(a[~nan] - b[~nan])
+                              / np.maximum(np.abs(b[~nan]), 1e-30),
+                              initial=0.0))
     return out
 
 
@@ -630,31 +664,53 @@ def main() -> int:
         if one is not None and not torch.equal(one, want[0]):
             fail(f"one-fold wavefront entry differs from plain for T={Ts}")
         ncases["wavefront_activity"] += 1
+    # each case aligned (the vector path where the kernel has an instance
+    # for it) and as a view one element into its buffer (the scalar path)
+    ell_paths = {"vector": 0, "scalar": 0}
     for rows, K, m, keep, dt in ((768, 3072, 4, 0, torch.float32),
                                  (33, 48, 4, 0, torch.float32),
                                  (64, 64, 8, 0, torch.bfloat16),
                                  (40, 64, 8, 6, torch.float16),
                                  (16, 32, 4, 3, torch.float32),
-                                 (0, 32, 4, 0, torch.float32)):
-        w = torch.randn((rows, K), generator=g, device=dev)
-        w = torch.where(torch.rand((rows, K), generator=g, device=dev) < 0.5,
-                        w, 0.0).to(dt)
+                                 (0, 32, 4, 0, torch.float32),
+                                 (77, 96, 4, 0, torch.bfloat16),
+                                 (300, 256, 4, 0, torch.float16),
+                                 (129, 512, 16, 0, torch.float32),
+                                 (65, 512, 16, 4, torch.bfloat16),
+                                 (130, 64, 8, 4, torch.float32),
+                                 (99, 64, 2, 1, torch.float32),
+                                 (50, 96, 8, 4, torch.float32)):
+        buf = torch.randn(rows * K + 1, generator=g, device=dev)
+        buf = torch.where(torch.rand(rows * K + 1, generator=g, device=dev)
+                          < 0.5, buf, 0.0).to(dt)
         if rows:
-            w[0] = 1.0                          # blocks with more than keep
-            w[1, : K // 2] = -0.0               # negative zeros are zeros
-        got = ek.ellpack_pack(w, m=m, keep=keep)
-        torch.cuda.synchronize()
-        for want in (ellpack_pack_plain(w, m=m, keep=keep),
-                     ellpack_pack_reference(w, m=m, keep=keep)):
-            if not (torch.equal(got[0], want[0])
-                    and torch.equal(got[1], want[1])):
-                fail(f"ELLPACK kernel differs from plain ({rows}x{K}, m={m},"
-                     f" keep={keep}, {dt})")
-        ncases["ellpack_pack"] += 1
+            buf[:K] = 1.0                       # blocks with more than keep
+            buf[K + 1: K + 1 + K // 2] = -0.0   # negative zeros are zeros
+        bits = torch.int32 if dt == torch.float32 else torch.int16
+        for view in (False, True):
+            w = (buf[1:] if view else buf[:-1]).view(rows, K)
+            path = ek.path_for(w, m, keep or max(1, m // 2))
+            if view and rows and path != "scalar":
+                fail(f"ELLPACK: a view one element into its buffer took "
+                     f"the {path} path ({rows}x{K}, m={m}, {dt})")
+            got = ek.ellpack_pack(w, m=m, keep=keep)
+            torch.cuda.synchronize()
+            # bit for bit against the plain version; against the sort-based
+            # reference by value (its padding may keep a block's -0.0)
+            plain = ellpack_pack_plain(w, m=m, keep=keep)
+            ref = ellpack_pack_reference(w, m=m, keep=keep)
+            if not (torch.equal(got[0].view(bits), plain[0].view(bits))
+                    and torch.equal(got[1], plain[1])
+                    and torch.equal(got[0], ref[0])
+                    and torch.equal(got[1], ref[1])):
+                fail(f"ELLPACK kernel ({path} path) differs from plain "
+                     f"({rows}x{K}, m={m}, keep={keep}, {dt}, view={view})")
+            ell_paths[path] += 1
+            ncases["ellpack_pack"] += 1
     phase("fold_ellpack_kernels_vs_plain", cases=ncases,
-          matmul_max_abs=mm_err)
-    report["fold_ellpack_kernels_vs_plain"] = dict(cases=ncases,
-                                                   matmul_max_abs=mm_err)
+          ellpack_paths=ell_paths, matmul_max_abs=mm_err)
+    report["fold_ellpack_kernels_vs_plain"] = dict(
+        cases=ncases, ellpack_paths=ell_paths, matmul_max_abs=mm_err)
 
     # ---- 4. the named studies -------------------------------------------------
     named = {}
@@ -1335,13 +1391,75 @@ def main() -> int:
                                floor_kw["floor_2"]["graph_ms"]))
     er, eK, em = 768, 3072, 4                # the mlp2 weight, 2:4
     mlp2 = pruned(er, eK, em, 2)
-    ep = dict(ms=timed_graph(lambda: ek.ellpack_pack(mlp2, m=em)),
-              loop_ms=timed_cuda(lambda: ek.ellpack_pack(mlp2, m=em), 50),
-              plain_ms=timed_graph(lambda: ellpack_pack_plain(mlp2, m=em)))
+    if ek.path_for(mlp2, em, em // 2) != "vector":
+        fail("the mlp2 weight does not take the ELLPACK vector path")
     # the matrix read once; keep = m / 2 values and their int32 indices
     # written per block
     ep_bytes = er * eK * 4 + er * (eK // em) * (em // 2) * (4 + 4)
     ep_ops = er * eK * 2             # a compare and a count per element
+
+    def ellpack_case(w, m):
+        """One packer input timed in turns (kernel, plain, kernel) beside
+        its bytes bound, on the path the kernel picks for it. `ms` is
+        cold: the graph's calls rotate over copies of w, one rotation
+        moving over 100 MB (twice the L2), and keep every output, so each
+        call reads and writes device memory as the bound assumes;
+        `warm_ms` repeats the one input, whose bytes then stay in L2 (as
+        on the ELLPACK pass, which packs each matrix right after making
+        it)."""
+        keep = max(1, m // 2)
+        rows, K = w.shape
+        eb = w.element_size()
+        nbytes = rows * K * eb + rows * (K // m) * keep * (eb + 4)
+        copies = [w.clone() if w.data_ptr() % 16 == 0 else
+                  torch.empty(w.numel() + 1, dtype=w.dtype,
+                              device=dev)[1:].view_as(w).copy_(w)
+                  for _ in range(max(2, -(-100_000_000 // nbytes)))]
+        turn = iter(range(1 << 30))
+
+        def cold():
+            x = copies[next(turn) % len(copies)]
+            kept.append(ek.ellpack_pack(x, m=m))
+
+        runs = {}
+        for name in ("kernel", "plain", "kernel_2"):
+            kept = []
+            if name == "plain":
+                runs[name] = timed_graph(lambda: ellpack_pack_plain(w, m=m))
+                continue
+            runs[name] = dict(
+                warm_ms=timed_graph(lambda: ek.ellpack_pack(w, m=m)),
+                cold_ms=timed_graph(cold))
+        del kept
+        return dict(shape=[rows, K], dtype=str(w.dtype)[6:], m=m, keep=keep,
+                    path=ek.path_for(w, m, keep),
+                    copies=len(copies), runs=runs,
+                    ms=min(runs[k]["cold_ms"] for k in ("kernel", "kernel_2")),
+                    warm_ms=min(runs[k]["warm_ms"]
+                                for k in ("kernel", "kernel_2")),
+                    plain_ms=runs["plain"], bytes=nbytes,
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+
+    # the mlp2 weight pruned 4:8, in bfloat16 at m = 8, and one element into
+    # a buffer (the scalar path: the per-block thread of the earlier
+    # design) beside the vector path, in turns
+    ebuf = torch.empty(er * eK + 1, device=dev)
+    ebuf[1:] = mlp2.reshape(-1)
+    ell_cases = dict(
+        f32_m4_vector=ellpack_case(mlp2, 4),
+        f32_m4_unaligned=ellpack_case(ebuf[1:].view(er, eK), 4),
+        f32_m4_vector_2=ellpack_case(mlp2, 4),
+        f32_m8=ellpack_case(pruned(er, eK, 8, 4), 8),
+        bf16_m8=ellpack_case(pruned(er, eK, 8, 4).to(torch.bfloat16), 8))
+    if ell_cases["f32_m4_unaligned"]["path"] != "scalar":
+        fail("an unaligned view took the ELLPACK vector path")
+    # the kernel line's time: the vector path on the mlp2 weight, cold
+    ep = dict(ms=min(ell_cases[k]["ms"] for k in ("f32_m4_vector",
+                                                   "f32_m4_vector_2")),
+              warm_ms=min(ell_cases[k]["warm_ms"]
+                          for k in ("f32_m4_vector", "f32_m4_vector_2")),
+              loop_ms=timed_cuda(lambda: ek.ellpack_pack(mlp2, m=em), 50),
+              plain_ms=ell_cases["f32_m4_vector"]["plain_ms"])
     timings = {}
     for name, t, nbytes, ops in (("systolic_matmul", mm, mm_bytes, mm_ops),
                                  ("wavefront_activity", wv, wv_bytes, wv_ops),
@@ -1357,7 +1475,8 @@ def main() -> int:
         folds=len(rs), n_cycles=big_n, R=A, C=A,
         qkv_fold_n_cycles=fold_wv_n, qkv_fold_bound_ms=fold_wv_bound_ms,
         qkv_fold=wv_one)
-    timings["ellpack_pack"].update(shape=[er, eK], m=em, keep=em // 2)
+    timings["ellpack_pack"].update(shape=[er, eK], m=em, keep=em // 2,
+                                   path="vector", cases=ell_cases)
     phase("fold_ellpack_timings", **timings)
     report["fold_ellpack_timings"] = timings
 
@@ -1403,11 +1522,11 @@ def main() -> int:
     phase("multicore_contention_profile", **prof)
     report["multicore_contention_profile"] = prof
 
-    def contention_replays(cfg, private):
+    def contention_replays(cfg, private, tol=RTOL):
         """The two replays of `multicore_contention` (the isolated batch
         and the merged stream) by the kernel and by the plain version, both
         on the card, on the same inputs: counts exact, done and shift
-        within 1e-3; each run's per-core stalls from both; the kernel timed
+        within `tol`; each run's per-core stalls from both; the kernel timed
         by CUDA events (through the wrapper, and by graph replay without
         the id check's sync) beside its bound."""
         st = contention_streams(cfg, 512, 2048, 1024, "spatial", private,
@@ -1437,7 +1556,7 @@ def main() -> int:
                      f"{cfg.dram.channels} channels): kernel counts differ "
                      f"from the plain version")
             err = max(rel_err(dk, dp), rel_err(sk, sp))
-            if err > RTOL:
+            if err > tol:
                 fail(f"contention {run}: kernel differs from plain by {err}")
             vm = v.to(torch.bool).reshape(S, -1)
             res = [shared_dram_result(
@@ -1451,7 +1570,7 @@ def main() -> int:
             stall_p = (res[1].per_core_stall.reshape(-1) * scale).tolist()
             serr = max(abs(a_ - b_) / max(abs(b_), 1.0)
                        for a_, b_ in zip(stall_k, stall_p))
-            if serr > RTOL:
+            if serr > tol:
                 fail(f"contention {run}: per-core stalls differ from the "
                      f"plain version's by {serr}")
             # the least time, as for the sweep's replay row, with the core
@@ -1555,12 +1674,167 @@ def main() -> int:
         phase(f"contention_16_cores_{name}", **info)
     report["contention_16_cores"] = c16
 
+    # ---- 12. this slice's path: the routed NoC plane ------------------------
+    from repro_torch.noc.topology import noc_kind
+
+    def frame_vs_cpu(name, study, frame):
+        """The study on the card machine's CPU, timed, and the card frame
+        against it per column (the NoC columns NaN on the NoC-free rows
+        only)."""
+        t0 = time.perf_counter()
+        cpu = study.run(device="cpu")
+        cpu_s = time.perf_counter() - t0
+        col_err = frame_rel_err(frame, cpu, noc_free=[
+            label for label, cfg in study._designs if noc_kind(cfg) is None])
+        bad = {c: e for c, e in col_err.items() if not e <= RTOL}
+        if bad:
+            fail(f"{name}: card frame differs from the CPU frame: {bad}")
+        return dict(cpu_wall_s=cpu_s, max_rel_vs_cpu=max(col_err.values()),
+                    max_rel_vs_cpu_by_column=col_err)
+
+    def noc_frame_checks(name, frame, rows):
+        """Rows, no failed cell, every cell batched, finite canonical
+        columns, finite NoC columns on the NoC rows."""
+        if len(frame) != rows or frame.failed_cells \
+                or frame.fraction_batched != 1.0:
+            fail(f"{name}: {len(frame)} rows (expected {rows}), failed "
+                 f"{frame.failed_cells}, batched {frame.fraction_batched}")
+        for c in ("total_cycles", "stall_cycles", "energy_pj"):
+            if not np.isfinite(np.asarray(frame[c], float)).all():
+                fail(f"{name}: non-finite {c}")
+        stall = np.asarray(frame["noc_stall_cycles"], float)
+        if not np.isfinite(stall[~np.isnan(stall)]).all() \
+                or np.isnan(stall).all():
+            fail(f"{name}: NoC stall column {stall}")
+
+    nstudy = studies.nop_bound()        # 17 designs: pods 64-1,024, mm 2,048
+    t0 = time.perf_counter()
+    nres = nstudy.run()                 # the default: the card
+    nwall = time.perf_counter() - t0
+    nclaims = nres.check_claims()
+    if len(nclaims) != 6 or not all(nclaims.values()):
+        fail(f"nop_bound: claims {nclaims}")
+    noc_frame_checks("nop_bound", nres, 17)
+    ntot = dict(zip(nres["design"], nres["total_cycles"]))
+    if ntot["noc-zero-load"] != ntot["legacy-hops"]:
+        fail(f"nop_bound: zero-load {ntot['noc-zero-load']!r} vs legacy "
+             f"{ntot['legacy-hops']!r}")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        nstudy.run()
+        walls.append(time.perf_counter() - t0)
+    nop_info = dict(claims=nclaims, designs=len(nres), wall_s=nwall,
+                    wall_s_runs=walls, wall_s_median=float(np.median(walls)),
+                    zero_load_total_cycles=ntot["noc-zero-load"],
+                    **frame_vs_cpu("nop_bound", nstudy, nres),
+                    noc_link_util=dict(zip(nres["design"],
+                                           nres["noc_link_util"])),
+                    noc_stall_cycles=dict(zip(nres["design"],
+                                              nres["noc_stall_cycles"])))
+    phase("nop_bound_study", **nop_info)
+    report["nop_bound_study"] = nop_info
+    prof = profile_run(lambda: nstudy.run())
+    phase("nop_bound_profile", **prof)
+    report["nop_bound_profile"] = prof
+
+    # pods up to 4,096 cores at fast fidelity: the mesh grid (with_pod
+    # remeshes onto the default mesh, so the grid takes no topology axis),
+    # a torus pod of each size and one 256-core ring
+    pod_designs = rt.preset_grid("pod-mesh", pods=[256, 1024, 4096],
+                                 link_bw=[4.0, 32.0, 256.0], channels=[1, 8])
+    pod_designs += [rt.get_preset("pod-mesh", cores=p, topology="torus")
+                    for p in (256, 1024, 4096)]
+    pod_designs.append(rt.get_preset("pod-mesh", cores=256, topology="ring"))
+    psweep = rt.Study("pod_sweep_fast").designs(pod_designs) \
+        .workloads({"vit_base": vit_base()}).fidelity("fast")
+    t0 = time.perf_counter()
+    pres = psweep.run()
+    pwall = time.perf_counter() - t0
+    noc_frame_checks("pod_sweep_fast", pres, 22)
+    pwalls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        psweep.run()
+        pwalls.append(time.perf_counter() - t0)
+    pod_info = dict(designs=len(pres), groups=len(psweep.plan().groups),
+                    max_cores=max(c.num_cores for c in pod_designs),
+                    first_wall_s=pwall, wall_s_runs=pwalls,
+                    wall_s_median=float(np.median(pwalls)),
+                    **frame_vs_cpu("pod_sweep_fast", psweep, pres))
+    phase("pod_sweep_fast", **pod_info)
+    report["pod_sweep_fast"] = pod_info
+    prof = profile_run(lambda: psweep.run())
+    phase("pod_sweep_fast_profile", **prof)
+    report["pod_sweep_fast_profile"] = prof
+
+    # routed hops into the trace generator: each pod's group replays its
+    # streams in one kernel launch
+    tsweep = rt.Study("pod_sweep_trace").designs(rt.preset_grid(
+        "pod-mesh", pods=[16, 64, 256], link_bw=[4.0, 256.0])) \
+        .workloads({"resnet18": resnet18()}).fidelity("trace")
+    tgroups = len(tsweep.plan().groups)
+    mk.LAUNCHES = 0                     # counts reset just before ...
+    t0 = time.perf_counter()
+    tres = tsweep.run()
+    twall = time.perf_counter() - t0
+    pod_launches = mk.LAUNCHES          # ... and read just after
+    if pod_launches != tgroups:
+        fail(f"pod_sweep_trace launched the replay kernel {pod_launches} "
+             f"times, expected one per group ({tgroups})")
+    noc_frame_checks("pod_sweep_trace", tres, 6)
+    if tres.meta.get("engine") != "cuda":
+        fail(f"pod_sweep_trace: engine {tres.meta.get('engine')!r}")
+    tpod_info = dict(designs=len(tres), groups=tgroups,
+                     launches=pod_launches, wall_s=twall,
+                     **frame_vs_cpu("pod_sweep_trace", tsweep, tres))
+    phase("pod_sweep_trace", **tpod_info)
+    report["pod_sweep_trace"] = tpod_info
+
+    # the contention path on a 16-core NoC pod: routed hops plus router
+    # queueing (`noc_arrival_skew`) skew the merged stream the replay's
+    # multi-core mode runs; both replays held to 1e-5 against the plain
+    # version on the card
+    from repro_torch.core.multicore import effective_nop_hops
+    pod16 = rt.get_preset("pod-mesh", cores=16)
+    mk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rpod = simulate_multicore_contention(pod16, 512, 2048, 1024)
+    podc_wall = time.perf_counter() - t0
+    podc_launches = mk.LAUNCHES
+    if podc_launches != 2:
+        fail(f"16-core NoC pod: {podc_launches} replay launches, expected 2")
+    preps = contention_replays(pod16, False, tol=1e-5)
+    if max(abs(a_ - b_) / max(abs(b_), 1.0) for a_, b_ in
+           zip(rpod.per_core_stall_shared,
+               preps["shared"]["stall_kernel"])) > 1e-6:
+        fail("16-core NoC pod: the entry point's stalls differ from the "
+             "kernel replay's")
+    skew = contention_streams(pod16, 512, 2048, 1024, "spatial", False,
+                              DEFAULT_SPEC, dev)["skew"]
+    hops_only = effective_nop_hops(pod16) * pod16.nop_cycles_per_hop
+    if not np.all(np.asarray(skew) >= hops_only) or \
+            not np.any(np.asarray(skew) > hops_only):
+        fail("16-core NoC pod: the routed skew adds no queueing delay")
+    podc_info = dict(
+        wall_s=podc_wall, launches=podc_launches,
+        makespan_shared=rpod.makespan_shared,
+        makespan_isolated=rpod.makespan_isolated,
+        skew=[float(x) for x in skew],
+        zero_load_skew=[float(x) for x in hops_only],
+        isolated={k: v for k, v in preps["isolated"].items()
+                  if not k.startswith("stall_")},
+        shared={k: v for k, v in preps["shared"].items()
+                if not k.startswith("stall_")})
+    phase("contention_noc_pod", **podc_info)
+    report["contention_noc_pod"] = podc_info
+
     kernels = {"kernels": [
         dict(name="replay_megakernel", route="cuda",
              source="src/repro_torch/csrc/replay_megakernel.cu",
              replaces="src/repro/kernels/replay/megakernel.py:96",
              launches=(dense_launches + feat_launches["replay_megakernel"]
-                       + cont_launches),
+                       + cont_launches + pod_launches + podc_launches),
              max_abs_err=max(max_abs, mcm["shared"]["max_abs_err"]),
              ms=kernel_ms, plain_ms=plain_ms,
              bound_ms=replay_group["bound_ms"],

@@ -114,10 +114,6 @@ def preset_grid(name: str = "tpu-like", *, preset=None, dataflow=None,
     - `dataflow=[...]` (innermost axis) is applied to the built config
       via `with_(dataflow=...)`, so it works for every preset whether or
       not its factory takes a dataflow kwarg.
-
-    The port's `Study` runs dense, sparse, multi-core and layout cells; a
-    grid cell with the NoC enabled (`pods=`) is refused there with
-    `NotImplementedError`.
     """
     if cores is not None and pods is not None:
         raise ValueError("pass either cores= or pods=, not both")

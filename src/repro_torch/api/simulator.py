@@ -13,9 +13,11 @@ generated demand stream: one stream per unique stream-determining design
 (`sdesign`), generated as one (streams, ops, cap) batch from the
 effective compute window and the sparsity-shrunk traffic, decoded in one
 call and replayed in one kernel launch, then gathered back per design
-through `smap`.
-
-`refuse_outside_slice` names the later slice for the routed NoC plane.
+through `smap`. On a NoC pod (the routed NoC plane enabled on a
+multi-core group) the per-core hops are the routed ones, and the
+flit/credit link model (`noc.router.noc_delay_model`) adds its queueing
+stall to each design's total and reports link utilization and the ring
+all-reduce makespan.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from ..core.energy import DEFAULT_ERT, ERT, energy_pj
 from ..core.engine import _ENERGY_GROUPS
 from ..core.multicore import effective_nop_hops
 from ..core.workloads import PAPER_WORKLOADS, Op
+from ..noc.topology import noc_kind
 from .presets import get_preset
 
 ConfigLike = Union[AcceleratorConfig, dict, str]
@@ -59,18 +62,6 @@ def as_workload(w: WorkloadLike) -> List[Op]:
     return list(w)
 
 
-def refuse_outside_slice(cfg: AcceleratorConfig) -> None:
-    """Raise NotImplementedError, naming the slice of the port that brings
-    it, for a design this slice does not model: the routed NoC plane. A
-    NoC-enabled design must never come back as a result without it."""
-    if cfg.noc.enabled:
-        raise NotImplementedError(
-            "the routed NoC plane is not ported yet: it comes with module "
-            "item 7 (the NoC plane) of the PyTorch port (ROADMAP.md); this "
-            "slice runs dense, sparse, multi-core and layout designs with "
-            "the NoC off")
-
-
 def _pow2_cap(n: int) -> int:
     """Smallest power of two >= n (the static layout-window row bound)."""
     cap = 1
@@ -82,14 +73,17 @@ def _pow2_cap(n: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class _Flavor:
     """The static structure one sweep group shares: the core grid, whether
-    any design or op is sparse, the sparse representation, and the layout
-    stage (its config and row bound r_cap, or None when off)."""
+    any design or op is sparse, the sparse representation, the layout
+    stage (its config and row bound r_cap, or None when off) and the NoC
+    topology (None unless the routed plane is on and there are several
+    cores)."""
     Pr: int
     Pc: int
     with_sparsity: bool
     representation: str
     layout: Optional[LayoutConfig]
     r_cap: int
+    noc: Optional[str]
 
     @property
     def num_cores(self) -> int:
@@ -99,10 +93,10 @@ class _Flavor:
 def _flavor(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
             core_index: int = 0) -> _Flavor:
     """The group's flavor, validating what the Study plan guarantees: one
-    core grid and layout on or off throughout. A per-op N:M override must
-    form a valid SparsityConfig with every design's row_wise flag, as the
-    per-op pipeline requires (ValueError otherwise). The layout row bound
-    follows the analysed core `core_index`."""
+    core grid, layout on or off throughout and one NoC kind. A per-op N:M
+    override must form a valid SparsityConfig with every design's row_wise
+    flag, as the per-op pipeline requires (ValueError otherwise). The
+    layout row bound follows the analysed core `core_index`."""
     Pr, Pc = cfgs[0].mesh_rows, cfgs[0].mesh_cols
     if any((c.mesh_rows, c.mesh_cols) != (Pr, Pc) for c in cfgs):
         raise ValueError("sweep group mixes core-grid shapes")
@@ -110,6 +104,9 @@ def _flavor(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
     if any(c.layout.enabled != with_layout for c in cfgs):
         raise ValueError(
             "sweep group mixes layout-enabled and -disabled designs")
+    kinds = {noc_kind(c) for c in cfgs}
+    if len(kinds) > 1:
+        raise ValueError("sweep group mixes NoC topologies/enablement")
     gemms = [o for o in ops if o.kind == "gemm"]
     for o in gemms:
         if o.sparsity_nm is not None:
@@ -124,7 +121,8 @@ def _flavor(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
         layout=(dataclasses.replace(cfgs[0].layout, enabled=True)
                 if with_layout else None),
         r_cap=(_pow2_cap(max(c.cores[core_index].rows for c in cfgs))
-               if with_layout else 0))
+               if with_layout else 0),
+        noc=kinds.pop())
 
 
 def _columns(cfgs: Sequence[AcceleratorConfig], fl: _Flavor, device,
@@ -133,7 +131,9 @@ def _columns(cfgs: Sequence[AcceleratorConfig], fl: _Flavor, device,
     broadcasts against the (ops,) workload arrays the way the reference
     vmaps over designs, and (designs, 1, cores) per per-core field (the
     core axis last). The single-core fields R and C are those of core
-    `core_index`; the SIMD fields stay core 0's, as in the reference."""
+    `core_index`; the SIMD fields stay core 0's, as in the reference. On
+    a NoC pod the per-core hops are the routed ones and the link
+    parameters are columns too."""
     cols = {
         "R": [c.cores[core_index].rows for c in cfgs],
         "C": [c.cores[core_index].cols for c in cfgs],
@@ -156,6 +156,10 @@ def _columns(cfgs: Sequence[AcceleratorConfig], fl: _Flavor, device,
         cols["mc_C"] = [[k.cols for k in c.cores] for c in cfgs]
         cols["mc_hops"] = [list(effective_nop_hops(c)) for c in cfgs]
         cols["nop"] = [c.nop_cycles_per_hop for c in cfgs]
+    if fl.noc is not None:
+        cols["noc_bw"] = [c.noc.link_bandwidth_bytes_per_cycle for c in cfgs]
+        cols["noc_flit"] = [c.noc.flit_bytes for c in cfgs]
+        cols["noc_buf"] = [c.noc.buffer_flits for c in cfgs]
     out = {}
     for k, vals in cols.items():
         v = torch.tensor(np.asarray(vals, np.float32), device=device)
@@ -190,14 +194,16 @@ def _features(d, g, fl: _Flavor):
 def _stream_dedup(cfgs: Sequence[AcceleratorConfig]):
     """(sidx, smap): the design index of each unique demand stream and the
     stream id of each design. A design's stream is fully determined by
-    (array geometry, memory sizing, sparsity, core grid), so designs that
-    differ only in bandwidth, SIMD, energy or layout terms share one
-    replay."""
+    (array geometry, the hops its partition sees, memory sizing,
+    sparsity, core grid), so designs that differ only in bandwidth, SIMD,
+    energy, layout or NoC link terms share one replay. The hops are the
+    effective ones: routed on a NoC pod, the config's otherwise."""
     seen: Dict[tuple, int] = {}
     sidx: List[int] = []
     smap: List[int] = []
     for i, c in enumerate(cfgs):
-        k = (tuple((k_.rows, k_.cols, k_.nop_hops) for k_ in c.cores),
+        k = (tuple((k_.rows, k_.cols) for k_ in c.cores),
+             tuple(effective_nop_hops(c).tolist()),
              c.mesh_rows, c.mesh_cols, c.memory,
              (c.sparsity.enabled, c.sparsity.n, c.sparsity.m,
               c.sparsity.row_wise, c.sparsity.representation),
@@ -329,17 +335,44 @@ def _design_metrics(d, g, dataflow: str, word_bytes: int, ert: ERT,
     groups = {grp: sum(total(e[a]) + total(ve[a]) for a in acts)
               for grp, acts in _ENERGY_GROUPS.items()}
 
+    # routed-NoP plane: flit/credit contention on each op's memory traffic
+    # toward the MC at core 0, the link parameters as design columns.
+    # Sparse ops gate to zero like the partition stage (a single-core
+    # compressed stream).
+    noc_cols = {}
+    if fl.noc is not None:
+        from ..noc.router import noc_delay_model
+        from ..noc.traffic import allreduce_cycles, memory_flits
+        n = fl.num_cores
+        gate = ((1.0 - torch.maximum(d["sp_en"], g["ov"]))
+                if fl.with_sparsity else torch.ones_like(M))
+        flits = (memory_flits(s["dram_bytes"], n, d["noc_flit"])[..., None]
+                 * torch.ones(n, device=R.device))     # (designs, ops, cores)
+        ns = noc_delay_model(fl.noc, fl.Pr, fl.Pc, flits, d["noc_bw"],
+                             d["noc_flit"], d["noc_buf"], d["nop"],
+                             s["compute_cycles"])
+        ar = allreduce_cycles(fl.noc, fl.Pr, fl.Pc, M * N * word_bytes,
+                              d["noc_bw"], d["noc_flit"], d["noc_buf"],
+                              d["nop"])
+        util_op = torch.broadcast_to(ns["link_util"] * gate,
+                                     (n_designs, M.shape[-1]))
+        noc_cols = dict(noc_stall_cycles=total(ns["stall"] * gate * cnt),
+                        noc_link_util=util_op.max(-1).values,
+                        allreduce_cycles=total(ar * gate * cnt))
+
     comp = total(comp_t) + total(vcyc)
     stall = total(stall_t)
     lay_sum = total(lay_t)
     dram_b = total(dram_t) + total(vdram)
     cycles = comp + stall + lay_sum
+    if noc_cols:
+        cycles = cycles + noc_cols["noc_stall_cycles"]
     pes1 = pes[:, 0]
     util = torch.clamp_max(total(macs) / torch.clamp_min(pes1 * cycles, 1.0),
                            1.0)
     return dict(total_cycles=cycles, compute_cycles=comp, stall_cycles=stall,
                 dram_bytes=dram_b, energy_pj=energy, utilization=util,
-                **groups)
+                **groups, **noc_cols)
 
 
 def _sweep_batched(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
@@ -357,7 +390,6 @@ def _sweep_batched(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
     stay core 0's, as in the reference).
     """
     for c in cfgs:
-        refuse_outside_slice(c)
         if (c.dataflow, c.memory.word_bytes) != (dataflow, word_bytes):
             raise ValueError("sweep group mixes dataflows or word sizes")
     fl = _flavor(cfgs, ops, core_index)

@@ -13,13 +13,14 @@ reduced to a columnar result frame.
 
 `Study.run` groups the cells by the static sweep flavor (workload,
 fidelity, dataflow, word size, the DramConfig at trace fidelity, the core
-grid, the layout config when the layout stage is on, and the sparse
-representation) and runs each group as one batched `_sweep_batched` call;
+grid, the layout config when the layout stage is on, the sparse
+representation and the NoC topology of a NoC pod) and runs each group as
+one batched `_sweep_batched` call;
 at trace fidelity that is one replay-kernel launch per group, and with
 the layout stage on one bank-conflict-kernel launch per group. The
 paper's analyses ship as named studies with machine-checkable claims
 (`studies.edp_array_size`, `studies.dataflow_dram_flip`,
-`studies.sparse_speedup`).
+`studies.sparse_speedup`, `studies.nop_bound`).
 
 Custom evaluators (`Study.evaluator`) run one cell at a time, outside the
 batched groups; the named study `multicore_contention` is one.
@@ -41,6 +42,7 @@ from ..core.energy import DEFAULT_ERT, ERT, edp as _edp
 from ..core.engine import (ENERGY_GROUP_COLUMNS, RESULT_SCHEMA_VERSION,
                            write_csv_table)
 from ..core.workloads import Op
+from ..noc.topology import noc_kind
 from .simulator import _sweep_batched, as_config, as_workload
 
 AXIS_COLUMNS = ("design", "workload", "fidelity")
@@ -98,7 +100,7 @@ class StudyCell:
 class BatchGroup:
     """Cells that execute as ONE `_sweep_batched` call: same workload +
     fidelity and the static flavor (dataflow, word_bytes[, DramConfig],
-    core grid, layout, sparse representation)."""
+    core grid, layout, sparse representation, NoC topology)."""
     workload: str
     fidelity: str
     dataflow: str
@@ -463,9 +465,9 @@ class Study:
         """Compile the cross-product into cells + batchable groups. Cell
         order (= frame row order): fidelity-major, then workload, design
         fastest. With an evaluator every cell runs on its own (`per_cell`)
-        and no group is formed. `run` refuses NoC-enabled cells of the
-        batched sweep, which are outside this slice
-        (NotImplementedError)."""
+        and no group is formed. Every design of the batched sweep, NoC
+        pods included, runs in a group; only `cycle` fidelity without an
+        evaluator is refused (NotImplementedError)."""
         if not self._designs:
             raise ValueError("Study has no designs; call .designs(...)")
         if not self._workloads:
@@ -495,7 +497,10 @@ class Study:
                    # layout fields only matter when enabled: disabled
                    # cells share one flavor (and skip the layout math)
                    cfg.layout if cfg.layout.enabled else None,
-                   cfg.sparsity.representation)
+                   cfg.sparsity.representation,
+                   # NoC topology fixes the static routing tree; link
+                   # parameters stay design columns inside the group
+                   noc_kind(cfg))
             by_key.setdefault(key, []).append(c.index)
         groups = [BatchGroup(*key[:5], cells=idxs)
                   for key, idxs in by_key.items()]
@@ -749,6 +754,111 @@ def sparse_speedup(smoke: bool = False) -> Study:
     s.claim("compressed_weights_cut_dram_traffic",
             lambda r: float(r.filter(design="lw-2:4")["dram_bytes"][0])
             < float(r.filter(design="dense")["dram_bytes"][0]))
+    s.claim("all_cells_batched",
+            lambda r: r.fraction_batched == 1.0)
+    return s
+
+
+@register_study("nop_bound")
+def nop_bound(smoke: bool = False) -> Study:
+    """Pod-scale NoP study (the routed NoC plane, `repro_torch.noc`): sweep
+    cores x link bandwidth x DRAM channels on routed-mesh pods and
+    machine-check where the interconnect, not DRAM bandwidth, bounds the
+    design:
+
+    (a) with contention removed (huge link bandwidth and credit depth) the
+        routed NoC reproduces the legacy hop-offset multicore cycles
+        exactly (the zero-load contract, bit for bit);
+    (b) beyond a core count, NoP link utilization (> 1: offered load
+        exceeds link capacity), not DRAM bandwidth, dominates stall
+        cycles: routed queueing overtakes DRAM stalls at the largest pod,
+        and adding DRAM channels stops helping there while it still
+        relieves the smallest pod;
+    (c) a torus beats a mesh on ring all-reduce makespan at fixed link
+        budget (the mesh serpentine must close over already-used links).
+
+    Every cell, 16 to 1,024 cores, runs through the batched sweep
+    (`fraction_batched == 1.0`).
+    """
+    from ..noc.topology import routed_hop_counts
+    from .presets import get_preset
+
+    pods = (16, 64, 256) if smoke else (64, 256, 1024)
+    bw_lo, bw_hi = 4.0, 256.0
+    ch_lo, ch_hi = 1, 8
+    mm = 512 if smoke else 2048
+    wl = [Op("mm1", mm, mm, mm), Op("mm2", 2 * mm, mm // 2, mm)]
+
+    designs: Dict[str, AcceleratorConfig] = {}
+    for p in pods:
+        for bw in (bw_lo, bw_hi):
+            for ch in (ch_lo, ch_hi):
+                # scale credit depth with link bandwidth so the fast-link
+                # corner is genuinely fast (with a fixed shallow buffer,
+                # the credit round-trip s = 2*hop/buffer caps throughput
+                # no matter how wide the link is)
+                designs[f"mesh-{p}c-bw{int(bw)}-ch{ch}"] = get_preset(
+                    "pod-mesh", cores=p, link_bw=bw, channels=ch,
+                    buffer_flits=max(8, int(bw)))
+        designs[f"torus-{p}c"] = get_preset(
+            "pod-mesh", cores=p, topology="torus", link_bw=bw_lo,
+            channels=ch_hi, buffer_flits=max(8, int(bw_lo)))
+
+    # the exact zero-load parity pair: legacy per-core hop offsets set to
+    # the routed mesh hop counts vs the NoC plane at effectively infinite
+    # link bandwidth and credit depth (claim a is bit-for-bit equality)
+    legacy = get_preset("pod-mesh", cores=16)
+    legacy = legacy.with_(
+        cores=tuple(dataclasses.replace(c, nop_hops=int(h))
+                    for c, h in zip(legacy.cores,
+                                    routed_hop_counts("mesh", 4, 4))),
+        noc=dataclasses.replace(legacy.noc, enabled=False))
+    designs["legacy-hops"] = legacy
+    designs["noc-zero-load"] = get_preset(
+        "pod-mesh", cores=16, link_bw=1e9, buffer_flits=1 << 20)
+
+    s = (Study("nop_bound")
+         .designs(designs)
+         .workloads({f"mm-{mm}": wl})
+         .fidelity("fast"))
+
+    def cell(r: StudyResult, design: str, metric: str) -> float:
+        return float(r.filter(design=design)[metric][0])
+
+    big, small = pods[-1], pods[0]
+    bound = f"mesh-{big}c-bw{int(bw_lo)}-ch{ch_hi}"      # NoP-bound corner
+    free = f"mesh-{small}c-bw{int(bw_hi)}-ch{ch_hi}"     # DRAM-bound corner
+    s.claim("zero_load_matches_legacy_exactly",
+            lambda r: cell(r, "noc-zero-load", "total_cycles")
+            == cell(r, "legacy-hops", "total_cycles"))
+    s.claim("nop_overtakes_dram_stalls_at_scale",
+            lambda r: cell(r, bound, "noc_stall_cycles")
+            > cell(r, bound, "stall_cycles")
+            and cell(r, free, "noc_stall_cycles")
+            < cell(r, free, "stall_cycles"))
+    s.claim("link_utilization_scales_with_cores",
+            lambda r: cell(r, bound, "noc_link_util") > 1.0
+            and all(
+                cell(r, f"mesh-{a}c-bw{int(bw_lo)}-ch{ch_hi}",
+                     "noc_link_util")
+                < cell(r, f"mesh-{b}c-bw{int(bw_lo)}-ch{ch_hi}",
+                       "noc_link_util")
+                for a, b in zip(pods, pods[1:]))
+            and cell(r, free, "noc_stall_cycles")
+            < 0.1 * cell(r, free, "total_cycles"))
+    s.claim("channels_relieve_dram_bound_not_nop_bound",
+            lambda r: (cell(r, f"mesh-{small}c-bw{int(bw_hi)}-ch{ch_lo}",
+                            "total_cycles")
+                       / cell(r, free, "total_cycles")) > 2.0
+            and (cell(r, f"mesh-{big}c-bw{int(bw_lo)}-ch{ch_lo}",
+                      "total_cycles")
+                 / cell(r, bound, "total_cycles")) < 1.2)
+    s.claim("torus_beats_mesh_allreduce_at_fixed_budget",
+            lambda r: all(
+                cell(r, f"torus-{p}c", "allreduce_cycles")
+                < cell(r, f"mesh-{p}c-bw{int(bw_lo)}-ch{ch_hi}",
+                       "allreduce_cycles")
+                for p in pods))
     s.claim("all_cells_batched",
             lambda r: r.fraction_batched == 1.0)
     return s

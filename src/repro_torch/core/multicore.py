@@ -1,6 +1,6 @@
 """Multi tensor-core engine: heterogeneous cores, shared L2, non-uniform
-split; PyTorch port of `repro.core.multicore` (the partition models; the
-shared-DRAM contention functions come with a later slice).
+split; PyTorch port of `repro.core.multicore` (the partition models and
+the shared-DRAM contention entry points).
 
 Paper Sec. III-C/III-D: cores may differ in systolic dims and SIMD units, and
 MCM-style packages have non-uniform NoP latency to main memory. Workload is
@@ -178,14 +178,15 @@ def best_multicore_cycles_model(dataflow: str, M, N, K, rows, cols, hops,
 
 
 def effective_nop_hops(cfg: AcceleratorConfig) -> np.ndarray:
-    """Per-core NoP hops to main memory: the per-core `nop_hops` config
-    fields. With the NoC plane enabled on a multi-core design the hops are
-    routed instead, which this slice of the port does not model."""
-    if cfg.noc.enabled and cfg.num_cores > 1:
-        raise NotImplementedError(
-            "routed NoP hops (the NoC plane) are not ported yet: they come "
-            "with module item 7 (the NoC plane) of the PyTorch port "
-            "(ROADMAP.md)")
+    """Per-core NoP hops to main memory: routed when the NoC plane is
+    enabled on a multi-core design (dimension-ordered routes to the MC at
+    core 0, `noc.topology`), else the per-core `nop_hops` config fields
+    (legacy offsets)."""
+    from ..noc.topology import noc_kind, routed_hop_counts
+    kind = noc_kind(cfg)
+    if kind is not None:
+        return np.asarray(routed_hop_counts(kind, cfg.mesh_rows,
+                                            cfg.mesh_cols), dtype=np.float64)
     return np.asarray([c.nop_hops for c in cfg.cores], dtype=np.float64)
 
 

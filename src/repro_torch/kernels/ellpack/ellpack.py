@@ -1,13 +1,16 @@
 """The ELLPACK packer: a hand-written CUDA kernel for Hopper and its wrapper.
 
 Replaces the Pallas kernel `repro.kernels.ellpack.ellpack.ellpack_pack`.
-One launch packs a whole (rows, K) matrix: one thread per (row, m-block)
-walks its block once (see the note at the top of `csrc/ellpack_pack.cu`).
-`ellpack_pack` builds the kernel on first use (`kernels._build`), checks
-its inputs and launches it on the current CUDA stream; every launch adds
-one to `LAUNCHES`. It launches or raises: there is no fallback. The plain
-PyTorch versions are in `ref.py`, and `ops.py` picks between them by
-device.
+One launch packs a whole (rows, K) matrix through one of two instances of
+`csrc/ellpack_pack.cu` (see the note at its top): the vector path (whole
+blocks by 16- or 8-byte loads, ranks from a bit mask, one store each for a
+block's values and indices) or the scalar path (one thread per block,
+element by element). The C entry picks it from w's pointer, m, keep and
+the element size; `path_for` asks it which. `ellpack_pack` builds the
+kernel on first use (`kernels._build`), checks its inputs and launches it
+on the current CUDA stream; every launch adds one to `LAUNCHES`. It
+launches or raises: there is no fallback. The plain PyTorch versions are
+in `ref.py`, and `ops.py` picks between them by device.
 """
 from __future__ import annotations
 
@@ -22,14 +25,21 @@ from .ref import check_pack_input
 # the ELLPACK plane went through the kernel).
 LAUNCHES = 0
 
-# dtype codes of the C entry point
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
 _LIB = CudaLibrary("ellpack_pack.cu", "ellpack_pack_launch",
                    [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 # ptxas report (registers, shared memory, spills) of the last build
 BUILD_LOG = ""
+
+
+def path_for(w: torch.Tensor, m: int, keep: int) -> str:
+    """"vector" or "scalar": the path the kernel takes for w at (m, keep),
+    as its C entry picks it from w's pointer, m, keep and element size
+    (builds the kernel)."""
+    fn = _LIB.function("ellpack_path_for", [ctypes.c_void_p]
+                       + [ctypes.c_int] * 3, ctypes.c_int)
+    return ("vector" if fn(w.data_ptr(), m, keep, w.element_size())
+            else "scalar")
 
 
 def build():
@@ -67,9 +77,10 @@ def ellpack_pack(w: torch.Tensor, *, m: int, keep: int = 0):
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(w.data_ptr(), vals.data_ptr(), idx.data_ptr(), nblocks,
-                     m, keep, _DTYPE_CODE[w.dtype], stream)
+                     m, keep, w.element_size(), stream)
     if err != 0:
         raise RuntimeError(f"ELLPACK kernel launch failed: CUDA error {err} "
-                           f"(rows={rows}, K={K}, m={m}, keep={keep})")
+                           f"(rows={rows}, K={K}, m={m}, keep={keep}, "
+                           f"{w.dtype})")
     LAUNCHES += 1
     return vals, idx

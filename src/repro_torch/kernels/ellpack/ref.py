@@ -7,9 +7,11 @@
   `ops.py` runs for CPU tensors: each nonzero's rank is the count of
   nonzeros before it in its block (a cumulative sum), and slot j gathers
   the element of rank j.
-Both copy values, so they equal the CUDA kernel bit for bit. The Pallas
-kernel selects through a one-hot contraction instead, which agrees on
-finite inputs only (a NaN or +-Inf there spreads NaN over its block).
+Both copy values. The plain version equals the CUDA kernel bit for bit;
+the reference equals it by value (a padding slot there may keep one of
+the block's -0.0 zeros where the kernel writes +0.0). The Pallas kernel
+selects through a one-hot contraction instead, which agrees on finite
+inputs only (a NaN or +-Inf there spreads NaN over its block).
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA card: the CUDA replay (single-
 and multi-core), bank-conflict, fold matmul, wavefront and ELLPACK kernels
-against their plain PyTorch versions, the fold plane and the contention
-path against the CPU, and studies on the default device.
+against their plain PyTorch versions (both ELLPACK paths), the fold plane,
+the contention path and NoC pods against the CPU, and studies on the
+default device.
 Each skips (inside the test) on a machine without CUDA; run them on the
 card with
 
@@ -507,6 +508,86 @@ def test_ellpack_kernel_matches_plain_version(dev, rows, K, m, keep, dt):
                  ellpack_pack_reference(w, m=m, keep=keep)):
         assert got[0].dtype == w.dtype and got[1].dtype == torch.int32
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# (dtype, m, keep, the path of an aligned w)
+_ELLPACK_PATHS = [(torch.float32, 4, 2, "vector"),
+                  (torch.float32, 8, 4, "vector"),
+                  (torch.float32, 16, 4, "vector"),
+                  (torch.float32, 2, 1, "vector"),
+                  (torch.float32, 16, 2, "vector"),
+                  (torch.bfloat16, 4, 2, "vector"),
+                  (torch.bfloat16, 8, 4, "vector"),
+                  (torch.float16, 16, 4, "vector"),
+                  (torch.float16, 8, 1, "vector"),
+                  (torch.float32, 4, 3, "scalar"),
+                  (torch.bfloat16, 8, 6, "scalar"),
+                  (torch.float32, 6, 3, "scalar")]
+
+
+@pytest.mark.parametrize("dt,m,keep,path", _ELLPACK_PATHS,
+                         ids=[f"{str(c[0])[6:]}-m{c[1]}-k{c[2]}"
+                              for c in _ELLPACK_PATHS])
+def test_ellpack_kernel_paths_match_plain_version(dev, dt, m, keep, path):
+    """The path the kernel takes for an aligned w (`path`) and the scalar
+    path it takes for a view one element into its buffer, odd row counts
+    (a ragged last warp tile), full, empty and negative-zero blocks: bits
+    equal to the plain version's."""
+    from repro_torch.kernels.ellpack import ellpack as ek
+    from repro_torch.kernels.ellpack.ref import ellpack_pack_plain
+    g = torch.Generator(device=dev).manual_seed(m * 10 + keep)
+    rows, K = 777, 24 * m
+    buf = torch.randn(rows * K + 1, generator=g, device=dev)
+    buf = torch.where(torch.rand(rows * K + 1, generator=g, device=dev)
+                      < 0.5, buf, 0.0).to(dt)
+    aligned = buf[:-1].view(rows, K)
+    aligned[0] = 1.0
+    aligned[1] = 0.0
+    aligned[2, ::2] = -0.0
+    offset = buf[1:].view(rows, K)
+    bits = torch.int32 if dt == torch.float32 else torch.int16
+    for w, want_path in ((aligned, path), (offset, "scalar")):
+        assert ek.path_for(w, m, keep) == want_path
+        got = ek.ellpack_pack(w, m=m, keep=keep)
+        torch.cuda.synchronize()
+        want = ellpack_pack_plain(w, m=m, keep=keep)
+        assert torch.equal(got[1], want[1]), want_path
+        assert torch.equal(got[0].view(bits), want[0].view(bits)), want_path
+
+
+def test_noc_pod_study_on_the_card_matches_the_cpu(dev):
+    """`nop_bound(smoke=True)` and a trace-fidelity pod sweep on the card:
+    the claims hold, the zero-load pair is bit for bit, the frames agree
+    with the CPU's within 1e-3 (NaN only in the NoC columns of the
+    NoC-free rows)."""
+    import repro_torch as rt
+    from repro_torch.api.study import studies
+    from repro_torch.noc.topology import noc_kind
+    s = studies.nop_bound(smoke=True)
+    pods = rt.Study().designs(rt.preset_grid(
+        "pod-mesh", pods=[16, 64], link_bw=[4.0, 256.0])) \
+        .workloads("resnet18").fidelity("trace")
+    for study in (s, pods):
+        card, cpu = study.run(), study.run(device="cpu")
+        assert card.fraction_batched == 1.0
+        kind = dict(study._designs)
+        noc_free = np.array([noc_kind(kind[d]) is None
+                             for d in card["design"]])
+        for c in card.column_names():
+            if c in ("design", "workload", "fidelity"):
+                continue
+            a, b = (np.asarray(r[c], float) for r in (card, cpu))
+            nan = (noc_free if c in ("noc_stall_cycles", "noc_link_util",
+                                     "allreduce_cycles")
+                   else np.zeros(len(a), bool))
+            assert np.array_equal(np.isnan(a), nan), c
+            assert np.array_equal(np.isnan(b), nan), c
+            ok = ~nan
+            np.testing.assert_allclose(a[ok], b[ok], rtol=1e-3, err_msg=c)
+    res = s.run()
+    assert all(res.check_claims().values())
+    tot = dict(zip(res["design"], res["total_cycles"]))
+    assert tot["noc-zero-load"] == tot["legacy-hops"]
 
 
 def test_fold_plane_on_the_card_matches_the_cpu(dev):

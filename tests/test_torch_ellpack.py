@@ -1,7 +1,8 @@
 """The PyTorch port's ELLPACK plane on the CPU against the JAX reference:
 the packer's plain version against the Pallas kernel (interpret mode) and
 `ellpack_pack_reference`, `pack_ellpack_block`, `pack_with_report` and
-`sample_rowwise_counts`. The same seeded numpy matrices go to both; values
+`sample_rowwise_counts`, and the inputs of each of the CUDA kernel's two
+paths. The same seeded numpy matrices go to both; values
 and indices must be equal exactly. Inputs are finite: the Pallas kernel
 selects through a one-hot contraction, which spreads a NaN or +-Inf over
 its block, and the port copies values (ROADMAP section 3). The CUDA kernel
@@ -80,6 +81,41 @@ def test_pack_half_precision_matches_pallas_kernel(dt):
     got = tell.pack_ellpack(tw, m=8)
     assert got[0].dtype == tw.dtype
     _equal(got, rell.ellpack_pack(jw, m=8, interpret=True))
+
+
+# (m, keep, dtype): every vector instance's element size and block width,
+# and the scalar path's keep and m (which path the CUDA kernel takes for
+# each is held in `tests/test_torch_emulated.py`)
+PATH_CASES = [(2, 1, "float32"), (4, 2, "float32"), (8, 4, "float32"),
+              (16, 4, "float32"), (16, 1, "float32"), (4, 2, "bfloat16"),
+              (16, 2, "float16"), (2, 1, "bfloat16"), (4, 3, "float32"),
+              (8, 6, "float16"), (8, 8, "float32"), (6, 3, "float32")]
+
+
+@pytest.mark.parametrize("m,keep,dt", PATH_CASES,
+                         ids=[f"m{c[0]}-k{c[1]}-{c[2]}" for c in PATH_CASES])
+def test_each_path_choice_matches_pallas_kernel(m, keep, dt):
+    """The inputs the CUDA kernel's two paths take, through the plain
+    version against the Pallas kernel: full blocks (more than keep
+    nonzeros), empty blocks and negative zeros, aligned and as a view one
+    element into its buffer (which always takes the scalar path)."""
+    rows, K = 12, 8 * m
+    w = _pruned(m * 16 + keep, rows, K, m, p=0.6)
+    w[0] = 1.0 + np.arange(K)
+    w[1] = 0.0
+    w[2, ::3] = -0.0
+    buf = torch.zeros(rows * K + 1, dtype=getattr(torch, dt))
+    buf[1:] = torch.from_numpy(w.reshape(-1)).to(buf.dtype)
+    offset = buf[1:].view(rows, K)
+    aligned = offset.clone()
+    want = rell.ellpack_pack(jnp.asarray(w, getattr(jnp, dt)), m=m,
+                             keep=keep, interpret=True)
+    for x in (aligned, offset):
+        got = tell.pack_ellpack(x, m=m, keep=keep)
+        assert got[0].dtype == x.dtype
+        _equal(got, want)
+    assert bool((got[1][1] == -1).all())
+    np.testing.assert_array_equal(got[1][0, 0].numpy(), np.arange(keep))
 
 
 def test_negative_zero_is_zero_and_bad_inputs_raise():

@@ -1,18 +1,19 @@
-"""The CUDA sources of the replay and bank-conflict kernels, compiled with
-the host C++ compiler against `tools/cuda_emulator.h` and run on the CPU,
-against their plain PyTorch versions.
+"""The CUDA sources of the replay, bank-conflict and ELLPACK kernels,
+compiled with the host C++ compiler against `tools/cuda_emulator.h` and
+run on the CPU, against their plain PyTorch versions.
 
 The emulator runs every lane as a thread and every warp intrinsic as an
 exchange between barriers, so the kernels' own code paths (the single-
 and multi-core replay instances in registers and in shared memory, every
-conflict instance) run here, slowly, on small inputs. It does not model
+conflict instance, both ELLPACK paths) run here, slowly, on small
+inputs. It does not model
 timing, memory ordering beyond the warp, or the card's float rounding of
 fused operations; the kernels are held against the same plain versions
 on the card by `tests/test_torch_cuda.py` and `chip_smoke.py`. Each test
 skips when no C++20 compiler is found.
 
-Tolerances as on the card: counts and slowdowns exact, completions and
-shifts within 1e-3 relative.
+Tolerances as on the card: counts, slowdowns and ELLPACK values and
+indices exact, completions and shifts within 1e-3 relative.
 """
 import ctypes
 import hashlib
@@ -29,6 +30,8 @@ from repro_torch.core.accelerator import DramConfig
 from repro_torch.core.dram import decode_requests
 from repro_torch.kernels.conflict import conflict as ck
 from repro_torch.kernels.conflict import conflict_slowdown_reference
+from repro_torch.kernels.ellpack import ellpack as ek
+from repro_torch.kernels.ellpack.ref import ellpack_pack_plain
 from repro_torch.kernels.replay import megakernel as mk
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -198,3 +201,60 @@ def test_conflict_kernel_matches_plain(emulated, k):
             assert fn(lt.data_ptr(), bt.data_ptr(), out.data_ptr(), rows, k,
                       banks, ports, inst, None) == 0
             assert torch.equal(out, want), (k, ports, inst)
+
+
+ELLPACK_CASES = [
+    # (dtype, m, keep, the path of an aligned w): the vector instances
+    # (float32 m = 2 .. 16, 2-byte types m = 4 .. 16, keep 1, 2, 4) and the
+    # scalar path's (keep 3, 6, 8, m = 3, 6, 2-byte m = 2)
+    (torch.float32, 4, 2, "vector"), (torch.float32, 8, 4, "vector"),
+    (torch.float32, 16, 4, "vector"), (torch.float32, 2, 1, "vector"),
+    (torch.float32, 16, 1, "vector"), (torch.float32, 8, 2, "vector"),
+    (torch.bfloat16, 4, 2, "vector"), (torch.bfloat16, 8, 4, "vector"),
+    (torch.float16, 16, 4, "vector"), (torch.float16, 8, 1, "vector"),
+    (torch.bfloat16, 16, 2, "vector"),
+    (torch.float32, 4, 3, "scalar"), (torch.float16, 8, 6, "scalar"),
+    (torch.float32, 3, 1, "scalar"), (torch.bfloat16, 6, 3, "scalar"),
+    (torch.float32, 8, 8, "scalar"), (torch.bfloat16, 2, 1, "scalar")]
+
+
+@pytest.mark.parametrize("dt,m,keep,path", ELLPACK_CASES,
+                         ids=[f"{str(c[0])[6:]}-m{c[1]}-k{c[2]}"
+                              for c in ELLPACK_CASES])
+def test_ellpack_kernel_matches_plain(emulated, dt, m, keep, path):
+    """The path the C entry picks for an aligned w (`path`) and the scalar
+    path it picks for a view one element into its buffer: values and
+    indices equal the plain version's; full blocks (more than keep
+    nonzeros), empty blocks and negative zeros among them."""
+    lib = emulated("ellpack_pack")
+    fn = lib.ellpack_pack_launch
+    fn.argtypes = ek._LIB.argtypes
+    fn.restype = ctypes.c_int
+    path_for = lib.ellpack_path_for
+    path_for.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
+    path_for.restype = ctypes.c_int
+    rng = np.random.default_rng(m * 10 + keep)
+    rows, K = 40, 12 * m
+    buf = torch.from_numpy(rng.standard_normal(rows * K + 1)
+                           .astype(np.float32))
+    buf[torch.from_numpy(rng.random(rows * K + 1) < 0.5)] = 0.0
+    buf = buf.to(dt)
+    aligned = buf[:-1].view(rows, K)
+    aligned[0] = 1.0                               # every block full
+    aligned[1] = 0.0                               # every block empty
+    aligned[2, ::2] = -0.0                         # negative zeros
+    offset = buf[1:].view(rows, K)
+    runs = [(aligned, path), (offset, "scalar")]
+    for w, want_path in runs:
+        vector = path_for(w.data_ptr(), m, keep, w.element_size())
+        assert vector == (want_path == "vector"), want_path
+        vals = torch.full((rows, K // m, keep), 7.0, dtype=dt)
+        idx = torch.full((rows, K // m, keep), -9, dtype=torch.int32)
+        assert fn(w.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                  rows * (K // m), m, keep, w.element_size(), None) == 0
+        pv, pi = ellpack_pack_plain(w, m=m, keep=keep)
+        assert torch.equal(idx, pi), want_path
+        assert torch.equal(vals.view(torch.int16 if dt != torch.float32
+                                     else torch.int32),
+                           pv.view(torch.int16 if dt != torch.float32
+                                   else torch.int32)), path

@@ -4,8 +4,8 @@ sparsity, per-op N:M overrides, the data-layout stage and multi-core
 partitioning give `Study` frames that match the reference's per column
 within 1e-3 at `fast` fidelity (`trace` fidelity:
 `test_torch_feature_trace.py`); `sparse_speedup` holds its claims; what
-the reference refuses, the port refuses; and the NoC plane stays
-refused."""
+the reference refuses, the port refuses; and a NoC pod runs beside
+NoC-free designs."""
 import dataclasses
 
 import numpy as np
@@ -162,8 +162,19 @@ def test_invalid_per_op_override_raises_as_in_the_reference():
             .workloads({"w": _ref_ops(ops)}).fidelity("fast").run()
 
 
-def test_noc_designs_stay_refused():
-    s = rt.Study().designs({"n": get_preset("pod-mesh", cores=16)}) \
-        .workloads({"w": OPS[:1]}).fidelity("fast")
-    with pytest.raises(NotImplementedError, match="module item 7"):
-        s.run(device="cpu")
+def test_noc_designs_run_in_the_mixed_sweep():
+    """A 16-core NoC pod beside NoC-free multi-core designs of the same
+    grid: its own group, batched, with the reference's frame."""
+    pod = get_preset("pod-mesh", cores=16, link_bw=2.0, channels=2)
+    plain = with_cores(get_preset("tpu-like", array=32), 16)
+    designs = {"pod": (pod, r_get_preset("pod-mesh", cores=16, link_bw=2.0,
+                                         channels=2)),
+               "plain": (plain, r_with_cores(r_get_preset("tpu-like",
+                                                          array=32), 16))}
+    port, ref = _studies(designs, {"w": OPS}, "fast")
+    assert len(port.plan().groups) == 2
+    res = port.run(device="cpu")
+    assert res.fraction_batched == 1.0 and not res.failed_cells
+    _assert_parity(res, ref.run())
+    stall = np.asarray(res["noc_stall_cycles"], float)
+    assert stall[0] > 0 and np.isnan(stall[1])

@@ -231,8 +231,17 @@ def test_batched_multicore_models_match():
                 jnp.asarray(hops[i, 0]), jnp.float32(nop[i, 0]), 2, 2))
 
 
-def test_effective_nop_hops_refuses_the_noc():
-    cfg, _ = _configs()[1]
+@pytest.mark.parametrize("topology", ["mesh", "torus", "ring"])
+def test_effective_nop_hops_routes_the_noc(topology):
+    """Config hops with the NoC off; routed hops with it on, as the
+    reference's; a single core keeps its config hops either way."""
+    cfg, rcfg = _configs()[1]
     assert list(tmc.effective_nop_hops(cfg)) == [0.0, 1.0, 1.0, 2.0]
-    with pytest.raises(NotImplementedError, match="module item 7"):
-        tmc.effective_nop_hops(cfg.with_(noc=NocConfig(enabled=True)))
+    on = cfg.with_(noc=NocConfig(enabled=True, topology=topology))
+    ron = RConfig.from_dict(on.to_dict())
+    np.testing.assert_array_equal(tmc.effective_nop_hops(on),
+                                  rmc.effective_nop_hops(ron))
+    one = AcceleratorConfig(cores=(CoreConfig(rows=32, cols=32,
+                                              nop_hops=3),),
+                            noc=NocConfig(enabled=True, topology=topology))
+    assert list(tmc.effective_nop_hops(one)) == [3.0]

@@ -8,9 +8,11 @@
 // here as it would misbehave on the card. Blocks run one after another and
 // share one dynamic shared-memory buffer, filled with garbage before each
 // block. Block-wide barriers (__syncthreads) are not provided: the kernels
-// this runs synchronise within warps only. The test rewrites what a host
-// compiler cannot take: `cp.async` becomes a plain copy, `<<<...>>>` a call
-// of `mock_launch`, and `extern __shared__` arrays point at `mock_smem`.
+// this runs synchronise within warps only (or not at all, as the ELLPACK
+// packer). The vector types are plain structs of the card's alignment. The
+// test rewrites what a host compiler cannot take: `cp.async` becomes a plain
+// copy, `<<<...>>>` a call of `mock_launch`, and `extern __shared__` arrays
+// point at `mock_smem`.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -30,8 +32,16 @@
 #define __align__(n) __attribute__((aligned(n)))
 
 struct dim3 { unsigned x = 1, y = 1, z = 1; };
-struct int4 { int x, y, z, w; };
+struct __align__(8) int2 { int x, y; };
+struct __align__(16) int4 { int x, y, z, w; };
+struct __align__(8) uint2 { unsigned x, y; };
+struct __align__(16) uint4 { unsigned x, y, z, w; };
+inline int2 make_int2(int x, int y) { return int2{x, y}; }
 inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
+inline uint2 make_uint2(unsigned x, unsigned y) { return uint2{x, y}; }
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return uint4{x, y, z, w};
+}
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorLaunchFailure = 4 };
@@ -134,6 +144,10 @@ inline int __reduce_max_sync(unsigned, int v) {
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+// a read through the read-only data path is a plain load here
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
 
 template <typename K>
 inline cudaError_t cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
