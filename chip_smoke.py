@@ -108,7 +108,32 @@ own line; any failure exits non-zero before the final result line:
      16-core NoC pod, whose routed skew must add queueing delay to the
      hop offsets, both replays held to 1e-5 against the plain version on
      the card;
-  13. a `{"kernels": [...]}` line (all five kernels), the nvidia-smi line,
+  13. the sixth slice's path, the per-op engine: `Simulator("paper-128",
+     fidelity=f).run(vit_base())` at full width for f in fast, cycle and
+     trace (74 gemm and 36 vector ops; the replay count reset just before
+     each run: 0, 74 and 74 launches, engine "cuda" at cycle and trace),
+     host walls (three runs each), the card's busy share (a profile), and
+     every OpResult against the same run on the card machine's CPU
+     (fields within 1e-3, row-buffer counts exact); the replay kernel at
+     the per-op shapes (1 x 4,096 at trace, vit_base's largest cycle
+     stream, 1 x 16,384 at the cycle cap) against its plain version,
+     timed beside its bound;
+  14. resnet18 on paper-32 at trace with the layout stage on: 21 replay
+     and 21 conflict launches, the same CPU comparison, the layout
+     cycles; the conflict kernel at the per-op shape (one op window)
+     against its plain version, timed beside its bound;
+  15. the paper's Fig. 5, Fig. 9, Fig. 10, Table VI and Fig. 15 claims
+     through `simulate_network` / `simulate_dram` on the card;
+  16. `force_fallback` parity: 24 seeded mixed designs (arrays 8/16/32,
+     ws/os/is, dense / 2:4 / 1:4 / 2:8 row-wise, 1 or 4 cores, layout on
+     or off) on resnet18 at fast and trace, and `pod-mesh` pods of 16 and
+     64 cores (mesh and torus) at fast: the per-op frame against the
+     batched one within 1e-3 (the NoC columns too), both runs' launches;
+  17. a Study of `dataflow_dram_flip`'s two designs on the six resnet18
+     layers at fast, cycle and trace: 14 replay launches, the frame
+     against the CPU's within 1e-3, then run with `.cache(dir)` twice:
+     every cell a hit the second time, both frames equal to the first;
+  18. a `{"kernels": [...]}` line (all five kernels), the nvidia-smi line,
      and last `{"ok": true, "device": {...}}`.
 
 Writes the measurements to chiprun_out/chip_smoke.json as well.
@@ -298,6 +323,393 @@ def check_frame(name, frame, rows: int):
     return cols
 
 
+
+
+def replay_shape_info(mk, ins, kw) -> dict:
+    """One replay launch at a path's shape (prepared (S, npad) inputs):
+    ms per launch through the wrapper (CUDA events; its id check syncs),
+    the kernel alone (graph replays without the check), the plain version
+    on the card, counts equal and completions within RTOL of it, and the
+    least time: the bytes the function must move, each once (issue time,
+    bank, channel and row as 4-byte words, the write and valid flags as a
+    bit each, the completion out, shift and counts per stream) against the
+    operations it needs (8 order-only tables per valid request and chunk,
+    3 keyed maxima per fixed-point pass, over this run's passes)."""
+    S, npad = ins[0].shape
+    C = kw["C"]
+    ms = timed_cuda(lambda: mk.launch_cuda(ins, **kw), reps=20)
+    graph_ms = timed_graph(lambda: mk.launch_cuda(ins, check_ids=False, **kw))
+    dk, sk, ck_ = mk.launch_cuda(ins, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dp, sp, cp, passes = mk.run_plain(ins, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(ck_, cp):
+        fail(f"replay at {S} x {npad}: kernel counts differ from plain")
+    err = max(rel_err(dk, dp), rel_err(sk, sp))
+    if err > RTOL:
+        fail(f"replay at {S} x {npad}: kernel differs from plain by {err}")
+    nv = ins[5].reshape(S, npad // C, C).sum(-1).to(torch.float64)
+    ops = float(((8 + 3 * passes.to(torch.float64)) * nv).sum())
+    nbytes = S * npad * (4 + 3 * 4) + S * npad // 4 + S * npad * 4 \
+        + S * (4 + 16)
+    bms = nbytes / HBM_BYTES_PER_S * 1e3
+    oms = ops / FP32_OPS_PER_S * 1e3
+    return dict(streams=S, requests_per_stream=npad,
+                valid_requests=int(ins[5].sum()), ms=ms, graph_ms=graph_ms,
+                plain_ms=plain_ms, max_abs_err=float((dk - dp).abs().max()),
+                max_rel_err=err, mean_passes=float(passes.double().mean()),
+                max_passes=int(passes.max()), bytes=nbytes, ops=ops,
+                bytes_ms=bms, ops_ms=oms, bound_ms=max(bms, oms),
+                bound_by="bytes" if bms >= oms else "operations")
+
+
+def perop_phases(report: dict) -> dict:
+    """The sixth slice's path: the per-op engine (`Simulator`, `cycle`
+    fidelity, `force_fallback`) on the card. Returns the launches of its
+    counted runs and the two kernels' times at the per-op shapes."""
+    import tempfile
+
+    import repro_torch as rt
+    from repro_torch.api.presets import as_sparsity, get_preset, with_cores
+    from repro_torch.core.accelerator import (DramConfig, LayoutConfig,
+                                              SparsityConfig,
+                                              tpu_like_config)
+    from repro_torch.core.dram import (linear_trace, simulate_dram,
+                                       tile_prefetch_trace)
+    from repro_torch.core.engine import simulate_network
+    from repro_torch.core.workloads import (resnet18, resnet18_six_layers,
+                                            vit_base, vit_base_linear)
+    from repro_torch.kernels.conflict import conflict as ck
+    from repro_torch.kernels.conflict.ref import conflict_slowdown_reference
+    from repro_torch.kernels.replay import megakernel as mk
+
+    out = dict(replay=0, conflict=0)
+    op_fields = ("compute_cycles", "stall_cycles", "layout_extra_cycles",
+                 "total_cycles", "utilization", "sram_reads", "sram_writes",
+                 "dram_bytes", "energy_pj", "noc_stall_cycles")
+    counts = ("row_hits", "row_misses", "row_conflicts")
+
+    def report_vs_cpu(name, card, cpu, n_ops=None):
+        """Every OpResult (the first `n_ops`) of a card run against the
+        CPU's: fields within RTOL, energies by action within RTOL,
+        row-buffer counts exact."""
+        worst = 0.0
+        for a, b in list(zip(card.ops, cpu.ops))[:n_ops]:
+            pairs = [(getattr(a, f), getattr(b, f)) for f in op_fields]
+            pairs += [(a.energy_by_action[k], v)
+                      for k, v in (b.energy_by_action or {}).items()]
+            if b.dram_stats:
+                if any(a.dram_stats[k] != b.dram_stats[k] for k in counts):
+                    fail(f"{name}: {a.name} row counts "
+                         f"{[a.dram_stats[k] for k in counts]} on the card, "
+                         f"{[b.dram_stats[k] for k in counts]} on the CPU")
+                pairs += [(a.dram_stats[k], v)
+                          for k, v in b.dram_stats.items()]
+            for x, y in pairs:
+                e = abs(x - y) / max(abs(y), 1e-30) if x != y else 0.0
+                worst = max(worst, e)
+        if not worst <= RTOL:
+            fail(f"{name}: card ops differ from the CPU's by {worst}")
+        return worst
+
+    def counted_run(sim, ops):
+        """One run with both kernels' counts set to 0 just before it and
+        read just after; host wall."""
+        mk.LAUNCHES = ck.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rep = sim.run(ops)
+        wall = time.perf_counter() - t0
+        return rep, wall, mk.LAUNCHES, ck.LAUNCHES
+
+    def capture(fn, mod, attr):
+        """Run fn() with `mod.attr` recording the arguments of its largest
+        call (the path's own inputs, to time the kernel at that shape)."""
+        orig, seen = getattr(mod, attr), {}
+
+        def rec(*a, **k):
+            first = a[0][0] if isinstance(a[0], tuple) else a[0]
+            size = first.numel()
+            if size > seen.get("size", -1):
+                seen.update(size=size, args=a, kw=k)
+            return orig(*a, **k)
+
+        setattr(mod, attr, rec)
+        try:
+            fn()
+        finally:
+            setattr(mod, attr, orig)
+        return seen["args"], seen["kw"]
+
+    # ---- 13. vit_base through the per-op engine, full width ---------------
+    ops = vit_base()
+    n_gemm = sum(o.kind == "gemm" for o in ops)
+    info, shapes = {}, {}
+    for fid in ("fast", "cycle", "trace"):
+        sim = rt.Simulator("paper-128", fidelity=fid)
+        rep, wall, launches, _ = counted_run(sim, ops)
+        want = 0 if fid == "fast" else n_gemm
+        if launches != want:
+            fail(f"perop_vit_base {fid}: {launches} replay launches, "
+                 f"expected {want}")
+        if rep.engine != ("" if fid == "fast" else "cuda"):
+            fail(f"perop_vit_base {fid}: engine {rep.engine!r}")
+        if not np.isfinite(rep.total_cycles) or rep.total_cycles <= 0:
+            fail(f"perop_vit_base {fid}: total cycles {rep.total_cycles}")
+        out["replay"] += launches
+        walls = [wall]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            sim.run(ops)
+            walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        cpu = rt.Simulator("paper-128", fidelity=fid, device="cpu").run(ops)
+        cpu_s = time.perf_counter() - t0
+        worst = report_vs_cpu(f"perop_vit_base {fid}", rep, cpu)
+        prof = profile_run(lambda: sim.run(ops), kernels=("replay",))
+        info[fid] = dict(
+            ops=len(ops), gemm_ops=n_gemm, launches=launches,
+            engine=rep.engine, total_cycles=rep.total_cycles,
+            stall_cycles=rep.stall_cycles, energy_pj=rep.energy_pj,
+            wall_s_runs=walls, wall_s_median=float(np.median(walls)),
+            host_ms_per_op=float(np.median(walls)) * 1e3 / len(ops),
+            cpu_wall_s=cpu_s, ops_held_vs_cpu=len(cpu.ops),
+            max_rel_vs_cpu=worst,
+            requests_per_op=[o.dram_stats and int(
+                o.dram_stats["row_hits"] + o.dram_stats["row_misses"]
+                + o.dram_stats["row_conflicts"]) for o in rep.ops
+                if o.kind == "gemm"][:8],
+            device_busy_share=prof["device_busy_share"],
+            device_busy_ms=prof["device_busy_ms"],
+            profiled_wall_ms=prof["profiled_wall_ms"],
+            replay_device_ms=prof["kernel_ms"]["replay"],
+            top_device_ops=prof["top_device_ops"][:4])
+        phase(f"perop_vit_base_{fid}", **info[fid])
+        if fid != "fast":
+            shapes[f"{fid}_vit_base"] = capture(lambda: sim.run(ops), mk,
+                                                "launch_cuda")
+    report["perop_vit_base"] = info
+
+    # the replay kernel at the per-op shapes: a trace stream (1 x cap =
+    # 4,096), vit_base's largest cycle stream, and a cycle stream at the
+    # cap (1 x 16,384: resnet18's conv1 on paper-128, scaled past it)
+    shapes["cycle_cap"] = capture(lambda: rt.Simulator(
+        "paper-128", fidelity="cycle").run_op(resnet18()[0]), mk,
+        "launch_cuda")
+    per_op = {}
+    for fid, (args, kw) in shapes.items():
+        per_op[fid] = replay_shape_info(mk, args[0], kw)
+    phase("replay_per_op_shapes", **per_op)
+    report["replay_per_op_shapes"] = per_op
+
+    # ---- 14. resnet18 with the layout stage at trace --------------------------
+    lsim = rt.Simulator("paper-32", fidelity="trace").with_(
+        layout=LayoutConfig(enabled=True))
+    r18 = resnet18()
+    r18_gemm = sum(o.kind == "gemm" for o in r18)
+    rep, wall, rl, cl = counted_run(lsim, r18)
+    if (rl, cl) != (r18_gemm, r18_gemm):
+        fail(f"perop_layout_resnet18: {rl} replay and {cl} conflict "
+             f"launches, expected {r18_gemm} each")
+    out["replay"] += rl
+    out["conflict"] += cl
+    t0 = time.perf_counter()
+    lcpu = rt.Simulator("paper-32", fidelity="trace", device="cpu").with_(
+        layout=LayoutConfig(enabled=True)).run(r18)
+    lcpu_s = time.perf_counter() - t0
+    lworst = report_vs_cpu("perop_layout_resnet18", rep, lcpu)
+    if rep.layout_extra_cycles <= 0.0:
+        fail("perop_layout_resnet18: no layout cycles")
+    linfo = dict(ops=len(r18), replay_launches=rl, conflict_launches=cl,
+                 engine=rep.engine, wall_s=wall, cpu_wall_s=lcpu_s,
+                 layout_extra_cycles=rep.layout_extra_cycles,
+                 layout_share=rep.layout_extra_cycles / rep.total_cycles,
+                 total_cycles=rep.total_cycles, max_rel_vs_cpu=lworst)
+    phase("perop_layout_resnet18", **linfo)
+    report["perop_layout_resnet18"] = linfo
+    # the conflict kernel at the per-op shape: one op's window
+    (line, bank), ckw = capture(lambda: lsim.run(r18), ck, "conflict_slowdown")
+    c_ms = timed_graph(lambda: ck.conflict_slowdown(line, bank, **ckw))
+    if not torch.equal(ck.conflict_slowdown(line, bank, **ckw),
+                       conflict_slowdown_reference(line, bank, **ckw)):
+        fail("conflict kernel at the per-op shape differs from plain")
+    c_plain = host_ms(lambda: conflict_slowdown_reference(line, bank, **ckw),
+                      reps=5)
+    rows, k = line.shape
+    cb = rows * k * 8 + rows * 4
+    co = rows * k * np.log2(max(k, 2))
+    cbm, com = cb / HBM_BYTES_PER_S * 1e3, co / FP32_OPS_PER_S * 1e3
+    conflict_op = dict(rows=int(rows), k=int(k), ms=c_ms, plain_ms=c_plain,
+                       bytes=cb, ops=co, bound_ms=max(cbm, com),
+                       bound_by="bytes" if cbm >= com else "operations")
+    phase("conflict_per_op_shape", **conflict_op)
+    report["conflict_per_op_shape"] = conflict_op
+
+    # ---- 15. the paper's claims through the per-op engine, on the card ------
+    claims = {}
+    base = {}
+    for nm in (None, (2, 4), (1, 4)):
+        cfg = tpu_like_config(array=32, sram_mb=0.5)
+        if nm:
+            cfg = cfg.with_(sparsity=SparsityConfig(enabled=True, n=nm[0],
+                                                    m=nm[1]))
+        base[nm] = simulate_network(cfg, r18).total_cycles
+    small = simulate_network(tpu_like_config(array=32, sram_mb=0.25),
+                             r18).total_cycles
+    big = simulate_network(tpu_like_config(array=32, sram_mb=4.0),
+                           r18).total_cycles
+    claims["fig5_sparser_is_faster"] = base[(1, 4)] < base[(2, 4)] < base[None]
+    claims["fig5_more_sram_is_faster"] = big < small
+    t, a, w = linear_trace(4096, issue_gap=0.25)
+    th1 = float(simulate_dram(t, a, w, DramConfig(channels=1)).throughput)
+    th8 = float(simulate_dram(t, a, w, DramConfig(channels=8)).throughput)
+    claims["fig9_8_channels_over_5x_1"] = th8 > 5 * th1
+    t, a, w = tile_prefetch_trace(tile_bytes=20 * 1024, n_tiles=64,
+                                  compute_per_tile=400, gran_bytes=64)
+    tot = {q: float(simulate_dram(t, a, w, DramConfig(
+        channels=2, read_queue=q, write_queue=q)).total_cycles)
+        for q in (32, 128, 512)}
+    claims["fig10_queue_steps_shrink"] = (
+        tot[32] > tot[128] >= tot[512]
+        and (tot[32] - tot[128]) > (tot[128] - tot[512]))
+    gaps = {}
+    for cores, arr in ((1, 128), (16, 32)):
+        lat = {df: simulate_network(tpu_like_config(
+            array=arr, cores=cores, dataflow=df),
+            vit_base_linear()).compute_cycles for df in ("ws", "is")}
+        gaps[cores] = lat["is"] / lat["ws"]
+    claims["table6_multicore_narrows_gap"] = \
+        abs(1 - gaps[16]) < 0.5 * abs(1 - gaps[1])
+    wins, energies = 0, {}
+    for arr in (32, 64):
+        e = {df: simulate_network(tpu_like_config(array=arr, dataflow=df),
+                                  r18).energy_pj for df in ("ws", "is", "os")}
+        energies[arr] = e
+        wins += e["os"] <= min(e["ws"], e["is"]) * 1.02
+    claims["fig15_os_wins_energy"] = wins >= 1
+    cinfo = dict(claims=claims, fig5_total_cycles={str(k): v for k, v in
+                                                   base.items()},
+                 fig5_sram_025_vs_4=[small, big], fig9_throughput=[th1, th8],
+                 fig10_total_cycles=tot, table6_gaps=gaps,
+                 fig15_energy_pj=energies)
+    phase("paper_claims_perop", **cinfo)
+    report["paper_claims_perop"] = cinfo
+    if not all(claims.values()):
+        fail(f"paper_claims_perop: {claims}")
+
+    # ---- 16. force_fallback parity: the per-op oracle on the card ----------
+    rng = np.random.default_rng(18)
+    mixed = {}
+    for i in range(24):
+        cfg = get_preset("tpu-like", array=int(rng.choice([8, 16, 32])),
+                         sram_mb=float(rng.choice([0.25, 1.0])))
+        cfg = cfg.with_(dataflow=str(rng.choice(["ws", "os", "is"])))
+        cores = int(rng.choice([1, 4]))
+        if cores > 1:
+            cfg = with_cores(cfg, cores)
+        sp = [None, "2:4", "1:4", "2:8-rw"][int(rng.integers(4))]
+        if sp is not None:
+            cfg = cfg.with_(sparsity=as_sparsity(sp))
+        if rng.random() < 0.5:
+            cfg = cfg.with_(layout=LayoutConfig(enabled=True))
+        mixed[f"d{i}-{cores}c-{sp}"] = cfg
+    pods = {f"{topo}-{p}c": get_preset("pod-mesh", cores=p, topology=topo)
+            for topo in ("mesh", "torus") for p in (16, 64)}
+    parity_cols = ("total_cycles", "compute_cycles", "stall_cycles",
+                   "dram_bytes", "energy_pj", "utilization", "edp",
+                   "energy_mac_pj", "energy_sram_pj", "energy_dram_pj",
+                   "energy_static_pj")
+    pinfo = {}
+    for name, designs, fid, cols in (
+            ("mixed_fast", mixed, "fast", parity_cols),
+            ("mixed_trace", mixed, "trace", parity_cols),
+            ("pods_fast", pods, "fast", parity_cols + NOC_COLUMNS)):
+        def mk_study():
+            return (rt.Study(name).designs(designs)
+                    .workloads({"resnet18": r18}).fidelity(fid))
+        runs = {}
+        for mode in ("batched", "per_op"):
+            s = mk_study().options(force_fallback=mode == "per_op")
+            mk.LAUNCHES = ck.LAUNCHES = 0
+            t0 = time.perf_counter()
+            fr = s.run()
+            wall = time.perf_counter() - t0
+            runs[mode] = (fr, dict(wall_s=wall, replay_launches=mk.LAUNCHES,
+                                   conflict_launches=ck.LAUNCHES))
+            out["replay"] += mk.LAUNCHES
+            out["conflict"] += ck.LAUNCHES
+            if fr.failed_cells or len(fr) != len(designs):
+                fail(f"force_fallback_parity {name} {mode}: "
+                     f"{len(fr)} rows, failed {fr.failed_cells}")
+        fb, fo = runs["batched"][0], runs["per_op"][0]
+        if fb.fraction_batched != 1.0 or fo.fraction_batched != 0.0:
+            fail(f"force_fallback_parity {name}: batched shares "
+                 f"{fb.fraction_batched}, {fo.fraction_batched}")
+        errs = {}
+        for c in cols:
+            a, b = np.asarray(fb[c], float), np.asarray(fo[c], float)
+            if not np.array_equal(np.isnan(a), np.isnan(b)) \
+                    or (c not in NOC_COLUMNS and np.isnan(a).any()):
+                fail(f"force_fallback_parity {name}: NaN pattern of {c}")
+            ok = ~np.isnan(b)
+            errs[c] = float(np.max(np.abs(a[ok] - b[ok])
+                                   / np.maximum(np.abs(b[ok]), 1.0),
+                                   initial=0.0))
+        if max(errs.values()) > RTOL:
+            fail(f"force_fallback_parity {name}: {errs}")
+        pinfo[name] = dict(designs=len(designs), fidelity=fid,
+                           batched=runs["batched"][1],
+                           per_op=runs["per_op"][1],
+                           max_rel=max(errs.values()), max_rel_by_column=errs)
+        phase(f"force_fallback_parity_{name}", **pinfo[name])
+    report["force_fallback_parity"] = pinfo
+
+    # ---- 17. a cycle-fidelity Study, its CPU twin and its cache -------------
+    flip = rt.studies.dataflow_dram_flip()
+    cstudy = (rt.Study("cycle_study").designs(dict(flip._designs))
+              .workloads({"resnet18-6": resnet18_six_layers()})
+              .fidelity("fast", "cycle", "trace"))
+    mk.LAUNCHES = ck.LAUNCHES = 0
+    t0 = time.perf_counter()
+    cres = cstudy.run()
+    cwall = time.perf_counter() - t0
+    c_launches = mk.LAUNCHES
+    out["replay"] += c_launches
+    if c_launches != 2 * 6 + 2:       # 6 gemm ops per cycle cell, 2 groups
+        fail(f"cycle_study: {c_launches} replay launches, expected 14")
+    check_frame("cycle_study", cres, 6)
+    t0 = time.perf_counter()
+    ccpu = cstudy.run(device="cpu")
+    ccpu_s = time.perf_counter() - t0
+    cerr = frame_rel_err(cres, ccpu)
+    if max(cerr.values()) > RTOL:
+        fail(f"cycle_study: card frame differs from the CPU's: {cerr}")
+    cache_root = ROOT / "build"
+    cache_root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cache_root) as tmp:
+        fill = cstudy.cache(tmp).run()
+        again = cstudy.run()
+    if fill.executed_cells != 6 or again.cache_hits != 6 \
+            or again.executed_cells != 0 or not again.equals(cres) \
+            or not fill.equals(cres):
+        fail(f"cycle_study cache: filled {fill.executed_cells}, then "
+             f"{again.cache_hits} hits / {again.executed_cells} executed, "
+             f"equal {again.equals(cres)}")
+    sinfo = dict(rows=len(cres), launches=c_launches, wall_s=cwall,
+                 cpu_wall_s=ccpu_s, engine=cres.meta["engine"],
+                 max_rel_vs_cpu=max(cerr.values()),
+                 max_rel_vs_cpu_by_column=cerr,
+                 cache_filled=fill.executed_cells,
+                 cache_hits=again.cache_hits, cached_frame_equal=True,
+                 total_cycles=dict(zip(
+                     [f"{d}/{f}" for d, f in zip(cres["design"],
+                                                cres["fidelity"])],
+                     cres["total_cycles"])))
+    phase("cycle_study", **sinfo)
+    report["cycle_study"] = sinfo
+    out.update(replay_per_op=per_op, conflict_per_op=conflict_op)
+    return out
 
 
 def main() -> int:
@@ -794,23 +1206,11 @@ def main() -> int:
     S, npad = ins[0].shape
     kw = dict(cfg=DramConfig(), busy=max(1.0, 64 / 19.2), C=64,
               max_passes=None, tol=0.25)
-    kernel_ms = timed_cuda(lambda: mk.launch_cuda(ins, **kw), reps=20)
-    # the kernel alone: graph replays of launches without the id check's
-    # device sync
-    kernel_graph_ms = timed_graph(
-        lambda: mk.launch_cuda(ins, check_ids=False, **kw))
-    dk, sk, ck_ = mk.launch_cuda(ins, **kw)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dp, sp, cp, passes = mk.run_plain(ins, **kw)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    if not torch.equal(ck_, cp):
-        fail("vit_base group: kernel counts differ from the plain version")
-    err = rel_err(dk, dp)
-    if err > RTOL or rel_err(sk, sp) > RTOL:
-        fail(f"vit_base group: kernel done/shift differ from plain by {err}")
-    max_abs = float((dk - dp).abs().max())
+    # through the wrapper, the kernel alone (graph replays of launches
+    # without the id check's device sync), the plain version, the bound
+    grp = replay_shape_info(mk, ins, kw)
+    kernel_ms, kernel_graph_ms = grp["ms"], grp["graph_ms"]
+    plain_ms, max_abs = grp["plain_ms"], grp["max_abs_err"]
 
     # the streams generated on the card equal the CPU's, bit for bit
     # (the first designs' unique streams lead the batch, in design order)
@@ -821,33 +1221,13 @@ def main() -> int:
         if not torch.equal(a[:u].cpu(), b):
             fail("demand streams generated on the card differ from the CPU's")
 
-    # the least time: the bytes the function must move, each once (issue
-    # time, bank, channel and row as 4-byte words, the write and valid
-    # flags as one bit each, the completion time out, shift and counts per
-    # stream); the operations the function needs, O(1) per valid request
-    # and reduction: 8 order-only tables per chunk (prev, pin, the two
-    # ranks, the queue head, the two last-of-key flags, W and V counted
-    # as one each, one operation each in a left-to-right pass with a
-    # running value per key) plus the 3 keyed maxima of each fixed-point
-    # pass, over this run's passes
-    nv = ins[5].reshape(S, npad // 64, 64).sum(-1).to(torch.float64)
-    ops = float(((8 + 3 * passes.to(torch.float64)) * nv).sum())
-    nbytes = S * npad * (4 + 3 * 4) + S * npad // 4 + S * npad * 4 \
-        + S * (4 + 16)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     # what the kernel's int32 interface moves: six words in per request
     # (the core id is not read), one out (recorded, not used for bound_ms)
     io_bytes = S * npad * (6 * 4 + 4) + S * (4 + 16)
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
     replay_group = dict(
-        streams=S, requests_per_stream=npad,
-        valid_requests=int(ins[5].sum()), gen_decode_s=gen_s,
-        kernel_ms=kernel_ms, kernel_graph_ms=kernel_graph_ms,
-        plain_ms=plain_ms, max_abs_err=max_abs,
-        max_rel_err=err, mean_passes=float(passes.double().mean()),
-        max_passes=int(passes.max()), bytes=nbytes, ops=ops,
-        bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        gen_decode_s=gen_s, kernel_ms=kernel_ms,
+        kernel_graph_ms=kernel_graph_ms,
+        **{k: v for k, v in grp.items() if k not in ("ms", "graph_ms")},
         interface_bytes=io_bytes,
         interface_bytes_ms=io_bytes / HBM_BYTES_PER_S * 1e3)
     # the same streams in chunks of 128: the kernel's shared-memory
@@ -867,7 +1247,7 @@ def main() -> int:
         mean_passes=float(passes2.double().mean()))
     phase("vit_base_trace_group", **replay_group)
     report["vit_base_trace_group"] = replay_group
-    del ins, ins2, strm, dk, dp, dk2, dp2
+    del ins, ins2, strm, dk2, dp2
 
     # ---- 6. the second slice's path: the feature sweep --------------------
     base = rt.preset_grid(array=[32, 64, 128], sram_mb=[0.5, 2, 8],
@@ -1829,12 +2209,19 @@ def main() -> int:
     phase("contention_noc_pod", **podc_info)
     report["contention_noc_pod"] = podc_info
 
+    # ---- 13-17. the sixth slice's path: the per-op engine -----------------
+    t0 = time.perf_counter()
+    perop = perop_phases(report)
+    report["perop_phases_s"] = time.perf_counter() - t0
+    phase("perop_phases", seconds=report["perop_phases_s"])
+
     kernels = {"kernels": [
         dict(name="replay_megakernel", route="cuda",
              source="src/repro_torch/csrc/replay_megakernel.cu",
              replaces="src/repro/kernels/replay/megakernel.py:96",
              launches=(dense_launches + feat_launches["replay_megakernel"]
-                       + cont_launches + pod_launches + podc_launches),
+                       + cont_launches + pod_launches + podc_launches
+                       + perop["replay"]),
              max_abs_err=max(max_abs, mcm["shared"]["max_abs_err"]),
              ms=kernel_ms, plain_ms=plain_ms,
              bound_ms=replay_group["bound_ms"],
@@ -1854,14 +2241,24 @@ def main() -> int:
                      plain_ms=mcm["shared"]["plain_ms"],
                      bound_ms=mcm["shared"]["bound_ms"],
                      bound_by=mcm["shared"]["bound_by"],
-                     max_abs_err=mcm["shared"]["max_abs_err"]))),
+                     max_abs_err=mcm["shared"]["max_abs_err"]),
+                 per_op={
+                     shape: dict(
+                         path=f"per-op engine, {shape} on paper-128",
+                         **{k: v[k] for k in (
+                             "streams", "requests_per_stream", "ms",
+                             "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                             "max_abs_err")})
+                     for shape, v in perop["replay_per_op"].items()})),
         dict(name="conflict_slowdown", route="cuda",
              source="src/repro_torch/csrc/conflict_slowdown.cu",
              replaces="src/repro/kernels/conflict/conflict.py:42",
-             launches=feat_launches["conflict_slowdown"],
+             launches=feat_launches["conflict_slowdown"] + perop["conflict"],
              max_abs_err=0, ms=conflict_ms, plain_ms=conflict_plain_ms,
              bound_ms=layout_group["bound_ms"],
-             bound_by=layout_group["bound_by"], library_ms=None),
+             bound_by=layout_group["bound_by"], library_ms=None,
+             per_op=dict(path="per-op layout stage (one op window)",
+                         **perop["conflict_per_op"])),
         dict(name="systolic_matmul", route="cuda",
              source="src/repro_torch/csrc/systolic_matmul.cu",
              replaces="src/repro/kernels/systolic/systolic.py:40",

@@ -1,9 +1,38 @@
-"""User-facing API of the PyTorch port: presets, the batched sweep and the
-declarative Study layer."""
-from .presets import get_preset, list_presets, preset_grid, register_preset
-from .study import (Study, StudyResult, get_study, list_studies,
+"""User-facing API of the PyTorch port: the `Simulator` session facade over
+the per-op stage pipeline, the accelerator preset registry, and the
+declarative Study layer (cross-product experiment plans -> columnar
+result frames). Entry points run on the GPU unless the caller passes
+`device="cpu"`.
+
+    from repro_torch.api import Simulator, Study, preset_grid, studies
+
+    Simulator("paper-32").run("resnet18")               # one config
+    Simulator(fidelity="cycle").run_op(op)              # cycle-accurate DRAM
+    Simulator("paper-32", device="cpu").run("resnet18") # plain versions
+
+    res = (Study()                                      # batched DSE study
+           .designs(preset_grid(array=[16, 32, 64], sram_mb=[1, 8]))
+           .workloads("resnet18")
+           .fidelity("fast", "trace")
+           .run())
+    res.best("edp")
+
+    studies.edp_array_size().run().check_claims()       # paper claims
+"""
+from ..core.accelerator import AcceleratorConfig
+from ..core.engine import NetworkReport, OpResult
+from ..core.stages import FIDELITIES, build_pipeline
+from .presets import (as_sparsity, get_preset, list_presets, preset_grid,
+                      register_preset, with_cores)
+from .simulator import Simulator, SweepResult, as_config, as_workload
+from .study import (Study, StudyPlan, StudyResult, get_study, list_studies,
                     register_study, studies)
 
-__all__ = ["get_preset", "list_presets", "preset_grid", "register_preset",
-           "Study", "StudyResult", "get_study", "list_studies",
-           "register_study", "studies"]
+__all__ = [
+    "AcceleratorConfig", "FIDELITIES", "NetworkReport", "OpResult",
+    "Simulator", "Study", "StudyPlan", "StudyResult", "SweepResult",
+    "as_config", "as_sparsity", "as_workload", "build_pipeline",
+    "get_preset", "get_study", "list_presets", "list_studies",
+    "preset_grid", "register_preset", "register_study", "studies",
+    "with_cores",
+]

@@ -1,5 +1,13 @@
-"""The batched design sweep (PyTorch port of `repro.api.simulator`'s
-`_batched_design_fn` / `_sweep_batched`).
+"""The `Simulator` facade and the batched design sweep (PyTorch port of
+`repro.api.simulator`).
+
+    sim = Simulator("paper-32", fidelity="fast")      # on the GPU
+    report = sim.run(resnet18())                        # NetworkReport
+    res = sim.sweep(configs, ops)                       # batched DSE
+
+A `Simulator` binds (config, fidelity, ERT, device) once; `run`/`run_op`
+go through the per-op stage pipeline (`core/stages.py`), `sweep` through
+a one-workload `api.study.Study`.
 
 A sweep stacks per-design config scalars into float32 columns with a
 leading design axis and runs the traced stage math on all designs and ops
@@ -31,7 +39,8 @@ from ..core import stages as st
 from ..core.accelerator import (AcceleratorConfig, DramConfig, LayoutConfig,
                                 MemoryConfig, SparsityConfig)
 from ..core.energy import DEFAULT_ERT, ERT, energy_pj
-from ..core.engine import _ENERGY_GROUPS
+from ..core.engine import (_ENERGY_GROUPS, NetworkReport, OpResult,
+                           simulate_network, simulate_op)
 from ..core.multicore import effective_nop_hops
 from ..core.workloads import PAPER_WORKLOADS, Op
 from ..noc.topology import noc_kind
@@ -60,6 +69,166 @@ def as_workload(w: WorkloadLike) -> List[Op]:
                            f"available: {sorted(PAPER_WORKLOADS)}")
         return PAPER_WORKLOADS[w]()
     return list(w)
+
+
+@dataclasses.dataclass
+class SweepResult:
+    """Per-design-point totals over one workload (arrays of shape (n,))."""
+    configs: List[AcceleratorConfig]
+    total_cycles: np.ndarray
+    compute_cycles: np.ndarray
+    stall_cycles: np.ndarray
+    dram_bytes: np.ndarray
+    energy_pj: np.ndarray
+    utilization: np.ndarray
+    batched: bool = True          # False when the per-op engine ran
+    # runtime replay-engine label of the sweep's DRAM replay ('' for
+    # fidelities that replay nothing), see NetworkReport.engine
+    engine: str = ""
+
+    @property
+    def edp(self) -> np.ndarray:
+        return self.energy_pj * 1e-9 * self.total_cycles
+
+    def __len__(self) -> int:
+        return len(self.configs)
+
+    def argbest(self, objective: str = "edp") -> int:
+        key = dict(edp=self.edp, latency=self.total_cycles,
+                   cycles=self.total_cycles, energy=self.energy_pj)
+        return int(np.argmin(key[objective]))
+
+    def best(self, objective: str = "edp") -> AcceleratorConfig:
+        return self.configs[self.argbest(objective)]
+
+
+class Simulator:
+    """Unified simulation session: config + fidelity + ERT + device, one
+    pipeline.
+
+    fidelity: 'fast' (first-order DRAM stalls), 'cycle' (the DRAM replay
+    of a synthetic tile-prefetch stream per op) or 'trace' (each op's
+    generated demand trace through the same replay).
+
+    trace_spec: optional `trace.generator.TraceSpec`, shared by the per-op
+    pipeline and the batched sweep. core_index: the core a heterogeneous
+    mesh is analyzed through. engine: DRAM replay engine for the
+    cycle/trace fidelities (None: the chunked replay; "reference": the
+    per-request scan).
+
+    device: where request streams and kernel inputs live, CUDA unless the
+    caller asks for the CPU (`device="cpu"` runs each kernel's plain
+    version); without a card the default raises. The reference's
+    `sweep(mesh=)`, a JAX sharding argument, has no single-card
+    counterpart and is not taken.
+    """
+
+    def __init__(self, config: ConfigLike = "paper-32", *,
+                 fidelity: str = "fast", ert: ERT = DEFAULT_ERT,
+                 trace_spec=None, core_index: int = 0,
+                 engine: Optional[str] = None, device=None):
+        from ..core import replay as _rp
+        if fidelity not in st.FIDELITIES:
+            raise ValueError(f"fidelity must be one of {st.FIDELITIES}")
+        self.config = as_config(config)
+        self.fidelity = fidelity
+        self.ert = ert
+        self.core_index = core_index
+        self.engine = _rp.resolve_engine(engine)
+        self.device = _rp.resolve_device(device)
+        if trace_spec is None and fidelity == "trace":
+            from ..trace.generator import DEFAULT_SPEC
+            trace_spec = DEFAULT_SPEC
+        self.trace_spec = trace_spec
+        self.pipeline = st.build_pipeline(fidelity, core_index=core_index,
+                                          trace_spec=trace_spec,
+                                          engine=self.engine,
+                                          device=self.device)
+
+    @classmethod
+    def from_preset(cls, name: str, *, fidelity: str = "fast",
+                    ert: ERT = DEFAULT_ERT, trace_spec=None,
+                    core_index: int = 0, engine: Optional[str] = None,
+                    device=None, **kw) -> "Simulator":
+        return cls(get_preset(name, **kw), fidelity=fidelity, ert=ert,
+                   trace_spec=trace_spec, core_index=core_index,
+                   engine=engine, device=device)
+
+    def with_(self, **config_fields) -> "Simulator":
+        """New session with dataclass fields replaced on the config."""
+        return Simulator(self.config.with_(**config_fields),
+                         fidelity=self.fidelity, ert=self.ert,
+                         trace_spec=self.trace_spec,
+                         core_index=self.core_index, engine=self.engine,
+                         device=self.device)
+
+    def stage_names(self) -> List[str]:
+        return [s.name for s in self.pipeline]
+
+    # ---- single-config entry points ----------------------------------------
+    def run_op(self, op: Op) -> OpResult:
+        return simulate_op(self.config, op, ert=self.ert,
+                           pipeline=self.pipeline)
+
+    def run(self, workload: WorkloadLike) -> NetworkReport:
+        return simulate_network(self.config, as_workload(workload),
+                                ert=self.ert, pipeline=self.pipeline)
+
+    def run_lm(self, model_cfg, *, seq: int, batch: int, mode: str,
+               cache_len: Optional[int] = None) -> NetworkReport:
+        """Model one step of an LM architecture (a model config with the
+        reference's `ModelConfig` fields, see `core.workloads.lm_ops`) on
+        this accelerator."""
+        from ..core.workloads import lm_ops
+        return self.run(lm_ops(model_cfg, seq=seq, batch=batch, mode=mode,
+                               cache_len=cache_len))
+
+    def seconds(self, cycles: float) -> float:
+        """Accelerator cycles -> wall seconds at this config's clock."""
+        return cycles / (self.config.clock_ghz * 1e9)
+
+    @staticmethod
+    def wave_cost(prefill_rep: NetworkReport, decode_rep: NetworkReport,
+                  gen_len: int) -> tuple:
+        """(cycles, pJ) for one serving wave: a prefill plus gen_len - 1
+        decode steps (the first generated token comes out of prefill)."""
+        steps = max(gen_len - 1, 0)
+        return (prefill_rep.total_cycles + decode_rep.total_cycles * steps,
+                prefill_rep.energy_pj + decode_rep.energy_pj * steps)
+
+    # ---- batched sweep -------------------------------------------------------
+    def sweep(self, configs: Sequence[ConfigLike], workload: WorkloadLike,
+              *, force_fallback: bool = False) -> SweepResult:
+        """Simulate `workload` on every config through a one-workload
+        `api.study.Study` on this session's device: one batched call per
+        static flavor group at 'fast' and 'trace'; 'cycle' runs through
+        the per-op engine. force_fallback: run every cell through the
+        per-op engine (the differential-parity reference)."""
+        from .study import Study
+        cfgs = [as_config(c) for c in configs]
+        if not cfgs:
+            empty = np.zeros(0)
+            return SweepResult(configs=[], batched=True,
+                               **{k: empty for k in
+                                  ("total_cycles", "compute_cycles",
+                                   "stall_cycles", "dram_bytes",
+                                   "energy_pj", "utilization")})
+        frame = (Study()
+                 .designs(cfgs)
+                 .workloads({"workload": as_workload(workload)})
+                 .fidelity(self.fidelity)
+                 .options(ert=self.ert, engine=self.engine,
+                          trace_spec=self.trace_spec,
+                          core_index=self.core_index,
+                          force_fallback=force_fallback)
+                 .run(device=self.device))
+        return SweepResult(
+            configs=cfgs,
+            batched=bool(np.all(frame["batched"] > 0)),
+            engine=str(frame.meta.get("engine", "")),
+            **{k: frame[k] for k in ("total_cycles", "compute_cycles",
+                                     "stall_cycles", "dram_bytes",
+                                     "energy_pj", "utilization")})
 
 
 def _pow2_cap(n: int) -> int:

@@ -1,4 +1,4 @@
-"""Declarative Study API (PyTorch port of the core of `repro.api.study`):
+"""Declarative Study API (PyTorch port of `repro.api.study`):
 cross-product experiment plans over designs x workloads x fidelities,
 reduced to a columnar result frame.
 
@@ -11,26 +11,40 @@ reduced to a columnar result frame.
     res.filter(fidelity="trace").compare("total_cycles",
                                          axis="design", baseline="32")
 
-`Study.run` groups the cells by the static sweep flavor (workload,
-fidelity, dataflow, word size, the DramConfig at trace fidelity, the core
-grid, the layout config when the layout stage is on, the sparse
-representation and the NoC topology of a NoC pod) and runs each group as
-one batched `_sweep_batched` call;
-at trace fidelity that is one replay-kernel launch per group, and with
-the layout stage on one bank-conflict-kernel launch per group. The
+`Study.run` groups the `fast` and `trace` cells by the static sweep
+flavor (workload, fidelity, dataflow, word size, the DramConfig at trace
+fidelity, the core grid, the layout config when the layout stage is on,
+the sparse representation and the NoC topology of a NoC pod) and runs
+each group as one batched `_sweep_batched` call; at trace fidelity that
+is one replay-kernel launch per group, and with the layout stage on one
+bank-conflict-kernel launch per group. Every `cycle` cell, every cell of
+a `force_fallback` study (the per-op oracle the parity tests hold the
+batched sweep against) and every cell of a custom evaluator runs on its
+own through the per-op engine (`core.engine.simulate_network`: one
+replay launch per gemm op at `cycle`/`trace`, one conflict launch per
+gemm op with layout on). A cell whose evaluation raises anything but
+`ValueError` becomes a failed cell (`cell_status = 1.0`, NaN metrics);
+a `ValueError` (an invalid configuration) propagates. Nothing reruns
+elsewhere.
+
+A content-hash keyed on-disk cache (`Study.cache`) makes a rerun execute
+only changed cells; `to_spec`/`from_spec` are the wire format and
+`_execute_cells` + `assemble_frame` the unit of work of a farm. The
 paper's analyses ship as named studies with machine-checkable claims
 (`studies.edp_array_size`, `studies.dataflow_dram_flip`,
-`studies.sparse_speedup`, `studies.nop_bound`).
+`studies.sparse_speedup`, `studies.multicore_contention`,
+`studies.nop_bound`). CLI:
 
-Custom evaluators (`Study.evaluator`) run one cell at a time, outside the
-batched groups; the named study `multicore_contention` is one.
-
-Not in this slice: the on-disk cell cache, `force_fallback`, the farm
-wire format (`to_spec`), `concat`/`topk` and the CLI.
+    PYTHONPATH=src python -m repro_torch.api --study edp_array_size \
+        --smoke --device cpu --csv STUDY_edp_array_size.csv
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
+import tempfile
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -40,7 +54,9 @@ from ..core import stages as st
 from ..core.accelerator import AcceleratorConfig, DramConfig
 from ..core.energy import DEFAULT_ERT, ERT, edp as _edp
 from ..core.engine import (ENERGY_GROUP_COLUMNS, RESULT_SCHEMA_VERSION,
+                           energy_group_totals, simulate_network,
                            write_csv_table)
+from ..core.replay import resolve_device
 from ..core.workloads import Op
 from ..noc.topology import noc_kind
 from .simulator import _sweep_batched, as_config, as_workload
@@ -68,18 +84,35 @@ def _flag_non_finite(metrics: Dict[str, float]) -> None:
             return
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device a study runs on: CUDA unless the caller asks for the CPU.
-    Never falls back quietly: without a CUDA device, `None` raises."""
-    if device is None:
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; this study runs on the GPU by "
-            "default. Pass device='cpu' to run the plain PyTorch version "
-            "on the CPU.")
-    return device
+def _code_digest(code) -> str:
+    """Process-stable digest of a code object: bytecode + literal
+    constants (recursing into nested code objects, whose default reprs
+    embed memory addresses) + referenced names."""
+    h = hashlib.sha256(code.co_code)
+    for const in code.co_consts:
+        if hasattr(const, "co_code"):
+            h.update(_code_digest(const).encode())
+        else:
+            h.update(repr(const).encode())
+    h.update(repr(code.co_names).encode())
+    return h.hexdigest()
+
+
+def _atomic_write_json(path: str, obj) -> None:
+    """Write `obj` as JSON to a private temp file in `path`'s directory,
+    then `os.replace` it into place: a reader (or a process racing on the
+    same file) sees no file or a complete one, never a torn write."""
+    d = os.path.dirname(path) or "."
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, prefix=os.path.basename(path),
+                               suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump(obj, f)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 # --------------------------------------------------------------------------
@@ -112,8 +145,12 @@ class BatchGroup:
 @dataclasses.dataclass
 class StudyPlan:
     cells: List[StudyCell]
-    groups: List[BatchGroup]
-    per_cell: List[int] = dataclasses.field(default_factory=list)
+    groups: List[BatchGroup]          # batched cells, by sweep flavor
+    fallback: List[int]               # per-op engine and evaluator cells
+
+    @property
+    def n_batched(self) -> int:
+        return sum(len(g.cells) for g in self.groups)
 
     def __len__(self) -> int:
         return len(self.cells)
@@ -128,20 +165,27 @@ class StudyResult:
 
     Axis columns (`design`, `workload`, `fidelity`) are object arrays of
     labels; metric columns are float64; `batched` is 1.0 for a cell of
-    the batched sweep and 0.0 for an evaluator's cell; `cell_status` is
-    1.0 for failed cells (an evaluator that raised, or non-finite
-    canonical metrics), which `argbest`/`pareto` never pick.
-    `meta["engine"]` names the replay engine that ran ("cuda",
-    "torch:plain" or "reference") when a fidelity replayed DRAM streams.
+    the batched sweep and 0.0 for a per-op or evaluator cell;
+    `cell_status` is 1.0 for failed cells (the evaluation raised, or
+    non-finite canonical metrics), whose metric columns read NaN: `ok()`
+    drops them, `failed_cells` lists them, `argbest`/`pareto`/`topk`
+    never pick them. `meta["engine"]` names the replay engine that ran
+    ("cuda", "torch:plain" or "reference") when a fidelity replayed DRAM
+    streams, `meta["device"]` the device.
     """
 
+    # every in-process frame speaks the current schema; concat() checks
+    # it so frames of another schema never mix silently
     schema_version = RESULT_SCHEMA_VERSION
 
     def __init__(self, columns: Dict[str, np.ndarray],
                  axes: Dict[str, List[str]], *,
+                 executed_cells: int = 0, cache_hits: int = 0,
                  claims: Optional[List[Tuple[str, Callable]]] = None):
         self.columns = columns
         self.axes = axes
+        self.executed_cells = executed_cells
+        self.cache_hits = cache_hits
         self._claims = list(claims or [])
         self.meta: Dict[str, object] = {}
 
@@ -165,6 +209,22 @@ class StudyResult:
     def row(self, i: int) -> Dict[str, object]:
         return {k: (str(v[i]) if k in AXIS_COLUMNS else float(v[i]))
                 for k, v in self.columns.items()}
+
+    def rows(self) -> List[Dict[str, object]]:
+        return [self.row(i) for i in range(len(self))]
+
+    def equals(self, other: "StudyResult") -> bool:
+        """Same columns, axes and values bit for bit; NaN in the same
+        place counts as equal (a failed cell replays as the same failed
+        cell)."""
+        def _eq(a: np.ndarray, b: np.ndarray) -> bool:
+            if a.dtype.kind == "f" and b.dtype.kind == "f":
+                return np.array_equal(a, b, equal_nan=True)
+            return np.array_equal(a, b)
+        return (list(self.columns) == list(other.columns)
+                and self.axes == other.axes
+                and all(_eq(self.columns[k], other.columns[k])
+                        for k in self.columns))
 
     # ---- relational ops ----------------------------------------------------
     def _subset(self, mask: np.ndarray) -> "StudyResult":
@@ -208,10 +268,17 @@ class StudyResult:
 
     @property
     def failed_cells(self) -> List[int]:
+        """Row indices of failed cells (`cell_status == 1`)."""
         if "cell_status" not in self.columns:
             return []
         return [int(i) for i in
                 np.nonzero(self.columns["cell_status"] == 1.0)[0]]
+
+    def ok(self) -> "StudyResult":
+        """Subframe of the healthy rows only (drops failed cells)."""
+        if "cell_status" not in self.columns:
+            return self
+        return self._subset(self.columns["cell_status"] != 1.0)
 
     def argbest(self, metric: str = "edp") -> int:
         """Row index minimizing `metric`; NaN rows never win, and an all-NaN
@@ -246,6 +313,67 @@ class StudyResult:
             if dominated.any():
                 keep[i] = False
         return self._subset(keep)
+
+    def topk(self, metric: str, k: int) -> "StudyResult":
+        """The `k` lowest-`metric` rows as a subframe, sorted ascending
+        (stable: row order breaks ties). Rows with a non-finite value never
+        place, so the subframe may hold fewer than `k` rows."""
+        if k < 0:
+            raise ValueError(f"topk k must be >= 0, got {k}")
+        vals = np.asarray(self[metric], dtype=float)
+        finite = np.isfinite(vals)
+        order = np.argsort(np.where(finite, vals, np.inf), kind="stable")
+        return self._subset(order[:min(int(k), int(finite.sum()))])
+
+    @staticmethod
+    def concat(frames: Sequence["StudyResult"]) -> "StudyResult":
+        """Row-concatenate frames. Columns are the union in first-seen
+        order (a metric missing from a frame fills with NaN); axis columns
+        must be in every frame; axis vocabularies merge in first-seen
+        order; every frame must carry the current schema version. Claims
+        and meta do not propagate; executed/cache-hit counts sum."""
+        frames = list(frames)
+        if not frames:
+            raise ValueError("concat() needs at least one frame")
+        for f in frames:
+            if getattr(f, "schema_version", None) != RESULT_SCHEMA_VERSION:
+                raise ValueError(
+                    f"cannot concat frame with schema_version "
+                    f"{getattr(f, 'schema_version', None)!r} != supported "
+                    f"{RESULT_SCHEMA_VERSION}")
+        names: List[str] = []
+        for f in frames:
+            for c in f.column_names():
+                if c not in names:
+                    names.append(c)
+        cols: Dict[str, np.ndarray] = {}
+        for c in names:
+            if c in AXIS_COLUMNS:
+                missing = [i for i, f in enumerate(frames)
+                           if c not in f.columns]
+                if missing:
+                    raise ValueError(
+                        f"axis column {c!r} missing from concat frame(s) "
+                        f"{missing}")
+                cols[c] = np.concatenate(
+                    [np.asarray(f.columns[c], dtype=object)
+                     for f in frames])
+            else:
+                cols[c] = np.concatenate(
+                    [np.asarray(f.columns[c], dtype=np.float64)
+                     if c in f.columns
+                     else np.full(len(f), np.nan) for f in frames])
+        axes: Dict[str, List[str]] = {}
+        for f in frames:
+            for a, vocab in f.axes.items():
+                dst = axes.setdefault(a, [])
+                for v in vocab:
+                    if v not in dst:
+                        dst.append(v)
+        return StudyResult(
+            cols, axes,
+            executed_cells=sum(f.executed_cells for f in frames),
+            cache_hits=sum(f.cache_hits for f in frames))
 
     def compare(self, metric: str, *, axis: str,
                 baseline: str) -> Dict[str, np.ndarray]:
@@ -286,6 +414,25 @@ class StudyResult:
         return all(claims.values())
 
     # ---- serialization (schema shared with the reference) -------------------
+    def to_json(self) -> str:
+        cols = {k: ([str(x) for x in v] if k in AXIS_COLUMNS
+                    else [float(x) for x in v])
+                for k, v in self.columns.items()}
+        return json.dumps({"schema_version": RESULT_SCHEMA_VERSION,
+                           "axes": self.axes, "columns": cols}, indent=1)
+
+    @classmethod
+    def from_json(cls, s: str) -> "StudyResult":
+        d = json.loads(s)
+        if d.get("schema_version") != RESULT_SCHEMA_VERSION:
+            raise ValueError(
+                f"study frame schema_version {d.get('schema_version')!r} "
+                f"!= supported {RESULT_SCHEMA_VERSION}")
+        cols = {k: (np.array(v, dtype=object) if k in AXIS_COLUMNS
+                    else np.asarray(v, dtype=np.float64))
+                for k, v in d["columns"].items()}
+        return cls(cols, {a: list(v) for a, v in d["axes"].items()})
+
     def to_csv(self, path: str) -> None:
         names = list(self.columns)
         rows = [[(str(self.columns[c][i]) if c in AXIS_COLUMNS
@@ -310,25 +457,52 @@ class StudyResult:
                 if a in cols}
         return cls(cols, axes)
 
+    def summary(self) -> str:
+        lines = [f"{len(self)} cells | axes: "
+                 + "; ".join(f"{a}={list(v)}" for a, v in self.axes.items())]
+        metrics = [c for c in self.columns
+                   if c not in AXIS_COLUMNS
+                   and c not in ("batched", "cell_status")]
+        failed = set(self.failed_cells)
+        for i in range(len(self)):
+            tag = " ".join(str(self.columns[a][i]) for a in AXIS_COLUMNS
+                           if a in self.columns)
+            if i in failed:
+                lines.append(f"  {tag}: FAILED")
+                continue
+            vals = " ".join(f"{m}={float(self.columns[m][i]):.4g}"
+                            for m in metrics[:6])
+            lines.append(f"  {tag}: {vals}")
+        return "\n".join(lines)
+
 
 # --------------------------------------------------------------------------
 # The Study builder
 # --------------------------------------------------------------------------
 
 class Study:
-    """Declarative cross-product experiment plan (builder pattern)."""
+    """Declarative cross-product experiment plan (builder pattern): every
+    setter returns `self`; `run` compiles the plan, executes it and
+    returns a `StudyResult`."""
 
     def __init__(self, name: str = "study"):
         self.name = name
         self._designs: List[Tuple[str, AcceleratorConfig]] = []
         self._workloads: Dict[str, List[Op]] = {}
         self._fidelities: Tuple[str, ...] = ("fast",)
+        self._metrics: Optional[Tuple[str, ...]] = None
         self._ert: ERT = DEFAULT_ERT
         self._engine: Optional[str] = None
         self._spec = None
         self._core_index: int = 0
+        self._force_fallback: bool = False
+        self._cache_dir: Optional[str] = None
         self._evaluator: Optional[Callable] = None
         self._claims: List[Tuple[str, Callable]] = []
+        # registry provenance ({"study": name, "kwargs": {...}}), set by
+        # get_study: to_spec serializes a registry study by reference, so
+        # its claims and evaluator survive the round trip
+        self._ref: Optional[Dict[str, object]] = None
 
     # ---- axes --------------------------------------------------------------
     def designs(self, configs, labels: Optional[Sequence[str]] = None
@@ -408,21 +582,24 @@ class Study:
         return self
 
     # ---- options -----------------------------------------------------------
+    def metrics(self, *names: str) -> "Study":
+        """Restrict the frame's metric columns (axis columns, `batched` and
+        `cell_status` always kept). Aliases: latency/cycles ->
+        total_cycles, energy -> energy_pj."""
+        self._metrics = tuple(_METRIC_ALIASES.get(n, n) for n in names)
+        return self
+
     def options(self, *, ert: Optional[ERT] = None,
                 engine: Optional[str] = None, trace_spec=None,
                 core_index: Optional[int] = None,
                 force_fallback: Optional[bool] = None) -> "Study":
-        """Execution knobs shared by every cell, with the reference's
-        keywords: the energy table, the replay engine
-        (`core.replay.ENGINES`), the trace spec and the core a
-        heterogeneous mesh is analysed through. `force_fallback=True`
-        needs the per-op engine and is refused."""
+        """Execution knobs shared by every cell: the energy table, the
+        replay engine (`core.replay.ENGINES`), the trace spec, the core a
+        heterogeneous mesh is analysed through, and `force_fallback`: run
+        every cell through the per-op engine instead of the batched sweep
+        (the differential-parity reference; same result contract, no
+        batching)."""
         from ..core import replay as _rp
-        if force_fallback:
-            raise NotImplementedError(
-                "force_fallback runs every cell through the per-op engine, "
-                "which comes with module item 8 of the PyTorch port "
-                "(ROADMAP.md)")
         if ert is not None:
             self._ert = ert
         if engine is not None:
@@ -431,18 +608,27 @@ class Study:
             self._spec = trace_spec
         if core_index is not None:
             self._core_index = int(core_index)
+        if force_fallback is not None:
+            self._force_fallback = bool(force_fallback)
+        return self
+
+    def cache(self, path: str) -> "Study":
+        """Content-hash keyed on-disk cell cache: a rerun executes only the
+        cells whose (config, ops, fidelity, ERT, engine, spec, core,
+        force_fallback, evaluator, device type) content changed."""
+        self._cache_dir = path
         return self
 
     def evaluator(self, fn: Callable) -> "Study":
-        """Custom per-cell evaluator replacing the batched sweep (e.g. the
-        multi-core contention study). The port calls it as
+        """Custom per-cell evaluator replacing the simulation pipeline (e.g.
+        the multi-core contention study). The port calls it as
         `fn(config, ops, fidelity, device=device)`: the reference's
         `(config, ops, fidelity)` plus the device the study runs on, which
         the port makes explicit. Its cells run one at a time
-        (`batched = 0.0`); a cell whose evaluator raises anything but
-        `ValueError` becomes a failed cell (`cell_status = 1.0`), while a
-        `ValueError` (an invalid configuration) propagates. The reference's
-        content-hash cell cache is not ported (module item 8)."""
+        (`batched = 0.0`) and cache, keyed by the study name, the
+        evaluator's qualname and a digest of its code (closure state is not
+        hashed: give studies whose evaluators differ only there distinct
+        names or cache directories)."""
         self._evaluator = fn
         return self
 
@@ -451,6 +637,87 @@ class Study:
         via `StudyResult.check_claims()`."""
         self._claims.append((name, fn))
         return self
+
+    # ---- wire format -----------------------------------------------------------
+    def to_spec(self) -> dict:
+        """JSON-serializable description of this study. A registry study
+        (built via `get_study` or `studies.*`) serializes as a reference,
+        rebuilt through the registry with its claims and evaluator; an
+        ad-hoc study serializes inline (designs, workloads, fidelities,
+        options), without claims, and refuses a custom evaluator."""
+        if self._ref is not None:
+            try:
+                json.dumps(self._ref["kwargs"])
+            except TypeError as e:
+                raise ValueError(
+                    "registry study kwargs must be JSON-serializable to "
+                    "travel as a spec; rebuild the study with plain "
+                    "kwargs or use an inline (non-registry) study") from e
+            return {"kind": "study_spec",
+                    "schema_version": RESULT_SCHEMA_VERSION,
+                    "ref": {"study": self._ref["study"],
+                            "kwargs": dict(self._ref["kwargs"])}}
+        if self._evaluator is not None:
+            raise ValueError(
+                "a custom evaluator is not serializable; register the "
+                "study (register_study) and build it by name")
+        return {
+            "kind": "study_spec",
+            "schema_version": RESULT_SCHEMA_VERSION,
+            "ref": None,
+            "name": self.name,
+            "designs": [[label, cfg.to_dict()]
+                        for label, cfg in self._designs],
+            "workloads": {
+                name: [[o.name, o.M, o.N, o.K, o.count, o.kind,
+                        o.vector_elems,
+                        list(o.sparsity_nm) if o.sparsity_nm else None]
+                       for o in ops]
+                for name, ops in self._workloads.items()},
+            "fidelities": list(self._fidelities),
+            "metrics": (list(self._metrics)
+                        if self._metrics is not None else None),
+            "ert": dataclasses.asdict(self._ert),
+            "engine": self._engine,
+            "trace_spec": (dataclasses.asdict(self._spec)
+                           if self._spec is not None else None),
+            "core_index": self._core_index,
+            "force_fallback": self._force_fallback,
+        }
+
+    @classmethod
+    def from_spec(cls, d: dict) -> "Study":
+        """Rebuild a study from `to_spec()` output (reference specs through
+        the registry, inline specs field by field); cell hashes survive the
+        round trip."""
+        if not isinstance(d, dict) or d.get("kind") != "study_spec":
+            raise ValueError("not a study spec (missing kind=study_spec)")
+        if d.get("schema_version") != RESULT_SCHEMA_VERSION:
+            raise ValueError(
+                f"study spec schema_version {d.get('schema_version')!r} "
+                f"!= supported {RESULT_SCHEMA_VERSION}")
+        if d.get("ref"):
+            return get_study(d["ref"]["study"], **d["ref"].get("kwargs", {}))
+        s = cls(d.get("name", "study"))
+        s._designs = [(str(label), AcceleratorConfig.from_dict(cfg))
+                      for label, cfg in d["designs"]]
+        s._workloads = {
+            name: [Op(o[0], int(o[1]), int(o[2]), int(o[3]), float(o[4]),
+                      o[5], float(o[6]),
+                      tuple(int(x) for x in o[7]) if o[7] else None)
+                   for o in ops]
+            for name, ops in d["workloads"].items()}
+        s._fidelities = tuple(d["fidelities"])
+        if d.get("metrics") is not None:
+            s._metrics = tuple(d["metrics"])
+        s._ert = ERT(**d["ert"])
+        s._engine = d.get("engine")
+        if d.get("trace_spec") is not None:
+            from ..trace.generator import TraceSpec
+            s._spec = TraceSpec(**d["trace_spec"])
+        s._core_index = int(d.get("core_index", 0))
+        s._force_fallback = bool(d.get("force_fallback", False))
+        return s
 
     # ---- plan + run --------------------------------------------------------
     def _spec_for(self, fidelity: str):
@@ -464,29 +731,26 @@ class Study:
     def plan(self) -> StudyPlan:
         """Compile the cross-product into cells + batchable groups. Cell
         order (= frame row order): fidelity-major, then workload, design
-        fastest. With an evaluator every cell runs on its own (`per_cell`)
-        and no group is formed. Every design of the batched sweep, NoC
-        pods included, runs in a group; only `cycle` fidelity without an
-        evaluator is refused (NotImplementedError)."""
+        fastest. `fast` and `trace` cells form groups; `cycle` cells, the
+        cells of a `force_fallback` study and evaluator cells go to
+        `fallback`, run one at a time."""
         if not self._designs:
             raise ValueError("Study has no designs; call .designs(...)")
         if not self._workloads:
             raise ValueError("Study has no workloads; call .workloads(...)")
-        if "cycle" in self._fidelities and self._evaluator is None:
-            raise NotImplementedError(
-                "'cycle' fidelity runs through the per-op engine, which "
-                "comes with module item 8 of the PyTorch port (ROADMAP.md)")
         cells: List[StudyCell] = []
         for fid in self._fidelities:
             for wname in self._workloads:
                 for label, cfg in self._designs:
                     cells.append(StudyCell(len(cells), label, wname, fid,
                                            cfg))
-        if self._evaluator is not None:
-            return StudyPlan(cells=cells, groups=[],
-                             per_cell=[c.index for c in cells])
         by_key: Dict[tuple, List[int]] = {}
+        fallback: List[int] = []
         for c in cells:
+            if (self._evaluator is not None or self._force_fallback
+                    or c.fidelity == "cycle"):
+                fallback.append(c.index)
+                continue
             cfg = c.config
             key = (c.workload, c.fidelity, cfg.dataflow,
                    cfg.memory.word_bytes,
@@ -504,56 +768,251 @@ class Study:
             by_key.setdefault(key, []).append(c.index)
         groups = [BatchGroup(*key[:5], cells=idxs)
                   for key, idxs in by_key.items()]
-        return StudyPlan(cells=cells, groups=groups)
+        return StudyPlan(cells=cells, groups=groups, fallback=fallback)
 
-    def run(self, *, device=None) -> StudyResult:
-        """Execute the plan on `device` (CUDA by default; pass "cpu" for
-        the plain PyTorch version) and return the columnar frame."""
+    def _cell_hash(self, cell: StudyCell, device) -> str:
+        """The cell's cache key: everything its metrics depend on, plus the
+        package (this port and the JAX package agree only to 1e-3, so
+        their cells never alias in a shared directory) and the device
+        type (the card's kernels and their plain versions agree to 1e-3
+        too)."""
         from ..core import replay as _rp
+        spec = self._spec_for(cell.fidelity)
+        payload = {
+            "package": "repro_torch",
+            "device": torch.device(device).type,
+            "schema_version": RESULT_SCHEMA_VERSION,
+            "config": cell.config.to_dict(),
+            "ops": [(o.name, o.M, o.N, o.K, o.count, o.kind,
+                     o.vector_elems, o.sparsity_nm)
+                    for o in self._workloads[cell.workload]],
+            "fidelity": cell.fidelity,
+            "ert": dataclasses.asdict(self._ert),
+            "engine": _rp.resolve_engine(self._engine),
+            "spec": dataclasses.asdict(spec) if spec is not None else None,
+            "core_index": self._core_index,
+            # the per-op oracle and the batched sweep agree only to 1e-3:
+            # their cells never alias
+            "force_fallback": self._force_fallback,
+            "evaluator": self._evaluator_key(),
+        }
+        blob = json.dumps(payload, sort_keys=True, default=str)
+        return hashlib.sha256(blob.encode()).hexdigest()
+
+    def _evaluator_key(self):
+        """Cache identity of a custom evaluator: study name + qualname +
+        a digest of the code object (see `evaluator()`)."""
+        fn = self._evaluator
+        if fn is None:
+            return None
+        code = getattr(fn, "__code__", None)
+        return [self.name, getattr(fn, "__qualname__", repr(fn)),
+                _code_digest(code) if code is not None else None]
+
+    def _cache_load(self, cache_dir: str, h: str
+                    ) -> Optional[Dict[str, float]]:
+        """Load one cached cell; anything unreadable (corrupt, truncated,
+        wrong-shaped or of another schema) is a miss, never a crash."""
+        path = os.path.join(cache_dir, h + ".json")
+        try:
+            with open(path) as f:
+                d = json.load(f)
+            if d.get("schema_version") != RESULT_SCHEMA_VERSION:
+                return None
+            return {k: float(v) for k, v in d["metrics"].items()}
+        except (OSError, ValueError, KeyError, TypeError, AttributeError):
+            return None
+
+    def _cache_store(self, cache_dir: str, h: str,
+                     metrics: Dict[str, float]) -> None:
+        """Multi-process-safe store (temp file + `os.replace`): racing
+        writers of one cell write the same content, so the last replace
+        wins harmlessly."""
+        _atomic_write_json(
+            os.path.join(cache_dir, h + ".json"),
+            {"schema_version": RESULT_SCHEMA_VERSION, "study": self.name,
+             "metrics": metrics})
+
+    def run(self, *, device=None, cache: Optional[str] = None
+            ) -> StudyResult:
+        """Execute the plan on `device` (CUDA by default; pass "cpu" for the
+        plain PyTorch version) and return the columnar frame. cache:
+        overrides the builder's cache directory for this run only."""
         device = resolve_device(device)
+        cache_dir = cache if cache is not None else self._cache_dir
         plan = self.plan()
+        results, executed, hits = self._execute_cells(
+            plan, cache_dir=cache_dir, device=device)
+        return self._frame(plan.cells,
+                           [results[i] for i in range(len(plan.cells))],
+                           executed, hits, device)
+
+    def _per_op_metrics(self, cell: StudyCell, ops: Sequence[Op],
+                        pipelines: Dict[str, tuple], device
+                        ) -> Dict[str, float]:
+        """One cell through the per-op engine (one pipeline per fidelity,
+        built once per run), with the NoC columns on a NoC pod."""
+        if cell.fidelity not in pipelines:
+            pipelines[cell.fidelity] = st.build_pipeline(
+                cell.fidelity, core_index=self._core_index,
+                trace_spec=self._spec_for(cell.fidelity),
+                engine=self._engine, device=device)
+        rep = simulate_network(cell.config, ops, ert=self._ert,
+                               pipeline=pipelines[cell.fidelity])
+        m = dict(total_cycles=rep.total_cycles,
+                 compute_cycles=rep.compute_cycles,
+                 stall_cycles=rep.stall_cycles, dram_bytes=rep.dram_bytes,
+                 energy_pj=rep.energy_pj, utilization=rep.utilization,
+                 edp=rep.edp, **energy_group_totals(rep.energy_breakdown))
+        if noc_kind(cell.config) is not None:
+            m["noc_stall_cycles"] = rep.noc_stall_cycles
+            m["noc_link_util"] = max(
+                (o.noc_stats or {}).get("noc_link_util", 0.0)
+                for o in rep.ops)
+            m["allreduce_cycles"] = sum(
+                (o.noc_stats or {}).get("allreduce_cycles", 0.0) * op.count
+                for o, op in zip(rep.ops, ops))
+        return m
+
+    def _execute_cells(self, plan: StudyPlan,
+                       indices: Optional[Sequence[int]] = None, *,
+                       cache_dir: Optional[str] = None, device=None
+                       ) -> Tuple[Dict[int, Dict[str, float]], int, int]:
+        """Execute a subset of the plan's cells (default: all of them) on
+        `device` (CUDA unless the caller asks for the CPU).
+
+        Returns ({cell_index: metrics}, executed_cells, cache_hits): the
+        unit of work of a farm worker, one shard's cell indices against a
+        shared cache directory. A batched group's selected, cache-missing
+        cells still run as one `_sweep_batched` call; each design's
+        values do not depend on which others share the call.
+
+        Failure semantics: a group or cell whose evaluation raises, or
+        whose canonical metrics come back NaN (or +-Inf), becomes failed
+        cells (`cell_status = 1.0`, NaN metrics in the frame); nothing is
+        rerun elsewhere. `ValueError` marks an invalid configuration and
+        propagates. Completed cells land in the cache as they finish (a
+        killed run resumes from its last completed cell); failed cells
+        are never cached.
+        """
+        device = resolve_device(device)
+        if indices is None:
+            sel = set(range(len(plan.cells)))
+        else:
+            sel = {int(i) for i in indices}
+            bad = sel - set(range(len(plan.cells)))
+            if bad:
+                raise IndexError(f"cell indices {sorted(bad)} outside the "
+                                 f"{len(plan.cells)}-cell plan")
         results: Dict[int, Dict[str, float]] = {}
+        hashes: Dict[int, str] = {}
+        hits = executed = 0
+        if cache_dir is not None:
+            for i in sorted(sel):
+                hashes[i] = self._cell_hash(plan.cells[i], device)
+                got = self._cache_load(cache_dir, hashes[i])
+                if got is not None:
+                    results[i] = got
+                    hits += 1
+        loaded = set(results)
+
+        def finish(i: int, m: Dict[str, float]) -> None:
+            nonlocal executed
+            results[i] = m
+            _flag_non_finite(m)
+            executed += 1
+            # best effort: a full disk must not fail a computed cell
+            if (cache_dir is not None and i not in loaded
+                    and not m.get("cell_status")):
+                try:
+                    self._cache_store(cache_dir, hashes[i], m)
+                except OSError:
+                    pass
+
         for grp in plan.groups:
-            vals = _sweep_batched(
-                [plan.cells[i].config for i in grp.cells],
-                self._workloads[grp.workload], grp.dataflow, grp.word_bytes,
-                self._ert, dram=grp.dram, spec=self._spec_for(grp.fidelity),
-                engine=self._engine, device=device,
-                core_index=self._core_index)
-            vals["edp"] = _edp(vals["energy_pj"], vals["total_cycles"])
-            for j, i in enumerate(grp.cells):
-                results[i] = {k: float(v[j]) for k, v in vals.items()}
-                results[i]["batched"] = 1.0
-                _flag_non_finite(results[i])
-        for i in plan.per_cell:
-            cell = plan.cells[i]
+            miss = [i for i in grp.cells if i in sel and i not in results]
+            if not miss:
+                continue
             try:
-                m = {k: float(v) for k, v in self._evaluator(
-                    cell.config, self._workloads[cell.workload],
-                    cell.fidelity, device=device).items()}
+                vals = _sweep_batched(
+                    [plan.cells[i].config for i in miss],
+                    self._workloads[grp.workload], grp.dataflow,
+                    grp.word_bytes, self._ert, dram=grp.dram,
+                    spec=self._spec_for(grp.fidelity), engine=self._engine,
+                    device=device, core_index=self._core_index)
+                vals["edp"] = _edp(vals["energy_pj"], vals["total_cycles"])
+            except ValueError:
+                raise    # invalid configuration: loud, never a failed cell
+            except Exception:  # noqa: BLE001 -- the group fails, study lives
+                for i in miss:
+                    results[i] = {"batched": 1.0, "cell_status": 1.0}
+                continue
+            for j, i in enumerate(miss):
+                m = {k: float(v[j]) for k, v in vals.items()}
+                m["batched"] = 1.0
+                finish(i, m)
+
+        pipelines: Dict[str, tuple] = {}
+        for i in plan.fallback:
+            if i not in sel or i in results:
+                continue
+            cell = plan.cells[i]
+            ops = self._workloads[cell.workload]
+            try:
+                if self._evaluator is not None:
+                    m = {k: float(v) for k, v in self._evaluator(
+                        cell.config, ops, cell.fidelity,
+                        device=device).items()}
+                else:
+                    m = self._per_op_metrics(cell, ops, pipelines, device)
             except ValueError:
                 raise    # invalid configuration: loud, never a failed cell
             except Exception:  # noqa: BLE001 -- one bad cell, study lives
-                m = {"cell_status": 1.0}
+                results[i] = {"batched": 0.0, "cell_status": 1.0}
+                continue
             m["batched"] = 0.0
-            results[i] = m
-            _flag_non_finite(results[i])
-        res = self._frame(plan.cells, [results[i]
-                                       for i in range(len(plan.cells))])
-        if any(f in ("trace", "cycle") for f in self._fidelities):
-            res.meta["engine"] = _rp.resolve_engine_runtime(self._engine,
-                                                            device)
-        res.meta["device"] = str(device)
-        return res
+            finish(i, m)
+        return results, executed, hits
+
+    def assemble_frame(self, results: Dict[int, Dict[str, float]], *,
+                       executed_cells: int = 0, cache_hits: int = 0,
+                       plan: Optional[StudyPlan] = None,
+                       partial: bool = False, device=None) -> StudyResult:
+        """Build the frame from per-cell metric dicts keyed by plan index
+        (a farm client's reassembly), through the code `run()` uses, so
+        with every cell present the frame equals a local run's. `device`
+        is where the cells ran (it labels `meta`). `partial=True` permits
+        missing cells and returns the completed rows only."""
+        device = resolve_device(device)
+        plan = self.plan() if plan is None else plan
+        have = sorted(int(i) for i in results)
+        if not partial:
+            missing = sorted(set(range(len(plan.cells))) - set(have))
+            if missing:
+                raise ValueError(
+                    f"{len(missing)} cells missing (e.g. {missing[:4]}); "
+                    f"pass partial=True for an incremental frame")
+        return self._frame([plan.cells[i] for i in have],
+                           [results[i] for i in have],
+                           executed_cells, cache_hits, device)
 
     def _frame(self, cells: Sequence[StudyCell],
-               results: List[Dict[str, float]]) -> StudyResult:
+               results: List[Dict[str, float]], executed: int, hits: int,
+               device) -> StudyResult:
+        from ..core import replay as _rp
         metric_names = [m for m in METRIC_COLUMNS
                         if any(m in r for r in results)]
-        # an evaluator's own metrics follow the canonical ones, sorted
+        # other metrics (an evaluator's own, the NoC columns) follow the
+        # canonical ones, sorted
         metric_names += sorted({k for r in results for k in r}
                                - set(metric_names)
                                - {"batched", "cell_status"})
+        if self._metrics is not None:
+            missing = set(self._metrics) - set(metric_names)
+            if missing:
+                raise KeyError(f"metrics not produced by this study: "
+                               f"{sorted(missing)}")
+            metric_names = [m for m in metric_names if m in self._metrics]
         cols: Dict[str, np.ndarray] = {
             "design": np.array([c.design for c in cells], dtype=object),
             "workload": np.array([c.workload for c in cells], dtype=object),
@@ -569,7 +1028,13 @@ class Study:
         axes = {"design": [l for l, _ in self._designs],
                 "workload": list(self._workloads),
                 "fidelity": list(self._fidelities)}
-        return StudyResult(cols, axes, claims=self._claims)
+        res = StudyResult(cols, axes, executed_cells=executed,
+                          cache_hits=hits, claims=self._claims)
+        if any(f in ("trace", "cycle") for f in self._fidelities):
+            res.meta["engine"] = _rp.resolve_engine_runtime(self._engine,
+                                                            device)
+        res.meta["device"] = str(device)
+        return res
 
 
 # --------------------------------------------------------------------------
@@ -593,7 +1058,11 @@ def get_study(name: str, **kw) -> Study:
     if name not in _STUDIES:
         raise KeyError(f"unknown study {name!r}; "
                        f"available: {sorted(_STUDIES)}")
-    return _STUDIES[name](**kw)
+    s = _STUDIES[name](**kw)
+    # registry provenance: lets Study.to_spec serialize by reference, so
+    # the rebuilt study keeps its claims and evaluator
+    s._ref = {"study": name, "kwargs": dict(kw)}
+    return s
 
 
 def list_studies() -> List[str]:
@@ -605,7 +1074,13 @@ class _StudyNamespace:
 
     def __getattr__(self, name: str) -> Callable[..., Study]:
         if name in _STUDIES:
-            return _STUDIES[name]
+            # through get_study, so the study carries its provenance
+            import functools
+
+            @functools.wraps(_STUDIES[name])
+            def factory(**kw) -> Study:
+                return get_study(name, **kw)
+            return factory
         raise AttributeError(f"no study {name!r}; "
                              f"available: {sorted(_STUDIES)}")
 
@@ -862,3 +1337,50 @@ def nop_bound(smoke: bool = False) -> Study:
     s.claim("all_cells_batched",
             lambda r: r.fraction_batched == 1.0)
     return s
+
+
+# --------------------------------------------------------------------------
+# CLI: run a named study, print the frame + claims, emit CSV/JSON
+# --------------------------------------------------------------------------
+
+def _main(argv: Optional[Sequence[str]] = None) -> int:
+    """`python -m repro_torch.api`: the reference's CLI plus `--device`
+    (the search studies and their `--search-log` are not ported)."""
+    import argparse
+    import inspect
+    ap = argparse.ArgumentParser(
+        description="Run a named study (repro_torch.api.study registry)")
+    ap.add_argument("--study", required=True, choices=list_studies())
+    ap.add_argument("--smoke", action="store_true",
+                    help="shrink the study where the factory supports it")
+    ap.add_argument("--device", default="cuda",
+                    help="where the study runs (default cuda; cpu runs the "
+                         "kernels' plain versions)")
+    ap.add_argument("--csv", help="write the result frame as CSV")
+    ap.add_argument("--json", dest="json_out",
+                    help="write the result frame as JSON")
+    ap.add_argument("--cache", help="on-disk cell-cache directory")
+    args = ap.parse_args(argv)
+
+    kw = {}
+    if args.smoke and "smoke" in inspect.signature(
+            _STUDIES[args.study]).parameters:
+        kw["smoke"] = True
+    study = get_study(args.study, **kw)
+    if args.cache:
+        study.cache(args.cache)
+    res = study.run(device=args.device)
+    print(f"study {args.study}: executed {res.executed_cells} cells "
+          f"({res.cache_hits} cache hits) on {res.meta['device']}")
+    print(res.summary())
+    claims = res.check_claims()
+    for name, ok in claims.items():
+        print(f"claim {'PASS' if ok else 'FAIL'}: {name}")
+    if args.csv:
+        res.to_csv(args.csv)
+        print(f"wrote {args.csv}")
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            f.write(res.to_json())
+        print(f"wrote {args.json_out}")
+    return 0 if all(claims.values()) else 1

@@ -22,7 +22,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from .accelerator import MemoryConfig
+from .accelerator import AcceleratorConfig, MemoryConfig
 
 
 def cdiv(a, b):
@@ -76,6 +76,13 @@ def pe_utilization(dataflow: str, M, N, K, R, C):
     macs = 1.0 * M * N * K
     cyc = compute_cycles(dataflow, M, N, K, R, C)
     return macs / (1.0 * R * C * cyc)
+
+
+def mapping_occupancy(dataflow: str, M, N, K, R, C):
+    """Average fraction of the array occupied by the mapping (edge folds)."""
+    Sr, Sc, T = map_gemm(dataflow, M, N, K)
+    fr, fc = fold_counts(Sr, Sc, R, C)
+    return (1.0 * Sr * Sc) / (1.0 * fr * R * fc * C)
 
 
 def sram_traffic(dataflow: str, M, N, K, R, C) -> Dict[str, torch.Tensor]:
@@ -160,3 +167,29 @@ def dram_stall_cycles_simple(total_bytes, compute_cycles_, bw_bytes_per_cycle):
 def simd_cycles(elements, lanes, latency=1.0):
     """Vector-unit cycles for pointwise/reduction ops (Sec. III-C)."""
     return cdiv(elements, lanes) * latency
+
+
+def gemm_summary(cfg: AcceleratorConfig, M, N, K) -> Dict[str, torch.Tensor]:
+    """Single-core end-to-end summary for one GEMM on core 0 (no DRAM cycle
+    model). M, N, K are numbers or float32 tensors; numbers become float32
+    scalars on the CPU, so every entry is a float32 tensor."""
+    M, N, K = (x if isinstance(x, torch.Tensor)
+               else torch.tensor(float(x), dtype=torch.float32)
+               for x in (M, N, K))
+    core = cfg.cores[0]
+    R, C = core.rows, core.cols
+    df = cfg.dataflow
+    cyc = compute_cycles(df, M, N, K, R, C)
+    sram = sram_traffic(df, M, N, K, R, C)
+    dram = dram_traffic(df, M, N, K, R, C, cfg.memory)
+    wb = cfg.memory.word_bytes
+    dram_bytes = (dram["dram_ifmap"] + dram["dram_filter"]
+                  + dram["dram_ofmap_writes"] + dram["dram_ofmap_reads"]) * wb
+    bw = cfg.dram.bandwidth_bytes_per_cycle * cfg.dram.channels
+    stall = dram_stall_cycles_simple(dram_bytes, cyc, bw)
+    return dict(compute_cycles=cyc,
+                utilization=pe_utilization(df, M, N, K, R, C),
+                dram_bytes=dram_bytes,
+                stall_cycles=stall,
+                total_cycles=cyc + stall,
+                **sram, **dram)

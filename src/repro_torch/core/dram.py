@@ -21,15 +21,21 @@ Engines (`core.replay`): the chunked replay megakernel — the CUDA kernel
 for CUDA tensors, its plain PyTorch version for CPU tensors — and
 `"reference"`, the per-request loop `_reference_scan`, which is the
 semantics oracle the tests hold the chunked replay against.
+
+`simulate_dram` runs a raw (issue time, address, is_write) stream:
+`check_addresses`, `decode_requests`, then `replay_requests`, one kernel
+launch on CUDA tensors. The synthetic stream builders (`linear_trace`,
+`strided_trace`, `tile_prefetch_trace`) build on an explicit device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .accelerator import DramConfig
+from .replay import resolve_device
 
 _ADDR_LIMIT = 2 ** 31
 
@@ -197,3 +203,68 @@ def replay_requests(t_issue, flat_bank, ch, row, is_write, valid,
         hits, misses, conflicts = out["hits"], out["misses"], out["conflicts"]
     return _finalize(ti, valid, done, rt, shift, hits, misses, conflicts,
                      cfg, gran_bytes, busy)
+
+
+def simulate_dram(t_issue: torch.Tensor, addr: torch.Tensor,
+                  is_write: torch.Tensor, cfg: DramConfig,
+                  gran_bytes: int = 64, valid: torch.Tensor = None,
+                  engine: Optional[str] = None,
+                  chunk: Optional[int] = None) -> DramResult:
+    """Run the timing model over request streams (..., n) sorted by
+    t_issue, on the tensors' device.
+
+    gran_bytes: bytes moved per request. valid: optional bool mask;
+    invalid entries are no-ops (no state change, zero latency and bytes).
+    engine: None or "megakernel" for the chunked replay (one kernel
+    launch on CUDA tensors), "reference" for the per-request scan. chunk:
+    requests per chunk of the chunked replay (default 64).
+    """
+    flat_bank, ch, row = decode_requests(addr, cfg)
+    return replay_requests(t_issue, flat_bank, ch, row, is_write, valid,
+                           cfg, gran_bytes, engine=engine, chunk=chunk)
+
+
+def linear_trace(n_requests: int, start_addr: int = 0, gran_bytes: int = 64,
+                 t0: float = 0.0, issue_gap: float = 1.0,
+                 write_every: int = 0, *, device=None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Streaming (prefetch-like) trace: consecutive addresses, steady issue.
+    (t_issue float32, addr int64, is_write bool) on `device` (CUDA unless
+    the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    i = torch.arange(n_requests, dtype=torch.int64, device=dev)
+    t = t0 + issue_gap * i.to(torch.float32)
+    addr = start_addr + i * gran_bytes
+    w = ((i % write_every == write_every - 1) if write_every
+         else torch.zeros_like(i, dtype=torch.bool))
+    return t, addr, w
+
+
+def strided_trace(n_requests: int, stride_bytes: int, gran_bytes: int = 64,
+                  t0: float = 0.0, issue_gap: float = 1.0, *, device=None
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Row-conflict-heavy trace: large strides thrash row buffers."""
+    dev = resolve_device(device)
+    i = torch.arange(n_requests, dtype=torch.int64, device=dev)
+    t = t0 + issue_gap * i.to(torch.float32)
+    return t, i * stride_bytes, torch.zeros_like(i, dtype=torch.bool)
+
+
+def tile_prefetch_trace(tile_bytes: int, n_tiles: int,
+                        compute_per_tile: float, gran_bytes: int = 512,
+                        base: int = 0, ofmap_fraction: float = 0.25, *,
+                        device=None) -> Tuple[torch.Tensor, ...]:
+    """Double-buffered per-fold prefetch: each tile issues
+    tile_bytes / gran requests at the start of its overlap window (one
+    window per fold of `compute_per_tile` cycles); a trailing
+    `ofmap_fraction` of each tile's requests are writes. The whole
+    next-tile prefetch is posted at the window start, so small queues
+    block the producer at once while large ones absorb the burst (Fig.
+    10)."""
+    dev = resolve_device(device)
+    per = max(1, int(tile_bytes) // gran_bytes)
+    i = torch.arange(per * n_tiles, dtype=torch.int64, device=dev)
+    t = (i // per).to(torch.float32) * compute_per_tile
+    addr = base + i * gran_bytes
+    w = (i % per) >= int(per * (1 - ofmap_fraction))
+    return t, addr, w

@@ -38,6 +38,21 @@ def resolve_engine(engine: Optional[str]) -> str:
     return eng
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU. Never falls back quietly: without a CUDA device, `None`
+    raises."""
+    if device is None:
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; this entry point runs on the GPU "
+            "by default. Pass device='cpu' to run the plain PyTorch version "
+            "on the CPU.")
+    return device
+
+
 def resolve_engine_runtime(engine: Optional[str],
                            device: torch.device) -> str:
     """The engine that actually executes on `device`: "cuda" or

@@ -3,8 +3,10 @@ workloads, GEMM-ified: M = filters, N = ofmap pixels, K = im2col window).
 
 The PyTorch port's copy of `repro.core.workloads`: `Op` has the same
 fields, so `Op(**dataclasses.asdict(reference_op))` rebuilds a reference
-op, and every paper workload yields the identical op list. The LM
-extractor (`lm_ops`) belongs to the workload-plane slice and is not here.
+op, and every paper workload yields the identical op list. `lm_ops` turns one
+step of an LM architecture (a duck-typed model config with the
+reference's `ModelConfig` fields) into the same op graph as the
+reference's; the model configs themselves belong to the workload plane.
 
 `Op.count` multiplies identical GEMMs (e.g. per-head attention GEMMs, layer
 repeats); `Op.kind == 'vector'` ops run on the SIMD unit (Sec. III-C).
@@ -159,6 +161,115 @@ def rcnn() -> List[Op]:
 PAPER_WORKLOADS = dict(resnet18=resnet18, alexnet=alexnet, resnet50=resnet50,
                        vit_base=vit_base, vit_small=vit_small,
                        vit_large=vit_large, rcnn=rcnn)
+
+
+# --------------------------------------------------------------------------
+# LM architecture extractor (assigned archs x shape cells)
+# --------------------------------------------------------------------------
+
+def lm_ops(cfg, *, seq: int, batch: int, mode: str = "train",
+           cache_len: Optional[int] = None) -> List[Op]:
+    """Operator graph for one step of an assigned LM architecture.
+
+    cfg: any object with the fields of the reference's `ModelConfig` that
+    are read here (family, d_model, layers, heads, kv_heads, head_dim,
+    d_ff, num_experts, top_k, vocab; attn_window, attn_every, ssm_state
+    where the family uses them). mode: train | prefill | decode.
+    Training multiplies forward GEMMs by 3 (fwd + ~2x bwd, standard
+    GEMM-count accounting); decode uses N = batch (one token each) and
+    attention GEMVs against a cache of `cache_len`.
+    """
+    mult = 3.0 if mode == "train" else 1.0
+    d, L = cfg.d_model, cfg.layers
+    hd = cfg.head_dim
+    nq, nkv = cfg.heads, cfg.kv_heads
+    ops: List[Op] = []
+    if mode == "decode":
+        n_tok = batch                       # one new token per sequence
+        ctx = cache_len or seq
+    else:
+        n_tok = batch * seq
+        ctx = seq
+    window = getattr(cfg, "attn_window", 0) or 0
+    eff_ctx = min(ctx, window) if window else ctx
+
+    def attn_block(tag, cross_ctx=None):
+        kv_ctx = cross_ctx if cross_ctx is not None else eff_ctx
+        ops.append(_g(f"{tag}_q", nq * hd, n_tok, d, count=mult))
+        ops.append(_g(f"{tag}_kv", 2 * nkv * hd, n_tok if cross_ctx is None
+                      else cross_ctx * batch // max(batch, 1), d, count=mult))
+        if mode == "decode":
+            ops.append(_g(f"{tag}_scores", kv_ctx, 1, hd, count=mult * batch * nq))
+            ops.append(_g(f"{tag}_ctxv", hd, 1, kv_ctx, count=mult * batch * nq))
+        else:
+            sc = min(seq, eff_ctx) if cross_ctx is None else cross_ctx
+            ops.append(_g(f"{tag}_scores", sc, seq, hd, count=mult * batch * nq))
+            ops.append(_g(f"{tag}_ctxv", hd, seq, sc, count=mult * batch * nq))
+        ops.append(_v(f"{tag}_softmax", n_tok * nq * kv_ctx, count=mult))
+        ops.append(_g(f"{tag}_o", d, n_tok, nq * hd, count=mult))
+        ops.append(_v(f"{tag}_norm", 2 * n_tok * d, count=mult))
+
+    def ffn_block(tag):
+        if cfg.num_experts > 1:
+            ops.append(_g(f"{tag}_router", cfg.num_experts, n_tok, d, count=mult))
+            act = cfg.top_k
+            ops.append(_g(f"{tag}_moe_up", 2 * cfg.d_ff, n_tok, d, count=mult * act))
+            ops.append(_v(f"{tag}_moe_act", act * n_tok * cfg.d_ff, count=mult))
+            ops.append(_g(f"{tag}_moe_down", d, n_tok, cfg.d_ff, count=mult * act))
+        elif cfg.d_ff > 0:
+            ops.append(_g(f"{tag}_ffn_up", 2 * cfg.d_ff, n_tok, d, count=mult))
+            ops.append(_v(f"{tag}_ffn_act", n_tok * cfg.d_ff, count=mult))
+            ops.append(_g(f"{tag}_ffn_down", d, n_tok, cfg.d_ff, count=mult))
+
+    def ssm_block(tag):
+        di = 2 * d
+        st = getattr(cfg, "ssm_state", 64)
+        chunk = min(256, max(1, seq if mode != "decode" else 1))
+        ops.append(_g(f"{tag}_inproj", 2 * di + 2 * st, n_tok, d, count=mult))
+        if mode == "decode":
+            ops.append(_v(f"{tag}_state_update", batch * di * st, count=mult))
+        else:
+            ops.append(_g(f"{tag}_intra", chunk, seq, st,
+                          count=mult * batch * max(1, di // 64)))
+            ops.append(_g(f"{tag}_state", st, di, chunk,
+                          count=mult * batch * (seq // max(chunk, 1))))
+        ops.append(_g(f"{tag}_outproj", d, n_tok, di, count=mult))
+        ops.append(_v(f"{tag}_norm", 2 * n_tok * d, count=mult))
+
+    family = cfg.family
+    for l in range(L):
+        tag = f"L{l}"
+        if family in ("dense", "moe", "vlm"):
+            attn_block(tag)
+            ffn_block(tag)
+        elif family == "audio":                     # whisper enc-dec
+            if l < L // 2:
+                attn_block(f"{tag}_enc")
+                ffn_block(f"{tag}_enc")
+            else:
+                attn_block(f"{tag}_dec")
+                attn_block(f"{tag}_xattn", cross_ctx=min(seq, eff_ctx))
+                ffn_block(f"{tag}_dec")
+        elif family == "hybrid":                    # zamba2
+            if (l + 1) % cfg.attn_every == 0:
+                attn_block(tag)
+            else:
+                ssm_block(tag)
+            ffn_block(tag)
+        elif family == "ssm":                       # xlstm
+            if (l + 1) % 8 == 0:
+                ops.append(_g(f"{tag}_slstm", 4 * d, n_tok, d, count=mult))
+                ops.append(_v(f"{tag}_slstm_gates", 4 * n_tok * d, count=mult))
+            else:
+                ssm_block(tag)
+        else:
+            raise ValueError(f"unknown family {family!r}")
+    # embedding + unembedding (vocab GEMM)
+    if mode != "decode":
+        ops.append(_g("unembed", cfg.vocab, n_tok, d, count=mult))
+    else:
+        ops.append(_g("unembed", cfg.vocab, batch, d, count=1.0))
+    return ops
 
 
 def total_macs(ops: Sequence[Op]) -> float:

@@ -16,15 +16,23 @@ the floored modulo `jnp.mod` is), so the streams come out bit-identical;
 the integer address math runs in int64 instead of the reference's int32,
 which gives the same values for every address below 2^31 (the range
 `core.dram.check_addresses` admits).
+
+`gemm_trace_stats` replays the generated streams (one replay-kernel
+launch on CUDA tensors); `trace_op` and `trace_op_stats` are its entry
+points for one op of an `AcceleratorConfig`, on an explicit device.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..core import dataflow as dfm
+from ..core.accelerator import AcceleratorConfig, DramConfig
 from ..core.layout import operand_linear_index
+from ..core.replay import resolve_device
+from ..core.workloads import Op
 
 # One address region per operand (ifmap / filter / ofmap), 32 MiB apart.
 REGION_SPAN = 1 << 25
@@ -250,3 +258,81 @@ def gemm_request_stream(dataflow: str, M, N, K, R, C, comp,
         return torch.gather(x, -1, order)
 
     return take(t), take(addr), take(is_write), take(valid), scale
+
+
+def gemm_trace_stats(dataflow: str, M, N, K, R, C, comp,
+                     ifmap_elems, filter_elems, ofmap_write_elems,
+                     ofmap_read_elems, dram_cfg: DramConfig,
+                     word_bytes: int = 2, spec: TraceSpec = DEFAULT_SPEC,
+                     engine: Optional[str] = None, *,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """Generate the GEMMs' streams and run them through the cycle-accurate
+    DRAM replay, one replay for the whole batch. Numbers and tensors
+    broadcast as in `gemm_request_stream`; every input goes to `device`
+    (CUDA unless the caller asks for the CPU) as float32. engine selects
+    the replay engine (`core.replay.ENGINES`; None = default)."""
+    from ..core.dram import simulate_dram
+    dev = resolve_device(device)
+    args = [torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in (M, N, K, R, C, comp, ifmap_elems, filter_elems,
+                      ofmap_write_elems, ofmap_read_elems)]
+    t, addr, w, valid, scale = gemm_request_stream(dataflow, *args,
+                                                   word_bytes, spec)
+    res = simulate_dram(t, addr, w, dram_cfg, spec.gran_bytes, valid=valid,
+                        engine=engine)
+    nval = torch.clamp_min(valid.sum(-1).to(torch.float32), 1.0)
+    refs = torch.clamp_min(res.row_hits + res.row_misses
+                           + res.row_conflicts, 1)
+    return dict(
+        stall_cycles=res.stall_cycles * scale,
+        row_hits=res.row_hits, row_misses=res.row_misses,
+        row_conflicts=res.row_conflicts,
+        row_hit_rate=res.row_hits / refs,
+        mean_latency=res.latency.sum(-1) / nval,
+        throughput_Bpc=res.throughput,
+        bytes_modeled=res.bytes_moved * scale,
+        scaled_by=scale)
+
+
+# --------------------------------------------------------------------------
+# Entry points over an AcceleratorConfig
+# --------------------------------------------------------------------------
+
+def _op_regions(cfg: AcceleratorConfig, op: Op, core_index: int = 0):
+    """(core, compute cycles, capacity-model DRAM traffic) of one op: the
+    cycles exact, the traffic float32 scalars on the CPU, as the
+    reference's per-op math gives them."""
+    from ..core.stages import host_dram_traffic
+    core = cfg.cores[core_index]
+    dram = host_dram_traffic(cfg, op, core)
+    comp = dfm.compute_cycles(cfg.dataflow, op.M, op.N, op.K,
+                              core.rows, core.cols)
+    return core, comp, dram
+
+
+def trace_op(cfg: AcceleratorConfig, op: Op, spec: TraceSpec = DEFAULT_SPEC,
+             core_index: int = 0, *, device=None
+             ) -> Tuple[torch.Tensor, ...]:
+    """(t_issue, addr, is_write, valid, scale) for one op on `cfg`, on
+    `device` (CUDA unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    core, comp, dram = _op_regions(cfg, op, core_index)
+    args = [torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in (op.M, op.N, op.K, core.rows, core.cols, comp,
+                      dram["dram_ifmap"], dram["dram_filter"],
+                      dram["dram_ofmap_writes"], dram["dram_ofmap_reads"])]
+    return gemm_request_stream(cfg.dataflow, *args, cfg.memory.word_bytes,
+                               spec)
+
+
+def trace_op_stats(cfg: AcceleratorConfig, op: Op,
+                   spec: TraceSpec = DEFAULT_SPEC, core_index: int = 0,
+                   engine: Optional[str] = None, *,
+                   device=None) -> Dict[str, torch.Tensor]:
+    """Row-buffer / stall statistics of one op's generated trace."""
+    core, comp, dram = _op_regions(cfg, op, core_index)
+    return gemm_trace_stats(
+        cfg.dataflow, op.M, op.N, op.K, core.rows, core.cols, comp,
+        dram["dram_ifmap"], dram["dram_filter"], dram["dram_ofmap_writes"],
+        dram["dram_ofmap_reads"], cfg.dram, cfg.memory.word_bytes, spec,
+        engine=engine, device=device)

@@ -607,3 +607,64 @@ def test_fold_plane_on_the_card_matches_the_cpu(dev):
     torch.testing.assert_close(
         instantaneous_power_trace(card.active, cfg).cpu(),
         instantaneous_power_trace(cpu.active, cfg), rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("fid", ["cycle", "trace"])
+def test_per_op_engine_on_the_card_matches_the_cpu(dev, fid):
+    """Every op of resnet18 (layout on) through the per-op engine on the
+    card against the same run on the CPU: fields within 1e-3, row-buffer
+    counts exact, one replay and one conflict launch per gemm op."""
+    import repro_torch as rt
+    from repro_torch.core.accelerator import LayoutConfig
+    from repro_torch.core.workloads import resnet18
+    from repro_torch.kernels.conflict import conflict as ck
+    ops = resnet18()
+    n_gemm = sum(o.kind == "gemm" for o in ops)
+    sim = rt.Simulator("paper-32", fidelity=fid).with_(
+        layout=LayoutConfig(enabled=True))
+    assert sim.device.type == "cuda"
+    before = (mk.LAUNCHES, ck.LAUNCHES)
+    card = sim.run(ops)
+    assert (mk.LAUNCHES - before[0], ck.LAUNCHES - before[1]) == \
+        (n_gemm, n_gemm)
+    assert card.engine == "cuda"
+    cpu = rt.Simulator("paper-32", fidelity=fid, device="cpu").with_(
+        layout=LayoutConfig(enabled=True)).run(ops)
+    for a, b in zip(card.ops, cpu.ops):
+        for f in ("compute_cycles", "stall_cycles", "layout_extra_cycles",
+                  "total_cycles", "dram_bytes", "energy_pj"):
+            np.testing.assert_allclose(getattr(a, f), getattr(b, f),
+                                       rtol=1e-3, err_msg=(a.name, f))
+        for k in ("row_hits", "row_misses", "row_conflicts"):
+            assert a.dram_stats[k] == b.dram_stats[k], (a.name, k)
+
+
+def test_simulator_resolves_to_the_card(dev):
+    import repro_torch as rt
+    sim = rt.Simulator("paper-32", fidelity="cycle")
+    assert sim.device.type == "cuda"
+    assert {s.device.type for s in sim.pipeline if hasattr(s, "device")} \
+        == {"cuda"}
+    assert sim.run("resnet18").engine == "cuda"
+    t, a, w = rt.linear_trace(256)
+    assert t.is_cuda and a.is_cuda and w.is_cuda
+
+
+def test_a_kernel_that_fails_to_launch_gives_failed_cells(dev, monkeypatch):
+    """The launch wrapper raising (a kernel that does not build or launch)
+    fails the cells that reach it: never a frame of numbers, never a
+    rerun on the CPU."""
+    import repro_torch as rt
+    from repro_torch.core.workloads import Op
+
+    def broken(*a, **k):
+        raise RuntimeError("replay megakernel launch failed")
+
+    monkeypatch.setattr(mk, "launch_cuda", broken)
+    s = (rt.Study().designs({"d": "paper-32"})
+         .workloads({"w": [Op("g", 128, 256, 192)]})
+         .fidelity("fast", "trace", "cycle"))
+    res = s.run()
+    assert res.failed_cells == [1, 2]
+    assert np.isnan(res["total_cycles"][1:]).all()
+    assert np.isfinite(res["total_cycles"][0])

@@ -1,10 +1,13 @@
 """The PyTorch port's Study layer end to end on the CPU against the JAX
 reference: the paper's named studies and a mixed trace-fidelity grid give
 frames that match per column within 1e-3 and whose claims hold; cells on
-NoC pods run the routed path; cells outside the ported slice are
-refused, never silently run dense; and the port never imports JAX or the
-reference package."""
+NoC pods run the routed path; `cycle` and `force_fallback` cells run
+through the per-op engine; the cell cache, the wire format, frame
+operations, sharded execution and the CLI behave as the reference's; a
+group whose kernel call raises gives failed cells; and the port never
+imports JAX or the reference package."""
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -144,21 +147,35 @@ def test_cells_on_noc_pods_match_the_reference(name, make):
         assert float(port["noc_stall_cycles"][0]) == 0.0
 
 
-def test_cells_outside_the_slice_raise():
-    """'cycle' fidelity runs through the per-op engine, not ported yet."""
+def test_cycle_fidelity_runs_through_the_per_op_engine():
+    """'cycle' cells go to the plan's per-op list and run there, one replay
+    of the plain version per gemm op on the CPU."""
+    ops = [TOp("g", 64, 64, 64), TOp("v", kind="vector", vector_elems=512.0)]
     s = rt.Study().designs({"d": "paper-32"}).fidelity("cycle") \
-        .workloads({"w": [TOp("g", 64, 64, 64)]})
-    with pytest.raises(NotImplementedError, match="module item 8"):
-        s.run(device="cpu")
+        .workloads({"w": ops})
+    plan = s.plan()
+    assert plan.fallback == [0] and not plan.groups and plan.n_batched == 0
+    res = s.run(device="cpu")
+    assert res.meta["engine"] == "torch:plain" and not res.failed_cells
+    assert res["batched"][0] == 0.0
+    rep = rt.Simulator("paper-32", fidelity="cycle", device="cpu").run(ops)
+    assert res["total_cycles"][0] == rep.total_cycles
+    assert rep.ops[0].dram_stats["row_hits"] > 0
 
 
-def test_custom_evaluator_is_refused():
-    """Custom evaluators are ported; what stays refused with them is the
-    per-op engine's `force_fallback`, which names module item 8. The
-    options take the reference's keywords only (`trace_spec=`)."""
-    s = rt.Study().evaluator(lambda cfg, ops, fid, device: {})
-    with pytest.raises(NotImplementedError, match="module item 8"):
-        s.options(force_fallback=True)
+def test_force_fallback_runs_every_cell_per_op():
+    """`force_fallback=True` sends every cell to the per-op engine, whose
+    frame agrees with the batched one within 1e-3 and keeps the claims.
+    The options take the reference's keywords only (`trace_spec=`)."""
+    batched = tstudy.studies.edp_array_size(smoke=True).run(device="cpu")
+    s = tstudy.studies.edp_array_size(smoke=True).options(
+        force_fallback=True)
+    plan = s.plan()
+    assert not plan.groups and plan.fallback == [0, 1, 2]
+    res = s.run(device="cpu")
+    assert res.fraction_batched == 0.0 and res.claims_ok()
+    for c in tstudy.METRIC_COLUMNS:
+        np.testing.assert_allclose(res[c], batched[c], rtol=1e-3, err_msg=c)
     with pytest.raises(TypeError):
         s.options(spec=rt.TraceSpec())
 
@@ -209,3 +226,166 @@ def test_custom_energy_table_matches_reference():
     assert_frames_match(ref, port)
     base = tstudy.studies.edp_array_size(smoke=True).run(device="cpu")
     assert np.all(port["energy_pj"] > base["energy_pj"])
+
+
+# --------------------------------------------------------------------------
+# The cell cache, the wire format, frame operations, sharded execution,
+# the CLI and the failure semantics
+# --------------------------------------------------------------------------
+
+def _small_study(name="small"):
+    ops = [TOp("a", 128, 256, 192), TOp("v", kind="vector",
+                                        vector_elems=4096.0)]
+    return (rt.Study(name).designs(rt.preset_grid(array=[16, 32],
+                                                  dataflow=["ws", "os"]))
+            .workloads({"w": ops}).fidelity("fast", "trace", "cycle")
+            .options(trace_spec=rt.TraceSpec(cap=512)))
+
+
+def test_cache_hits_replay_a_bit_identical_frame(tmp_path):
+    cache = str(tmp_path / "cells")
+    first = _small_study().cache(cache).run(device="cpu")
+    assert first.executed_cells == 12 and first.cache_hits == 0
+    second = _small_study().cache(cache).run(device="cpu")
+    assert second.cache_hits == 12 and second.executed_cells == 0
+    assert first.equals(second)              # every column, bit for bit
+    # a corrupt (torn) cache file is a miss, never a crash
+    victim = sorted(os.listdir(cache))[0]
+    with open(os.path.join(cache, victim), "w") as f:
+        f.write('{"schema_version": 1, "metr')
+    third = _small_study().cache(cache).run(device="cpu")
+    assert third.cache_hits == 11 and third.executed_cells == 1
+    assert first.equals(third)
+    # the per-op oracle never aliases the batched cells
+    oracle = _small_study().options(force_fallback=True).run(
+        device="cpu", cache=cache)
+    assert oracle.cache_hits == 0 and oracle.executed_cells == 12
+    assert not [f for f in os.listdir(cache) if f.endswith(".tmp")]
+
+
+def test_cell_hash_is_the_port_s_own():
+    from repro.core.accelerator import AcceleratorConfig as RConfig
+    from repro.core.workloads import Op as ROp
+    port = _small_study()
+    ref = (rstudy.Study("small")
+           .designs({k: RConfig.from_dict(c.to_dict())
+                     for k, c in port._designs})
+           .workloads({"w": [ROp(**dataclasses.asdict(o))
+                             for o in port._workloads["w"]]})
+           .fidelity("fast", "trace", "cycle")
+           .options(trace_spec=rgen.TraceSpec(cap=512)))
+    rcells, pcells = ref.plan().cells, port.plan().cells
+    cpu = torch.device("cpu")
+    hashes = {port._cell_hash(c, cpu) for c in pcells}
+    assert len(hashes) == len(pcells)
+    assert not hashes & {ref._cell_hash(c) for c in rcells}
+    # the device type is part of the key: card and CPU cells never alias
+    assert port._cell_hash(pcells[0], torch.device("cuda")) not in hashes
+
+
+def test_spec_round_trip():
+    s = _small_study().options(force_fallback=True).metrics(
+        "total_cycles", "energy")
+    spec = json.loads(json.dumps(s.to_spec()))
+    back = tstudy.Study.from_spec(spec)
+    cpu = torch.device("cpu")
+    assert [s._cell_hash(c, cpu) for c in s.plan().cells] == \
+        [back._cell_hash(c, cpu) for c in back.plan().cells]
+    assert back.run(device="cpu").equals(s.run(device="cpu"))
+    # a registry study travels by reference, claims and evaluator intact
+    reg = tstudy.studies.multicore_contention(channels=[1, 2])
+    spec = reg.to_spec()
+    assert spec["ref"] == {"study": "multicore_contention",
+                           "kwargs": {"channels": [1, 2]}}
+    back = tstudy.Study.from_spec(spec)
+    assert back._evaluator is not None and len(back._claims) == 3
+    with pytest.raises(ValueError, match="evaluator"):
+        rt.Study().evaluator(lambda c, o, f, device: {}).to_spec()
+    with pytest.raises(ValueError, match="study spec"):
+        tstudy.Study.from_spec({"kind": "other"})
+
+
+def test_frame_operations_match_reference():
+    ref = rstudy.studies.dataflow_dram_flip().run()
+    port = tstudy.studies.dataflow_dram_flip().run(device="cpu")
+    for k in (1, 3, 10):
+        assert list(port.topk("total_cycles", k)["design"]) == \
+            list(ref.topk("total_cycles", k)["design"])
+    assert list(port.topk("edp", 2)["fidelity"]) == \
+        list(ref.topk("edp", 2)["fidelity"])
+    # to_json / from_json: the port's frame reads back identically, and
+    # the reference reads it (one schema)
+    back = tstudy.StudyResult.from_json(port.to_json())
+    assert back.equals(port) and not back.equals(ref)
+    assert_frames_match(ref, rstudy.StudyResult.from_json(port.to_json()))
+    both = tstudy.StudyResult.concat([port, port.filter(fidelity="fast")])
+    rboth = rstudy.StudyResult.concat([ref, ref.filter(fidelity="fast")])
+    assert len(both) == len(rboth) == 6
+    assert both.column_names() == rboth.column_names()
+    assert both.axes == rboth.axes
+    lines, rlines = port.summary().splitlines(), ref.summary().splitlines()
+    assert lines[0] == rlines[0] and len(lines) == len(rlines)
+    assert [ln.split(":")[0] for ln in lines] == \
+        [ln.split(":")[0] for ln in rlines]
+    # metrics() restricts the columns as the reference does
+    only = tstudy.studies.dataflow_dram_flip().metrics("latency", "energy")
+    assert only.run(device="cpu").column_names() == [
+        "design", "workload", "fidelity", "total_cycles", "energy_pj",
+        "batched", "cell_status"]
+    assert port.ok().equals(port)
+
+
+def test_shards_and_assemble_frame_equal_run():
+    s = _small_study()
+    plan = s.plan()
+    results, executed, hits = {}, 0, 0
+    for shard in ([0, 5, 9, 2], [1, 3, 4, 6, 7, 8, 10, 11]):
+        r, e, h = s._execute_cells(plan, shard, device="cpu")
+        assert set(r) == set(shard)
+        results.update(r)
+        executed += e
+        hits += h
+    frame = s.assemble_frame(results, executed_cells=executed,
+                             cache_hits=hits, plan=plan, device="cpu")
+    assert frame.equals(s.run(device="cpu"))
+    assert frame.meta["engine"] == "torch:plain"
+    part = s.assemble_frame({i: results[i] for i in (0, 1)}, partial=True,
+                            device="cpu")
+    assert len(part) == 2
+    with pytest.raises(ValueError, match="missing"):
+        s.assemble_frame({0: results[0]}, device="cpu")
+    with pytest.raises(IndexError):
+        s._execute_cells(plan, [12], device="cpu")
+
+
+def test_cli_runs_a_named_study(tmp_path):
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    out = str(tmp_path / "edp.json")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.api", "--study",
+         "edp_array_size", "--smoke", "--device", "cpu", "--json", out],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.count("claim PASS") == 4
+    frame = tstudy.StudyResult.from_json(open(out).read())
+    assert len(frame) == 3
+
+
+def test_a_group_whose_kernel_raises_gives_failed_cells(monkeypatch):
+    """A replay that raises (a kernel that does not build or launch, here
+    its plain version) fails the cells of its batched group and the
+    per-op cells that reach it, with NaN metrics; it is not a frame of
+    numbers, and nothing reruns elsewhere."""
+    from repro_torch.kernels.replay import megakernel as mk
+
+    def broken(*a, **k):
+        raise RuntimeError("replay kernel failed to launch")
+
+    monkeypatch.setattr(mk, "run_plain", broken)
+    res = _small_study().run(device="cpu")
+    fast = list(res["fidelity"] == "fast")
+    assert res.failed_cells == [i for i, f in enumerate(fast) if not f]
+    assert np.isnan(res["total_cycles"][~np.array(fast)]).all()
+    assert np.isfinite(res["total_cycles"][np.array(fast)]).all()
+    assert len(res.ok()) == 4
