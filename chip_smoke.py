@@ -133,7 +133,28 @@ own line; any failure exits non-zero before the final result line:
      layers at fast, cycle and trace: 14 replay launches, the frame
      against the CPU's within 1e-3, then run with `.cache(dir)` twice:
      every cell a hit the second time, both frames equal to the first;
-  18. a `{"kernels": [...]}` line (all five kernels), the nvidia-smi line,
+  18. the seventh slice's path, the design-space search: `search_edp` at
+     full width (12 vit_base layers, a screen of 1,536; 2,032 cells a
+     pass over the ~10^5-cell Table-V space) with both kernels' counts
+     reset just before it: its seven claims (seeded replay bit for bit
+     among them), the "cuda" engine, conflict launches on the layout
+     groups and replay launches on the trace rung; one more cold pass
+     under the profiler (the card's busy share) with each round and the
+     host's promotions timed; the smoke search on the card against the
+     card machine's CPU (the same cohorts and parents every round, best
+     rows within 1e-3); the trace rung's designs and 96 screened designs
+     cut into shards of 1, 2 and 5 through `_execute_cells`, each frame
+     equal to the local run bit for bit;
+  19. the run-farm: a broker thread and two `python -m repro_torch.farm
+     worker --device cuda` processes run `edp_array_size` at full width
+     (shards of at most 2 cells): the frame equal to the local card run
+     bit for bit, the four claims, cells per worker;
+  20. the chaos soak in process on the card (`python -m repro_torch.farm
+     chaos --device cuda`, `edp_array_size` at full width): each of the
+     worker-kills, torn-writes and lease-storms schedules done,
+     bit-identical to the fault-free run, the claims holding, at least
+     one kill under worker-kills;
+  21. a `{"kernels": [...]}` line (all five kernels), the nvidia-smi line,
      and last `{"ok": true, "device": {...}}`.
 
 Writes the measurements to chiprun_out/chip_smoke.json as well.
@@ -709,6 +730,253 @@ def perop_phases(report: dict) -> dict:
     phase("cycle_study", **sinfo)
     report["cycle_study"] = sinfo
     out.update(replay_per_op=per_op, conflict_per_op=conflict_op)
+    return out
+
+
+def search_rounds(log_json: str):
+    """[(kind, fidelity, cohort, parents, best row)] of a SearchLog."""
+    return [(e["kind"], e["fidelity"], e["cohort"], e["parents"], e["best"])
+            for e in json.loads(log_json)["rounds"]]
+
+
+def orchestration_phases(report: dict) -> dict:
+    """The seventh slice's path: the design-space search, the run-farm and
+    the chaos soak on the card. Returns the replay and conflict launches
+    of its counted runs."""
+    import os
+    import tempfile
+
+    import repro_torch as rt
+    import repro_torch.search.driver as sdrv
+    from repro_torch.core.workloads import vit_linear
+    from repro_torch.farm import __main__ as farm_cli
+    from repro_torch.kernels.conflict import conflict as ck
+    from repro_torch.kernels.replay import megakernel as mk
+    from repro_torch.search import table_v_space
+
+    out = dict(replay=0, conflict=0)
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    cuda = torch.device("cuda")
+
+    # ---- 18. search_edp at full width: 12 layers, a screen of 1,536 ---------
+    study = rt.studies.search_edp()
+    mk.LAUNCHES = ck.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = study.run()                   # the default: the card
+    wall = time.perf_counter() - t0
+    launches = dict(replay=mk.LAUNCHES, conflict=ck.LAUNCHES)
+    out["replay"] += launches["replay"]
+    out["conflict"] += launches["conflict"]
+    claims = res.check_claims()
+    if len(claims) != 7 or not all(claims.values()):
+        fail(f"search_edp_full: claims {claims}")
+    if res.meta.get("engine") != "cuda" or res.meta.get("device") != "cuda":
+        fail(f"search_edp_full: engine {res.meta.get('engine')!r} on "
+             f"{res.meta.get('device')!r}")
+    if not launches["replay"] or not launches["conflict"]:
+        fail(f"search_edp_full: launches {launches}")
+    if res.failed_cells or len(res) != int(res.meta["spent_evals"]):
+        fail(f"search_edp_full: {len(res)} rows, failed {res.failed_cells}")
+    for c in ("total_cycles", "energy_pj", "edp", "stall_cycles"):
+        if not np.isfinite(np.asarray(res[c], float)).all():
+            fail(f"search_edp_full: non-finite {c}")
+    rounds = search_rounds(res.meta["search_log"])
+
+    # one more cold pass of the driver under the profiler (the card's busy
+    # share), each round's cells and the host's promotions and proposals
+    # timed on their own
+    timed, host = [], dict(promote_s=0.0, propose_s=0.0)
+
+    def timer(fn, key):
+        def run(*a, **k):
+            t1 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                host[key] += time.perf_counter() - t1
+        return run
+
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        drv = study._make_driver(tmp, cuda)
+        inner = drv._eval_cohort
+
+        def eval_timed(round_idx, fid, points):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = inner(round_idx, fid, points)
+            torch.cuda.synchronize()
+            timed.append(dict(round=round_idx, fidelity=fid,
+                              cells=len(points),
+                              wall_s=time.perf_counter() - t1))
+            return r
+
+        drv._eval_cohort = eval_timed
+        promote, propose = sdrv.promote, sdrv.propose
+        sdrv.promote = timer(promote, "promote_s")
+        sdrv.propose = timer(propose, "propose_s")
+        cold = {}
+        try:
+            prof = profile_run(lambda: cold.update(r=drv.run()),
+                               kernels=("replay", "conflict"))
+        finally:
+            sdrv.promote, sdrv.propose = promote, propose
+    if cold["r"].log.digest() != res.meta["search_log_digest"]:
+        fail("search_edp_full: a second cold pass logged another search")
+    sinfo = dict(claims=claims, rows=len(res), wall_s_two_passes=wall,
+                 cold_pass_s=prof["profiled_wall_ms"] / 1e3, **host,
+                 screen_s=sum(r["wall_s"] for r in timed
+                              if r["round"] == 0),
+                 propose_rounds_s=sum(r["wall_s"] for r in timed
+                                      if r["round"] > 0
+                                      and r["fidelity"] == "fast"),
+                 trace_rung_s=sum(r["wall_s"] for r in timed
+                                  if r["fidelity"] == "trace"),
+                 rounds=timed, launches=launches, engine=res.meta["engine"],
+                 winner=res.meta["winner"],
+                 spent_evals=res.meta["spent_evals"],
+                 exhaustive_cells=res.meta["exhaustive_cells"],
+                 replay_identical=res.meta["replay_identical"],
+                 cohorts=[(k, f, len(c)) for k, f, c, _, _ in rounds],
+                 device_busy_share=prof["device_busy_share"], profile=prof)
+    phase("search_edp_full", **{k: v for k, v in sinfo.items()
+                                if k != "profile"})
+    report["search_edp_full"] = sinfo
+
+    # the smoke search on the card and on the card machine's CPU: the same
+    # cohorts and parents round for round, the best rows within RTOL
+    smoke = rt.studies.search_edp(smoke=True)
+    mk.LAUNCHES = ck.LAUNCHES = 0
+    t0 = time.perf_counter()
+    card = smoke.run()
+    card_s = time.perf_counter() - t0
+    smoke_launches = dict(replay=mk.LAUNCHES, conflict=ck.LAUNCHES)
+    out["replay"] += mk.LAUNCHES
+    out["conflict"] += ck.LAUNCHES
+    t0 = time.perf_counter()
+    cpu = smoke.run(device="cpu")
+    cpu_s = time.perf_counter() - t0
+    ra, rb = (search_rounds(card.meta["search_log"]),
+              search_rounds(cpu.meta["search_log"]))
+    if len(ra) != len(rb) or not all(card.check_claims().values()):
+        fail(f"search_edp smoke: {len(ra)} rounds on the card, {len(rb)} "
+             f"on the CPU; claims {card.check_claims()}")
+    worst = 0.0
+    for a, b in zip(ra, rb):
+        if a[:4] != b[:4]:
+            fail(f"search_edp smoke: the {a[0]} round at {a[1]}: cohorts "
+                 f"or parents differ between the card and the CPU")
+        for m, v in b[4].items():
+            if m not in ("design", "workload", "fidelity"):
+                worst = max(worst, abs(a[4][m] - v) / max(abs(v), 1e-30))
+    if worst > RTOL:
+        fail(f"search_edp smoke: best rows differ by {worst}")
+    minfo = dict(card_wall_s=card_s, cpu_wall_s=cpu_s, rounds=len(ra),
+                 cohorts_and_parents_equal=True, best_max_rel_vs_cpu=worst,
+                 launches=smoke_launches)
+    phase("search_edp_smoke_vs_cpu", **minfo)
+    report["search_edp_smoke_vs_cpu"] = minfo
+
+    # shard splits on the search path: the trace rung's 16 designs and 96
+    # screened designs, each batched group cut into shards of 1, 2 and 5
+    # through `_execute_cells`, equal one local run bit for bit
+    space = table_v_space()
+    log = json.loads(res.meta["search_log"])["rounds"]
+    want = {"trace": log[-1]["cohort"], "fast": log[0]["cohort"][:96]}
+    wanted = set(want["trace"]) | set(want["fast"])
+    configs = {}
+    for p in space.points():
+        lab = space.label(p)
+        if lab in wanted:
+            configs[lab] = space.config(p)
+    ops = vit_linear(768, 12, 3072, prefix="vitb")
+    splits = {}
+    for fid, labels in want.items():
+        s = (rt.Study(f"splits-{fid}")
+             .designs({lab: configs[lab] for lab in labels})
+             .workloads({"vit-base": ops}).fidelity(fid))
+        plan = s.plan()
+        mk.LAUNCHES = ck.LAUNCHES = 0
+        local = s.run()
+        for size in (1, 2, 5):
+            got, n = {}, 0
+            for grp in plan.groups:
+                for i in range(0, len(grp.cells), size):
+                    r, _, _ = s._execute_cells(plan, grp.cells[i:i + size])
+                    got.update(r)
+                    n += 1
+            frame = s.assemble_frame(got, plan=plan, device=cuda)
+            bad = [c for c in local.columns
+                   if not np.array_equal(np.asarray(frame[c]),
+                                         np.asarray(local[c]))]
+            if bad or not frame.equals(local):
+                fail(f"search shard splits, {fid} in shards of {size}: "
+                     f"{bad} differ from the local run")
+            splits[f"{fid}_shards_of_{size}"] = dict(
+                designs=len(labels), groups=len(plan.groups), shards=n,
+                bit_identical=True)
+        out["replay"] += mk.LAUNCHES
+        out["conflict"] += ck.LAUNCHES
+    phase("search_shard_splits", **splits)
+    report["search_shard_splits"] = splits
+
+    # ---- 19. the farm: a broker thread, two worker processes on the card ----
+    # `farm smoke --compare-local` runs edp_array_size locally on the card,
+    # then through both workers once each has sent a heartbeat, and exits
+    # non-zero unless the frame equals the local run bit for bit
+    with tempfile.TemporaryDirectory(dir=scratch) as root:
+        path = os.path.join(root, "FARM_metrics.json")
+        rc = farm_cli._main(["smoke", "--root", os.path.join(root, "farm"),
+                             "--device", "cuda", "--compare-local",
+                             "--metrics", path, "--timeout", "600"])
+        metrics = json.loads(open(path).read())
+    sm = metrics["smoke"]
+    if rc != 0 or not sm.get("bit_identical"):
+        fail(f"farm_smoke: rc {rc}, columns "
+             f"{sm.get('mismatched_columns')} differ from the local card run")
+    if len(sm["claims"]) != 4 or not all(sm["claims"].values()):
+        fail(f"farm_smoke: claims {sm['claims']}")
+    per_worker = {w: dict(cells=st.get("cells_done", 0),
+                          shards=st.get("shards_done", 0),
+                          busy_s=st.get("busy_seconds", 0.0))
+                  for w, st in metrics["workers"].items()}
+    finfo = dict(wall_s_submit_to_frame=sm["seconds"],
+                 workers_start_s=sm["workers_start_s"], shards=sm["shards"],
+                 per_worker=per_worker,
+                 requeued=metrics["requeued_shards"], claims=sm["claims"],
+                 bit_identical=True, engine=sm["engine"],
+                 device=sm["device"])
+    phase("farm_smoke", **finfo)
+    report["farm_smoke"] = finfo
+
+    # ---- 20. the chaos soak in process on the card ---------------------------
+    with tempfile.TemporaryDirectory(dir=scratch) as root:
+        path = os.path.join(root, "FAULTS_report.json")
+        mk.LAUNCHES = ck.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rc = farm_cli._main(["chaos", "--root", root, "--device", "cuda",
+                             "--report", path, "--timeout", "300"])
+        chaos_s = time.perf_counter() - t0
+        out["replay"] += mk.LAUNCHES
+        out["conflict"] += ck.LAUNCHES
+        chaos = json.loads(open(path).read())
+    if rc != 0 or sorted(chaos) != ["lease-storms", "torn-writes",
+                                    "worker-kills"]:
+        fail(f"farm_chaos: rc {rc}, schedules {sorted(chaos)}")
+    for name, e in chaos.items():
+        if not (e["ok"] and e["bit_identical"] and e["claims_ok"]):
+            fail(f"farm_chaos {name}: {e}")
+    if chaos["worker-kills"]["worker_kills"] < 1:
+        fail("farm_chaos: no worker was killed under worker-kills")
+    cinfo = dict(wall_s=chaos_s, schedules={
+        name: dict(seconds=e["seconds"], rounds=e["rounds"],
+                   worker_kills=e["worker_kills"],
+                   requeued=e["requeued_shards"],
+                   injected=e["faults"]["total_injected"],
+                   bit_identical=e["bit_identical"])
+        for name, e in chaos.items()})
+    phase("farm_chaos", **cinfo)
+    report["farm_chaos"] = cinfo
     return out
 
 
@@ -2215,13 +2483,19 @@ def main() -> int:
     report["perop_phases_s"] = time.perf_counter() - t0
     phase("perop_phases", seconds=report["perop_phases_s"])
 
+    # ---- 18-20. the seventh slice's path: search, farm, chaos --------------
+    t0 = time.perf_counter()
+    orch = orchestration_phases(report)
+    report["orchestration_phases_s"] = time.perf_counter() - t0
+    phase("orchestration_phases", seconds=report["orchestration_phases_s"])
+
     kernels = {"kernels": [
         dict(name="replay_megakernel", route="cuda",
              source="src/repro_torch/csrc/replay_megakernel.cu",
              replaces="src/repro/kernels/replay/megakernel.py:96",
              launches=(dense_launches + feat_launches["replay_megakernel"]
                        + cont_launches + pod_launches + podc_launches
-                       + perop["replay"]),
+                       + perop["replay"] + orch["replay"]),
              max_abs_err=max(max_abs, mcm["shared"]["max_abs_err"]),
              ms=kernel_ms, plain_ms=plain_ms,
              bound_ms=replay_group["bound_ms"],
@@ -2253,7 +2527,8 @@ def main() -> int:
         dict(name="conflict_slowdown", route="cuda",
              source="src/repro_torch/csrc/conflict_slowdown.cu",
              replaces="src/repro/kernels/conflict/conflict.py:42",
-             launches=feat_launches["conflict_slowdown"] + perop["conflict"],
+             launches=(feat_launches["conflict_slowdown"] + perop["conflict"]
+                       + orch["conflict"]),
              max_abs_err=0, ms=conflict_ms, plain_ms=conflict_plain_ms,
              bound_ms=layout_group["bound_ms"],
              bound_by=layout_group["bound_by"], library_ms=None,

@@ -18,6 +18,7 @@ result frames). Entry points run on the GPU unless the caller passes
     res.best("edp")
 
     studies.edp_array_size().run().check_claims()       # paper claims
+    studies.search_edp().run(device="cpu")              # Table-V search
 """
 from ..core.accelerator import AcceleratorConfig
 from ..core.engine import NetworkReport, OpResult
@@ -27,6 +28,10 @@ from .presets import (as_sparsity, get_preset, list_presets, preset_grid,
 from .simulator import Simulator, SweepResult, as_config, as_workload
 from .study import (Study, StudyPlan, StudyResult, get_study, list_studies,
                     register_study, studies)
+# the search layer registers its studies (studies.search_edp) on import;
+# imported last so repro_torch.search's own imports of repro_torch.api.*
+# submodules find them already initialized
+from .. import search as _search  # noqa: E402,F401
 
 __all__ = [
     "AcceleratorConfig", "FIDELITIES", "NetworkReport", "OpResult",

@@ -33,7 +33,7 @@ only changed cells; `to_spec`/`from_spec` are the wire format and
 paper's analyses ship as named studies with machine-checkable claims
 (`studies.edp_array_size`, `studies.dataflow_dram_flip`,
 `studies.sparse_speedup`, `studies.multicore_contention`,
-`studies.nop_bound`). CLI:
+`studies.nop_bound`, and the search layer's `studies.search_edp`). CLI:
 
     PYTHONPATH=src python -m repro_torch.api --study edp_array_size \
         --smoke --device cpu --csv STUDY_edp_array_size.csv
@@ -44,7 +44,6 @@ import dataclasses
 import hashlib
 import json
 import os
-import tempfile
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -58,6 +57,7 @@ from ..core.engine import (ENERGY_GROUP_COLUMNS, RESULT_SCHEMA_VERSION,
                            write_csv_table)
 from ..core.replay import resolve_device
 from ..core.workloads import Op
+from ..faults import fs as _fs
 from ..noc.topology import noc_kind
 from .simulator import _sweep_batched, as_config, as_workload
 
@@ -96,23 +96,6 @@ def _code_digest(code) -> str:
             h.update(repr(const).encode())
     h.update(repr(code.co_names).encode())
     return h.hexdigest()
-
-
-def _atomic_write_json(path: str, obj) -> None:
-    """Write `obj` as JSON to a private temp file in `path`'s directory,
-    then `os.replace` it into place: a reader (or a process racing on the
-    same file) sees no file or a complete one, never a torn write."""
-    d = os.path.dirname(path) or "."
-    os.makedirs(d, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=d, prefix=os.path.basename(path),
-                               suffix=".tmp")
-    try:
-        with os.fdopen(fd, "w") as f:
-            json.dump(obj, f)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
 
 
 # --------------------------------------------------------------------------
@@ -827,11 +810,14 @@ class Study:
                      metrics: Dict[str, float]) -> None:
         """Multi-process-safe store (temp file + `os.replace`): racing
         writers of one cell write the same content, so the last replace
-        wins harmlessly."""
-        _atomic_write_json(
+        wins harmlessly. Routed through the fault shim
+        (`site="cache.store"`) so the chaos schedules can land corrupt
+        entries, which `_cache_load` degrades to misses."""
+        _fs.atomic_write_json(
             os.path.join(cache_dir, h + ".json"),
             {"schema_version": RESULT_SCHEMA_VERSION, "study": self.name,
-             "metrics": metrics})
+             "metrics": metrics},
+            site="cache.store", indent=None)
 
     def run(self, *, device=None, cache: Optional[str] = None
             ) -> StudyResult:
@@ -981,9 +967,12 @@ class Study:
         """Build the frame from per-cell metric dicts keyed by plan index
         (a farm client's reassembly), through the code `run()` uses, so
         with every cell present the frame equals a local run's. `device`
-        is where the cells ran (it labels `meta`). `partial=True` permits
-        missing cells and returns the completed rows only."""
-        device = resolve_device(device)
+        is where the cells ran, as the workers report it (it labels
+        `meta`; None when no cell ran, and then `meta` names no device).
+        Nothing runs here, so a frame of CUDA cells assembles without a
+        card. `partial=True` permits missing cells and returns the
+        completed rows only."""
+        device = None if device is None else torch.device(device)
         plan = self.plan() if plan is None else plan
         have = sorted(int(i) for i in results)
         if not partial:
@@ -1030,6 +1019,8 @@ class Study:
                 "fidelity": list(self._fidelities)}
         res = StudyResult(cols, axes, executed_cells=executed,
                           cache_hits=hits, claims=self._claims)
+        if device is None:
+            return res
         if any(f in ("trace", "cycle") for f in self._fidelities):
             res.meta["engine"] = _rp.resolve_engine_runtime(self._engine,
                                                             device)
@@ -1344,8 +1335,7 @@ def nop_bound(smoke: bool = False) -> Study:
 # --------------------------------------------------------------------------
 
 def _main(argv: Optional[Sequence[str]] = None) -> int:
-    """`python -m repro_torch.api`: the reference's CLI plus `--device`
-    (the search studies and their `--search-log` are not ported)."""
+    """`python -m repro_torch.api`: the reference's CLI plus `--device`."""
     import argparse
     import inspect
     ap = argparse.ArgumentParser(
@@ -1360,6 +1350,9 @@ def _main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--json", dest="json_out",
                     help="write the result frame as JSON")
     ap.add_argument("--cache", help="on-disk cell-cache directory")
+    ap.add_argument("--search-log", dest="search_log",
+                    help="write the SearchLog JSON artifact "
+                         "(search studies only)")
     args = ap.parse_args(argv)
 
     kw = {}
@@ -1372,7 +1365,15 @@ def _main(argv: Optional[Sequence[str]] = None) -> int:
     res = study.run(device=args.device)
     print(f"study {args.study}: executed {res.executed_cells} cells "
           f"({res.cache_hits} cache hits) on {res.meta['device']}")
-    print(res.summary())
+    if len(res) <= 200:
+        print(res.summary())
+    else:
+        # a search frame holds thousands of rows; print its accounting
+        # instead and leave the rows to --csv/--json
+        print(f"{len(res)} rows (row dump suppressed; use --csv/--json)")
+        for k, v in sorted(res.meta.items()):
+            if k != "search_log":
+                print(f"  {k} = {v}")
     claims = res.check_claims()
     for name, ok in claims.items():
         print(f"claim {'PASS' if ok else 'FAIL'}: {name}")
@@ -1383,4 +1384,13 @@ def _main(argv: Optional[Sequence[str]] = None) -> int:
         with open(args.json_out, "w") as f:
             f.write(res.to_json())
         print(f"wrote {args.json_out}")
+    if args.search_log:
+        blob = res.meta.get("search_log")
+        if blob is None:
+            print(f"--search-log: {args.study} is not a search study "
+                  f"(no log on its result)")
+            return 1
+        with open(args.search_log, "w") as f:
+            f.write(str(blob))
+        print(f"wrote {args.search_log}")
     return 0 if all(claims.values()) else 1

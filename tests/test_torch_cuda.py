@@ -668,3 +668,87 @@ def test_a_kernel_that_fails_to_launch_gives_failed_cells(dev, monkeypatch):
     assert res.failed_cells == [1, 2]
     assert np.isnan(res["total_cycles"][1:]).all()
     assert np.isfinite(res["total_cycles"][0])
+
+
+def _farm_kernel_study():
+    """Three designs per group, layout stage on, at fast and trace: each
+    group one batched call through both kernels."""
+    import repro_torch as rt
+    from repro_torch.core.workloads import Op
+    return (rt.Study("farm-card")
+            .designs({f"a{a}": rt.get_preset("table-v-corner", array=a,
+                                             layout_banks=16)
+                      for a in (32, 64, 128)})
+            .workloads({"w": [Op("q", 768, 197, 768),
+                              Op("m", 3072, 197, 768)]})
+            .fidelity("fast", "trace")
+            .options(trace_spec=rt.TraceSpec(cap=1024)))
+
+
+@pytest.mark.parametrize("max_shard_cells", [1, 2])
+def test_farm_worker_on_the_card_equals_the_local_card_run(
+        dev, tmp_path, max_shard_cells):
+    """Shards of 1 or 2 of a group's 3 designs, run by a worker on the
+    card: the frame equals the local card run bit for bit, so no design's
+    values depend on which designs share the batched call."""
+    from repro_torch.farm import Broker, FarmClient, Worker
+    local = _farm_kernel_study().run()
+    assert local.meta["engine"] == "cuda"
+    root = str(tmp_path / "farm")
+    client, broker = FarmClient(root), Broker(
+        root, max_shard_cells=max_shard_cells)
+    worker = Worker(root, "card")
+    assert worker.device.type == "cuda"
+    sid = client.submit(_farm_kernel_study())
+    broker.step()
+    for _ in range(50):
+        if client.status(sid).get("state") != "running":
+            break
+        worker.step()
+        broker.step()
+    res = client.result(sid, timeout=60)
+    assert client.status(sid)["shards_total"] == {1: 6, 2: 4}[
+        max_shard_cells]
+    assert res.equals(local)
+    assert (res.meta["device"], res.meta["engine"]) == ("cuda", "cuda")
+    for k in local.columns:
+        assert np.array_equal(res[k], local[k]), k
+
+
+def test_search_on_the_card_has_the_cpu_cohorts(dev, tmp_path):
+    import dataclasses
+
+    import repro_torch as rt
+    from repro_torch.core.accelerator import CoreConfig
+    from repro_torch.core.workloads import Op
+    from repro_torch.search import SearchDriver, SearchSpace, choice
+
+    def sram(cfg, kb):
+        b = int(kb) * 1024 // 3
+        return cfg.with_(memory=dataclasses.replace(
+            cfg.memory, ifmap_sram_bytes=b, filter_sram_bytes=b,
+            ofmap_sram_bytes=b))
+
+    space = SearchSpace("card-tiny", rt.get_preset("table-v-corner"), [
+        choice("array", (16, 32, 64),
+               lambda c, v: c.with_(cores=(CoreConfig(rows=v, cols=v),)),
+               short="a"),
+        choice("sram_kb", (96, 384, 1536), sram, short="s"),
+        choice("dataflow", ("ws", "os", "is"),
+               lambda c, v: c.with_(dataflow=v), short="")])
+    logs = {}
+    for device in ("cuda", "cpu"):
+        res = SearchDriver(
+            space, {"g": [Op("g", 512, 197, 768)]}, seed=0, screen=12,
+            eta=4.0, explore_rounds=2, ladder=("fast", "trace"),
+            rung_sizes=(3,), cache=str(tmp_path / device),
+            device=device).run()
+        logs[device] = res.log
+        if device == "cuda":
+            assert res.frame.meta["engine"] == "cuda"
+    for a, b in zip(logs["cuda"].rounds, logs["cpu"].rounds):
+        assert (a["cohort"], a["parents"]) == (b["cohort"], b["parents"])
+        for m, v in b["best"].items():
+            if m not in ("design", "workload", "fidelity"):
+                assert a["best"][m] == pytest.approx(v, rel=1e-3), m
+    assert len(logs["cuda"].rounds) == len(logs["cpu"].rounds) == 4
