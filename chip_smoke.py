@@ -154,12 +154,36 @@ own line; any failure exits non-zero before the final result line:
      worker-kills, torn-writes and lease-storms schedules done,
      bit-identical to the fault-free run, the claims holding, at least
      one kill under worker-kills;
-  21. a `{"kernels": [...]}` line (all five kernels), the nvidia-smi line,
+  21. the eighth slice's path, the workload plane's serving path:
+     `python -m repro_torch.launch.serve --arch qwen2-1.5b --requests 8
+     --batch 4 --prompt-len 512 --gen-len 32 --sim-accel paper-128` in
+     process on the default device (28 layers, d 1,536, bfloat16; every
+     kernel count reset just before: none launched), then the same
+     weights (seed 0) served three more times: every logit finite, every
+     token in [0, vocab_padded), the same greedy tokens every run and as
+     the CLI's samples; prefill ms, decode ms per token and served
+     tokens/s beside their bounds (weight bytes over 3.35 TB/s; 2 x body
+     parameters x tokens over 989 TFLOP/s), peak memory and the card's
+     busy share (a profile); the `--sim-accel` wave cost (prefill and
+     decode `run_lm`) on the card within 1e-3 of the CPU's;
+  22. qwen2-1.5b at full width, 2 layers, float32, the same weights on
+     the card and the card machine's CPU (TF32 off): prefill logits and
+     caches, one decode step, within 1e-3, and a served wave (batch 2,
+     prompt 128, gen 8) with the same greedy tokens;
+  23. granite-moe-3b-a800m at full width (32 layers, 40 experts, top 8):
+     one wave of batch 4, prompt 512, gen 16, twice: logits finite, the
+     same greedy tokens, tokens/s;
+  24. all 10 SMOKE configs in float32, prefill + 4 decode steps + the
+     loss on the card against the card machine's CPU: within 1e-3, the
+     same greedy tokens;
+  25. a `{"workload_plane": {...}}` line (the numbers of 21-24), a
+     `{"kernels": [...]}` line (all five kernels), the nvidia-smi line,
      and last `{"ok": true, "device": {...}}`.
 
 Writes the measurements to chiprun_out/chip_smoke.json as well.
 """
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -173,6 +197,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # outside the tensor cores; the replay kernel does float32 compare-selects.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# and the dense bfloat16 tensor-core rate (the served model's products)
+BF16_OPS_PER_S = 989e12
 RTOL = 1e-3
 # 16 cores on 16 private channels: the largest per-core gap between the
 # merged and the isolated replays this script accepts (the contract's
@@ -243,17 +269,16 @@ def profile_run(fn, kernels=()) -> dict:
     """Wall time of one `fn()` under torch.profiler, the device busy time
     (kernels and copies), the top device operations, and for each name in
     `kernels` the device ms and calls of the operations whose name holds
-    it (`kernel_ms`)."""
+    it (`kernel_ms`). The device alone is traced: host-op tracing adds
+    its overhead to the wall, and a run of hundreds of thousands of host
+    operations takes the profiler a minute to aggregate."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side events only: the host ops that launch them report the
-    # same device time again
     dev_ms = {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
@@ -978,6 +1003,334 @@ def orchestration_phases(report: dict) -> dict:
     phase("farm_chaos", **cinfo)
     report["farm_chaos"] = cinfo
     return out
+
+
+def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b| over two tensors of one shape (in float64 on
+    the CPU); inf where the shapes differ or a value is not finite."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    if a.shape != b.shape or not (torch.isfinite(a).all()
+                                  and torch.isfinite(b).all()):
+        return float("inf")
+    if a.numel() == 0:
+        return 0.0
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def tree_rel(a, b) -> float:
+    """The largest `max_rel` over the leaves of two cache trees."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return float("inf")
+        return max(tree_rel(a[k], b[k]) for k in a)
+    return max_rel(a, b)
+
+
+def all_within(errs: dict, tol: float = RTOL) -> bool:
+    """Every error finite and at most `tol` (a NaN fails)."""
+    return all(math.isfinite(v) and v <= tol for v in errs.values())
+
+
+def workload_phases(report: dict) -> dict:
+    """The eighth slice's path: the workload plane's serving path on the
+    card. Returns the `workload_plane` line's numbers."""
+    import contextlib
+    import dataclasses
+    import gc
+    import io
+
+    from repro_torch.api import Simulator
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.kernels.conflict import conflict as ck
+    from repro_torch.kernels.ellpack import ellpack as ek
+    from repro_torch.kernels.replay import megakernel as mk
+    from repro_torch.kernels.systolic import systolic as syk
+    from repro_torch.launch import serve
+    from repro_torch.models import params as pm
+    from repro_torch.models.transformer import LanguageModel
+    from repro_torch.models.zoo import ModelBundle
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wp = dict(card=report["environment"]["card"])
+
+    def reset_counts():
+        mk.LAUNCHES = ck.LAUNCHES = ek.LAUNCHES = 0
+        syk.MATMUL_LAUNCHES = syk.WAVEFRONT_LAUNCHES = 0
+
+    def counts():
+        return dict(replay=mk.LAUNCHES, conflict=ck.LAUNCHES,
+                    ellpack=ek.LAUNCHES, matmul=syk.MATMUL_LAUNCHES,
+                    wavefront=syk.WAVEFRONT_LAUNCHES)
+
+    def no_launches(name, c):
+        """The serving path and the co-simulation launch no kernel."""
+        if any(c.values()):
+            fail(f"{name}: kernel launches {c}, expected none")
+
+    def check_tokens(name, res, cfg):
+        toks = torch.cat(res.waves)
+        if not res.logits_finite:
+            fail(f"{name}: a logit is not finite")
+        if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_padded:
+            fail(f"{name}: a token outside [0, {cfg.vocab_padded})")
+        return int((toks >= cfg.vocab).sum())
+
+    def serve_numbers(runs, cfg, bundle, B, P):
+        weight_bytes = bundle.param_bytes()
+        isz = pm.torch_dtype(cfg.param_dtype).itemsize
+        # the bytes a decode step of B tokens must read: every weight
+        # once, but only B rows of the embedding table and, in a MoE
+        # layer, at most B * top_k of its experts
+        unread = (cfg.vocab_padded - B) * cfg.d_model * isz
+        if cfg.num_experts > 1:
+            unread += cfg.layers * (cfg.num_experts - min(
+                cfg.num_experts, B * cfg.top_k)) * 3 * cfg.d_model \
+                * cfg.d_ff * isz
+        step_bytes = weight_bytes - unread
+        # the products a prefill token needs: the blocks' parameters
+        # (a MoE token reaches top_k of its experts), not the embeddings
+        body = bundle.param_count() - 2 * cfg.vocab_padded * cfg.d_model \
+            - cfg.layers * (cfg.num_experts - cfg.top_k) * 3 * cfg.d_model \
+            * cfg.d_ff * (cfg.num_experts > 1)
+        prefill = [ms for r in runs for ms in r.prefill_ms]
+        decode = [ms for r in runs for ms in r.decode_ms_per_token]
+        return dict(
+            prefill_ms=float(np.median(prefill)), prefill_ms_all=prefill,
+            decode_ms_per_token=float(np.median(decode)),
+            decode_ms_all=decode,
+            tokens_per_s=[r.tokens_per_s for r in runs],
+            wall_s=[r.wall_s for r in runs],
+            weight_bytes=weight_bytes, body_params=body,
+            decode_step_bytes=step_bytes,
+            decode_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+            decode_bound_ms_all_weights=weight_bytes / HBM_BYTES_PER_S * 1e3,
+            prefill_bound_ms=2 * body * B * P / BF16_OPS_PER_S * 1e3,
+            prefill_bound_by="operations", decode_bound_by="bytes")
+
+    # ---- 21. qwen2-1.5b served at full width through the entry point --------
+    arch, B, P, G, R = "qwen2-1.5b", 4, 512, 32, 8
+    argv = ["--arch", arch, "--requests", str(R), "--batch", str(B),
+            "--prompt-len", str(P), "--gen-len", str(G),
+            "--sim-accel", "paper-128"]
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(argv)              # the default device: the card
+    cli_s = time.perf_counter() - t0
+    cli_launches = counts()
+    no_launches("serve_qwen2_full (CLI)", cli_launches)
+    lines = buf.getvalue().splitlines()
+    waves = [ln for ln in lines if ln.startswith("wave done: ")]
+    if rc != 0 or len(waves) != 2 or not all(
+            ln.startswith(f"wave done: {B} seqs x {G} tokens")
+            for ln in waves):
+        fail(f"serve_qwen2_full: rc {rc}, lines {lines}")
+    if not any(ln.startswith(f"served {R} requests, {R * G} tokens in ")
+               and ln.endswith("on cuda") for ln in lines):
+        fail(f"serve_qwen2_full: lines {lines}")
+    cfg = get_config(arch)
+    bundle = ModelBundle(cfg)
+    t0 = time.perf_counter()
+    model = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = serve.make_prompts(cfg, requests=R, prompt_len=P, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    runs = [serve.serve_requests(model, prompts, batch=B, gen_len=G)
+            for _ in range(3)]
+    runs_s = time.perf_counter() - t0
+    no_launches("serve_qwen2_full", counts())
+    peak = torch.cuda.max_memory_allocated()
+    padded = check_tokens("serve_qwen2_full", runs[0], cfg)
+    for r in runs[1:]:
+        check_tokens("serve_qwen2_full", r, cfg)
+        if not all(torch.equal(a, b) for a, b in zip(r.waves,
+                                                     runs[0].waves)):
+            fail("serve_qwen2_full: greedy tokens differ between runs")
+    # the CLI drew the same weights from the same seed: its samples are
+    # the first 8 tokens of each wave's first row
+    for ln, out in zip(waves, runs[0].waves):
+        if not ln.endswith(f"sample: {out[0, :8].tolist()}"):
+            fail(f"serve_qwen2_full: the CLI's tokens differ: {ln} vs "
+                 f"{out[0, :8].tolist()}")
+    # the card's busy share over one wave (some 12,000 host operations a
+    # decode step: the device alone is traced)
+    t0 = time.perf_counter()
+    prof = profile_run(lambda: serve.serve_requests(
+        model, prompts[:B], batch=B, gen_len=G))
+    profile_s = time.perf_counter() - t0
+    qinfo = dict(arch=arch, requests=R, batch=B, prompt_len=P, gen_len=G,
+                 layers=cfg.layers, d_model=cfg.d_model,
+                 vocab_padded=cfg.vocab_padded, dtype=cfg.param_dtype,
+                 cli_s=cli_s, init_s=init_s, runs_s=runs_s,
+                 profile_s=profile_s, cli_launches=cli_launches,
+                 padded_vocab_tokens=padded, peak_memory_bytes=peak,
+                 device_busy_share=prof["device_busy_share"],
+                 profiled_wall_ms=prof["profiled_wall_ms"],
+                 device_busy_ms=prof["device_busy_ms"],
+                 top_device_ops=prof["top_device_ops"],
+                 **serve_numbers(runs, cfg, bundle, B, P))
+    phase("serve_qwen2_full", **qinfo)
+    wp["serve_qwen2_full"] = qinfo
+
+    # the co-simulation: the --sim-accel wave cost on the card and the CPU
+    sims = {}
+    for name, dev in (("cuda", cuda), ("cpu", cpu)):
+        reset_counts()
+        t0 = time.perf_counter()
+        sim = Simulator("paper-128", device=dev)
+        pre, dec, cyc, pj = serve.sim_wave_cost(sim, cfg, prompt_len=P,
+                                                batch=B, gen_len=G)
+        sims[name] = dict(prefill_cycles=pre.total_cycles,
+                          decode_cycles=dec.total_cycles,
+                          wave_cycles=cyc, wave_pj=pj,
+                          seconds=time.perf_counter() - t0,
+                          launches=counts())
+        no_launches(f"serve_sim_accel ({name})", sims[name]["launches"])
+    errs = {k: abs(sims["cuda"][k] - sims["cpu"][k]) / abs(sims["cpu"][k])
+            for k in ("prefill_cycles", "decode_cycles", "wave_cycles",
+                      "wave_pj")}
+    if not all_within(errs):
+        fail(f"serve_sim_accel: card vs CPU {errs}")
+    c = sims["cuda"]
+    want = (f"[sim:paper-128] modeled wave: "
+            f"{sim.seconds(c['wave_cycles']) * 1e3:.2f} ms")
+    if not lines[-1].startswith(want):
+        fail(f"serve_sim_accel: the CLI printed {lines[-1]!r}, want {want}")
+    sinfo = dict(preset="paper-128", card=sims["cuda"], cpu=sims["cpu"],
+                 rel_err=errs, cli_line=lines[-1])
+    phase("serve_sim_accel", **sinfo)
+    wp["serve_sim_accel"] = sinfo
+    del model, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 22. full width, 2 layers, float32: the card against its CPU --------
+    cfg2 = dataclasses.replace(cfg, layers=2, param_dtype="float32")
+    b2 = ModelBundle(cfg2)
+    t2 = time.perf_counter()
+    tree = pm.init_params(b2.defs, torch.Generator().manual_seed(0))
+    m_cpu = LanguageModel(cfg2, tree)
+    m_gpu = LanguageModel(cfg2, pm.tree_map(lambda t: t.to(cuda), tree))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg2.vocab, (2, 128)))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lc, cc = b2.prefill(m_cpu, {"tokens": toks})
+        lg, cg = b2.prefill(m_gpu, {"tokens": toks.to(cuda)})
+        e = dict(prefill_logits=max_rel(lg, lc), prefill_cache=tree_rel(cg, cc))
+        tok_c, tok_g = lc.argmax(-1)[:, None], lg.argmax(-1)[:, None]
+        same = torch.equal(tok_c, tok_g.cpu())
+        lc, cc = b2.decode(m_cpu, cc, tok_c, 128)
+        lg, cg = b2.decode(m_gpu, cg, tok_g, 128)
+        e.update(decode_logits=max_rel(lg, lc), decode_cache=tree_rel(cg, cc))
+        same &= torch.equal(lc.argmax(-1), lg.argmax(-1).cpu())
+    p2 = serve.make_prompts(cfg2, requests=2, prompt_len=128, seed=0)
+    rc_ = serve.serve_requests(m_cpu, p2, batch=2, gen_len=8)
+    rg_ = serve.serve_requests(m_gpu, p2, batch=2, gen_len=8)
+    same_serve = torch.equal(rc_.waves[0], rg_.waves[0].cpu())
+    if not all_within(e) or not same or not same_serve:
+        fail(f"serve_qwen2_2l_f32_vs_cpu: errors {e}, greedy tokens equal "
+             f"{same} (steps), {same_serve} (served)")
+    finfo = dict(arch=arch, layers=2, dtype="float32", batch=2,
+                 prompt_len=128, gen_len=8, tf32=False, rel_err=e,
+                 greedy_equal=True, seconds=time.perf_counter() - t0,
+                 with_init_s=time.perf_counter() - t2,
+                 card_decode_ms_per_token=rg_.decode_ms_per_token[0],
+                 cpu_decode_ms_per_token=rc_.decode_ms_per_token[0])
+    phase("serve_qwen2_2l_f32_vs_cpu", **finfo)
+    wp["serve_qwen2_2l_f32_vs_cpu"] = finfo
+    del m_cpu, m_gpu, tree, cc, cg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 23. the MoE family at published width ------------------------------
+    garch, gB, gP, gG = "granite-moe-3b-a800m", 4, 512, 16
+    gcfg = get_config(garch)
+    gb = ModelBundle(gcfg)
+    t0 = time.perf_counter()
+    gm = gb.init(torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    ginit_s = time.perf_counter() - t0
+    gprompts = serve.make_prompts(gcfg, requests=gB, prompt_len=gP, seed=0)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    gruns = [serve.serve_requests(gm, gprompts, batch=gB, gen_len=gG)
+             for _ in range(2)]
+    glaunches = counts()
+    no_launches("serve_granite_moe_full", glaunches)
+    gpadded = check_tokens("serve_granite_moe_full", gruns[0], gcfg)
+    check_tokens("serve_granite_moe_full", gruns[1], gcfg)
+    if not torch.equal(gruns[0].waves[0], gruns[1].waves[0]):
+        fail("serve_granite_moe_full: greedy tokens differ between runs")
+    ginfo = dict(arch=garch, layers=gcfg.layers, experts=gcfg.num_experts,
+                 top_k=gcfg.top_k, batch=gB, prompt_len=gP, gen_len=gG,
+                 dtype=gcfg.param_dtype, launches=glaunches,
+                 init_s=ginit_s,
+                 padded_vocab_tokens=gpadded,
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                 **serve_numbers(gruns, gcfg, gb, gB, gP))
+    phase("serve_granite_moe_full", **ginfo)
+    wp["serve_granite_moe_full"] = ginfo
+    del gm, gruns
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 24. every family's SMOKE config: the card against its CPU ----------
+    fam = {}
+    t0 = time.perf_counter()
+    for a in list_archs():
+        c = dataclasses.replace(get_config(a, smoke=True),
+                                param_dtype="float32")
+        b = ModelBundle(c)
+        tree = pm.init_params(b.defs, torch.Generator().manual_seed(1))
+        models = {"cpu": LanguageModel(c, tree),
+                  "cuda": LanguageModel(c, pm.tree_map(lambda t: t.to(cuda),
+                                                     tree))}
+        rng = np.random.default_rng(2)
+        x = {"tokens": torch.from_numpy(rng.integers(0, c.vocab, (2, 40))),
+             "labels": torch.from_numpy(rng.integers(0, c.vocab, (2, 40))),
+             "loss_mask": torch.ones(2, 40)}
+        if c.family == "audio":
+            x["frames"] = torch.from_numpy(
+                rng.standard_normal((2, 40, c.d_model)).astype(np.float32))
+        if c.family == "vlm":
+            x["patches"] = torch.from_numpy(rng.standard_normal(
+                (2, c.frontend_tokens, c.d_model)).astype(np.float32))
+        out = {}
+        with torch.inference_mode():
+            for d, m in models.items():
+                xd = {k: v.to(m.device) for k, v in x.items()}
+                pre = {k: v for k, v in xd.items()
+                       if k in ("tokens", "frames", "patches")}
+                logits, cache = b.prefill(m, pre)
+                steps = [logits]
+                for s in range(4):
+                    tok = logits.argmax(-1)[:, None]
+                    logits, cache = b.decode(m, cache, tok, 40 + s)
+                    steps.append(logits)
+                out[d] = dict(steps=steps, cache=cache, loss=b.loss(m, xd))
+        e = dict(
+            logits=max(max_rel(g, cc) for g, cc in
+                       zip(out["cuda"]["steps"], out["cpu"]["steps"])),
+            cache=tree_rel(out["cuda"]["cache"], out["cpu"]["cache"]),
+            loss=max_rel(out["cuda"]["loss"], out["cpu"]["loss"]))
+        greedy = all(torch.equal(g.argmax(-1).cpu(), cc.argmax(-1)) for g, cc
+                     in zip(out["cuda"]["steps"], out["cpu"]["steps"]))
+        if not all_within(e) or not greedy:
+            fail(f"smoke_families_vs_cpu {a}: errors {e}, greedy {greedy}")
+        fam[a] = dict(family=c.family, rel_err=e, greedy_equal=greedy)
+    sfinfo = dict(archs=fam, steps="prefill + 4 decode steps + loss",
+                  dtype="float32", seconds=time.perf_counter() - t0)
+    phase("smoke_families_vs_cpu", **sfinfo)
+    wp["smoke_families_vs_cpu"] = sfinfo
+    report["workload_plane"] = wp
+    return wp
 
 
 def main() -> int:
@@ -2489,6 +2842,12 @@ def main() -> int:
     report["orchestration_phases_s"] = time.perf_counter() - t0
     phase("orchestration_phases", seconds=report["orchestration_phases_s"])
 
+    # ---- 21-24. the eighth slice's path: the workload plane's serving ------
+    t0 = time.perf_counter()
+    workload = workload_phases(report)
+    report["workload_phases_s"] = time.perf_counter() - t0
+    phase("workload_phases", seconds=report["workload_phases_s"])
+
     kernels = {"kernels": [
         dict(name="replay_megakernel", route="cuda",
              source="src/repro_torch/csrc/replay_megakernel.cu",
@@ -2558,6 +2917,7 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                     default=str))
+    print(json.dumps({"workload_plane": workload}, default=str))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

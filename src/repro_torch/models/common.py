@@ -1,0 +1,78 @@
+"""Shared model pieces: norms, RoPE, activations, chunked cross-entropy."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5):
+    xf = x.to(F32)
+    scale = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * scale).to(x.dtype) * gamma
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e6):
+    """x: (..., L, H, hd); positions: (..., L) integer. Rotate-half RoPE;
+    the angles in float32, cos and sin cast to x's dtype."""
+    hd = x.shape[-1]
+    half = hd // 2
+    ar = torch.arange(half, dtype=F32, device=x.device)
+    freqs = 1.0 / (theta ** (ar / half))
+    # angles: (..., L, 1, half) — broadcast over the heads axis
+    ang = positions[..., :, None, None].to(F32) * freqs
+    cos, sin = torch.cos(ang).to(x.dtype), torch.sin(ang).to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+
+
+def swiglu(gate_up: torch.Tensor):
+    g, u = gate_up.chunk(2, dim=-1)
+    return F.silu(g.to(F32)).to(u.dtype) * u
+
+
+def gelu(x):
+    """The tanh form, as `jax.nn.gelu`'s default."""
+    return F.gelu(x.to(F32), approximate="tanh").to(x.dtype)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with a float32 result (the reference's
+    `preferred_element_type=float32`): both operands in float32."""
+    return torch.matmul(a.to(F32), b.to(F32))
+
+
+def chunked_cross_entropy(x: torch.Tensor, unembed: torch.Tensor,
+                          labels: torch.Tensor, *, true_vocab: int,
+                          chunk: int = 512,
+                          mask: Optional[torch.Tensor] = None):
+    """Mean CE without materializing (B, L, V) logits (forward only).
+
+    x: (B, L, d) final hidden; unembed: (d, Vpad); labels: (B, L) integer.
+    A loop over L-chunks keeps peak memory at (B, chunk, Vpad); padded
+    vocab entries are masked to -1e30. mask: (B, L) 1.0 = count this token.
+    As in the reference, only the first (L // chunk) * chunk tokens of a
+    sequence count: the last L % chunk are skipped.
+    """
+    B, L, d = x.shape
+    V = unembed.shape[1]
+    chunk = min(chunk, L)
+    n = L // chunk
+    vocab_ok = torch.arange(V, device=x.device) < true_vocab
+    tot = torch.zeros((), dtype=F32, device=x.device)
+    cnt = torch.zeros((), dtype=F32, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        mc = (mask[:, sl].to(F32) if mask is not None
+              else torch.ones((B, chunk), dtype=F32, device=x.device))
+        logits = matmul_f32(x[:, sl], unembed)
+        logits = torch.where(vocab_ok, logits,
+                             torch.tensor(-1e30, dtype=F32, device=x.device))
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, sl, None].long())[..., 0]
+        tot = tot + torch.sum((lse - gold) * mc)
+        cnt = cnt + torch.sum(mc)
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,0 +1,395 @@
+"""Model assembly for all 10 assigned architectures.
+
+`model_defs(cfg)` is the reference's parameter tree (`ParamDef` leaves
+stacked over layers, and over groups for the hybrid and ssm families), so
+that its parameters convert leaf for leaf. `LanguageModel(cfg, tree)`
+turns a tree of tensors of those shapes into modules: one `nn.Module` per
+block, an `nn.ModuleList` per stack (groups nested for hybrid and ssm),
+and for zamba2 one shared attention block. The block functions take the block's
+parameters by the reference's names (`p["wq"]`), so they read as the
+reference's; the layer scans are Python loops.
+
+Layout: decoder-only (dense/moe/vlm), enc-dec (audio), hybrid, ssm.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from .attention import attention, decode_attention
+from .common import chunked_cross_entropy, rms_norm
+from .config import ModelConfig
+from .ffn import dense_ffn, moe_ffn
+from .params import ParamDef
+from .ssm import (mamba2_decode, mamba2_forward, mlstm_decode, mlstm_forward,
+                  slstm_decode, slstm_forward)
+
+PyTree = Any
+CONV_K = 4
+
+
+def _pd(shape, logical, **kw):
+    return ParamDef(tuple(int(s) for s in shape), tuple(logical), **kw)
+
+
+def _stack(defs: PyTree, n: int) -> PyTree:
+    """Prepend a layer axis to every leaf."""
+    if isinstance(defs, dict):
+        return {k: _stack(v, n) for k, v in defs.items()}
+    return ParamDef((n,) + defs.shape, (None,) + defs.logical, defs.init,
+                    defs.scale, defs.dtype)
+
+
+# --------------------------------------------------------------------------
+# per-block ParamDefs
+# --------------------------------------------------------------------------
+
+def attn_defs(cfg: ModelConfig, dt: str) -> Dict[str, ParamDef]:
+    d, H, KV, hd = cfg.d_model, cfg.heads, cfg.kv_heads, cfg.head_dim
+    defs = {
+        "wq": _pd((d, H, hd), ("fsdp", "tp", None), dtype=dt),
+        "wk": _pd((d, KV, hd), ("fsdp", "tp", None), dtype=dt),
+        "wv": _pd((d, KV, hd), ("fsdp", "tp", None), dtype=dt),
+        "wo": _pd((H, hd, d), ("tp", None, "fsdp"), dtype=dt),
+    }
+    if cfg.qkv_bias:
+        defs.update(bq=_pd((H, hd), ("tp", None), init="zeros", dtype=dt),
+                    bk=_pd((KV, hd), ("tp", None), init="zeros", dtype=dt),
+                    bv=_pd((KV, hd), ("tp", None), init="zeros", dtype=dt))
+    return defs
+
+
+def ffn_defs(cfg: ModelConfig, dt: str) -> Dict[str, ParamDef]:
+    d, F = cfg.d_model, cfg.d_ff
+    if cfg.num_experts > 1:
+        return {
+            "wr": _pd((d, cfg.num_experts), (None, None), dtype=dt),
+            "w_up": _pd((cfg.num_experts, d, 2 * F), (None, "fsdp", "tp"),
+                        dtype=dt),
+            "w_down": _pd((cfg.num_experts, F, d), (None, "tp", "fsdp"),
+                          dtype=dt),
+        }
+    return {"w_up": _pd((d, 2 * F), ("fsdp", "tp"), dtype=dt),
+            "w_down": _pd((F, d), ("tp", "fsdp"), dtype=dt)}
+
+
+def norm_defs(cfg, dt, names=("ln1", "ln2")):
+    return {n: _pd((cfg.d_model,), (None,), init="ones", dtype=dt)
+            for n in names}
+
+
+def mamba_defs(cfg: ModelConfig, dt: str) -> Dict[str, ParamDef]:
+    d, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    return {
+        "in_proj": _pd((d, 2 * di), ("fsdp", "tp"), dtype=dt),
+        "bc_proj": _pd((d, 2 * N), ("fsdp", None), dtype=dt),
+        "dt_proj": _pd((d, H), ("fsdp", None), dtype=dt),
+        "dt_bias": _pd((H,), (None,), init="zeros", dtype="float32"),
+        "A_log": _pd((H,), (None,), init="zeros", dtype="float32"),
+        "D": _pd((H,), (None,), init="ones", dtype="float32"),
+        "conv_w": _pd((CONV_K, di + 2 * N), (None, None), dtype=dt),
+        "gate_norm": _pd((di,), (None,), init="ones", dtype=dt),
+        "out_proj": _pd((di, d), ("tp", "fsdp"), dtype=dt),
+        "ln": _pd((d,), (None,), init="ones", dtype=dt),
+    }
+
+
+def mlstm_defs(cfg: ModelConfig, dt: str) -> Dict[str, ParamDef]:
+    d, di, H = cfg.d_model, cfg.d_inner, cfg.heads
+    return {
+        "up_proj": _pd((d, 2 * di), ("fsdp", "tp"), dtype=dt),
+        "w_qkv": _pd((di, 3 * di), ("fsdp", "tp"), dtype=dt),
+        "w_gates": _pd((di, 2 * H), ("fsdp", None), dtype=dt),
+        "down_proj": _pd((di, d), ("tp", "fsdp"), dtype=dt),
+        "ln": _pd((d,), (None,), init="ones", dtype=dt),
+    }
+
+
+def slstm_defs(cfg: ModelConfig, dt: str) -> Dict[str, ParamDef]:
+    d = cfg.d_model
+    return {
+        "w_in": _pd((d, 4 * d), ("fsdp", "tp"), dtype=dt),
+        "w_rec": _pd((d, 4 * d), ("fsdp", None), dtype=dt, scale=0.002),
+        "w_out": _pd((d, d), ("fsdp", "tp"), dtype=dt),
+        "ln": _pd((d,), (None,), init="ones", dtype=dt),
+    }
+
+
+def hybrid_layout(cfg: ModelConfig):
+    """(groups, blocks a group, tail blocks) of a hybrid stack: groups of
+    (attn_every - 1) mamba blocks and the shared block, then the tail. As
+    in the reference, a stack whose layers divide evenly still gets one
+    tail block."""
+    g = cfg.attn_every
+    groups = cfg.layers // g
+    return groups, g - 1, max(cfg.layers - groups * g, 1)
+
+
+def xlstm_layout(cfg: ModelConfig):
+    """(groups, mLSTM blocks a group): each group ends in one sLSTM block."""
+    g = cfg.slstm_every or 8
+    return cfg.layers // g, g - 1
+
+
+def model_defs(cfg: ModelConfig) -> PyTree:
+    dt = cfg.param_dtype
+    d, Vp = cfg.d_model, cfg.vocab_padded
+    defs: Dict[str, Any] = {
+        "embed": _pd((Vp, d), ("tp", "fsdp"), scale=1.0, dtype=dt),
+        "final_norm": _pd((d,), (None,), init="ones", dtype=dt),
+        "unembed": _pd((d, Vp), ("fsdp", "tp"), dtype=dt),
+    }
+    block = lambda: {**attn_defs(cfg, dt), **ffn_defs(cfg, dt),
+                     **norm_defs(cfg, dt)}
+    if cfg.family in ("dense", "moe", "vlm"):
+        defs["blocks"] = _stack(block(), cfg.layers)
+    elif cfg.family == "audio":
+        defs["enc_blocks"] = _stack(block(), cfg.encoder_layers)
+        dec = {**block(),
+               **{f"x_{k}": v for k, v in attn_defs(cfg, dt).items()},
+               "ln3": _pd((d,), (None,), init="ones", dtype=dt)}
+        defs["dec_blocks"] = _stack(dec, cfg.decoder_layers)
+        defs["enc_norm"] = _pd((d,), (None,), init="ones", dtype=dt)
+    elif cfg.family == "hybrid":
+        groups, per, tail = hybrid_layout(cfg)
+        defs["mamba_groups"] = _stack(_stack(mamba_defs(cfg, dt), per),
+                                      groups)
+        defs["mamba_tail"] = _stack(mamba_defs(cfg, dt), tail)
+        defs["shared_attn"] = block()              # one shared block
+    elif cfg.family == "ssm":
+        groups, per = xlstm_layout(cfg)
+        defs["mlstm_groups"] = _stack(_stack(mlstm_defs(cfg, dt), per),
+                                      groups)
+        defs["slstm_blocks"] = _stack(slstm_defs(cfg, dt), groups)
+    else:
+        raise ValueError(cfg.family)
+    return defs
+
+
+# --------------------------------------------------------------------------
+# block functions (p maps the reference's parameter names)
+# --------------------------------------------------------------------------
+
+def cross_params(pl):
+    """A decoder block's cross-attention parameters, `x_` prefix dropped."""
+    return {k[2:]: v for k, v in pl.items() if k.startswith("x_")}
+
+
+def ffn_apply(pl, x, cfg):
+    if cfg.num_experts > 1:
+        return moe_ffn(pl, x, cfg=cfg)
+    return dense_ffn(pl, x)
+
+
+def transformer_block(pl, x, *, cfg, causal=True, cross=None):
+    """One block; returns (x, (k, v)) with the block's self-attention K/V
+    (prefill keeps them)."""
+    h, kv = attention(pl, rms_norm(x, pl["ln1"], cfg.norm_eps), cfg=cfg,
+                      causal=causal)
+    x = x + h
+    if cross is not None:
+        h, _ = attention(cross_params(pl),
+                         rms_norm(x, pl["ln3"], cfg.norm_eps), cfg=cfg,
+                         causal=False, kv_x=cross, use_rope=False)
+        x = x + h
+    x = x + ffn_apply(pl, rms_norm(x, pl["ln2"], cfg.norm_eps), cfg)
+    return x, kv
+
+
+def transformer_block_decode(pl, x, cache_l, cache_len, *, cfg, cross=None):
+    """One token through one block; writes the block's cache in place."""
+    h, kv = decode_attention(pl, rms_norm(x, pl["ln1"], cfg.norm_eps),
+                             cache_l["k"], cache_l["v"], cache_len, cfg=cfg)
+    x = x + h
+    if cross is not None:
+        h, _ = attention(cross_params(pl),
+                         rms_norm(x, pl["ln3"], cfg.norm_eps), cfg=cfg,
+                         causal=False, kv_x=cross, use_rope=False)
+        x = x + h
+    x = x + ffn_apply(pl, rms_norm(x, pl["ln2"], cfg.norm_eps), cfg)
+    return x, dict(cache_l, k=kv[0], v=kv[1])
+
+
+def _residual(fwd, dec, pl, x, cfg, state, decode):
+    h = rms_norm(x, pl["ln"], cfg.norm_eps)
+    y, s = (dec(pl, h, state, cfg=cfg) if decode
+            else fwd(pl, h, cfg=cfg, state=state))
+    return x + y, s
+
+
+def mamba_block(pl, x, *, cfg, state=None, decode=False):
+    return _residual(mamba2_forward, mamba2_decode, pl, x, cfg, state, decode)
+
+
+def mlstm_block(pl, x, *, cfg, state=None, decode=False):
+    return _residual(mlstm_forward, mlstm_decode, pl, x, cfg, state, decode)
+
+
+def slstm_block(pl, x, *, cfg, state=None, decode=False):
+    return _residual(slstm_forward, slstm_decode, pl, x, cfg, state, decode)
+
+
+# --------------------------------------------------------------------------
+# modules
+# --------------------------------------------------------------------------
+
+class Params(nn.Module):
+    """A block's parameters under the reference's names, readable as
+    `p["wq"]`, `p.get("bq")`, `p.items()`."""
+
+    def __init__(self, cfg: ModelConfig, tree: Dict[str, torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        for k, v in tree.items():
+            self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self._parameters[name]
+
+    def get(self, name: str, default=None):
+        return self._parameters.get(name, default)
+
+    def items(self):
+        return self._parameters.items()
+
+
+class TransformerBlock(Params):
+    def forward(self, x, *, causal=True, cross=None):
+        return transformer_block(self, x, cfg=self.cfg, causal=causal,
+                                 cross=cross)
+
+    def decode(self, x, cache_l, cache_len, *, cross=None):
+        return transformer_block_decode(self, x, cache_l, cache_len,
+                                        cfg=self.cfg, cross=cross)
+
+
+class MambaBlock(Params):
+    def forward(self, x, *, state=None, decode=False):
+        return mamba_block(self, x, cfg=self.cfg, state=state, decode=decode)
+
+
+class MLSTMBlock(Params):
+    def forward(self, x, *, state=None, decode=False):
+        return mlstm_block(self, x, cfg=self.cfg, state=state, decode=decode)
+
+
+class SLSTMBlock(Params):
+    def forward(self, x, *, state=None, decode=False):
+        return slstm_block(self, x, cfg=self.cfg, state=state, decode=decode)
+
+
+def unstack(tree: PyTree) -> list:
+    """A tree of leaves stacked on axis 0 -> one tree per index."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+class LanguageModel(nn.Module):
+    """One architecture's parameters as modules, built over a tree of
+    tensors shaped as `model_defs(cfg)` (each block's parameters are views
+    into the stacked leaves); `cfg` says which stacks it has (the
+    reference's tree keys)."""
+
+    def __init__(self, cfg: ModelConfig, tree: PyTree):
+        super().__init__()
+        self.cfg = cfg
+        for k in ("embed", "final_norm", "unembed", "enc_norm"):
+            if k in tree:
+                self.register_parameter(
+                    k, nn.Parameter(tree[k], requires_grad=False))
+        stack = lambda cls, t: nn.ModuleList(cls(cfg, b) for b in unstack(t))
+        groups = lambda cls, t: nn.ModuleList(stack(cls, g)
+                                              for g in unstack(t))
+        fam = cfg.family
+        if fam in ("dense", "moe", "vlm"):
+            self.blocks = stack(TransformerBlock, tree["blocks"])
+        elif fam == "audio":
+            self.enc_blocks = stack(TransformerBlock, tree["enc_blocks"])
+            self.dec_blocks = stack(TransformerBlock, tree["dec_blocks"])
+        elif fam == "hybrid":
+            self.mamba_groups = groups(MambaBlock, tree["mamba_groups"])
+            self.mamba_tail = stack(MambaBlock, tree["mamba_tail"])
+            self.shared_attn = TransformerBlock(cfg, tree["shared_attn"])
+        elif fam == "ssm":
+            self.mlstm_groups = groups(MLSTMBlock, tree["mlstm_groups"])
+            self.slstm_blocks = stack(SLSTMBlock, tree["slstm_blocks"])
+        else:
+            raise ValueError(fam)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def embed_tokens(self, tokens):
+        return self.embed[tokens]
+
+
+# --------------------------------------------------------------------------
+# stacks
+# --------------------------------------------------------------------------
+
+def decoder_stack(blocks, x, *, causal=True, cross=None):
+    for blk in blocks:
+        x, _ = blk(x, causal=causal, cross=cross)
+    return x
+
+
+def hybrid_stack(model: LanguageModel, x):
+    """zamba2: groups of (attn_every - 1) mamba blocks + 1 shared attn,
+    then the tail mamba blocks."""
+    for group in model.mamba_groups:
+        for blk in group:
+            x, _ = blk(x)
+        x, _ = model.shared_attn(x)
+    for blk in model.mamba_tail:
+        x, _ = blk(x)
+    return x
+
+
+def xlstm_stack(model: LanguageModel, x):
+    for group, sblk in zip(model.mlstm_groups, model.slstm_blocks):
+        for blk in group:
+            x, _ = blk(x)
+        x, _ = sblk(x)
+    return x
+
+
+def backbone(model: LanguageModel, batch) -> torch.Tensor:
+    """Full forward to final hidden states (B, L, d)."""
+    cfg = model.cfg
+    fam = cfg.family
+    if fam == "audio":
+        enc = decoder_stack(model.enc_blocks, batch["frames"],
+                            causal=False)                 # stub frontend
+        enc = rms_norm(enc, model.enc_norm, cfg.norm_eps)
+        x = model.embed_tokens(batch["tokens"])
+        x = decoder_stack(model.dec_blocks, x, causal=True, cross=enc)
+    elif fam == "vlm":
+        x = model.embed_tokens(batch["tokens"])
+        patches = batch.get("patches")
+        if patches is not None:                           # stub ViT frontend
+            x = torch.cat([patches.to(x.dtype), x], dim=1)
+        x = decoder_stack(model.blocks, x)
+        if patches is not None:
+            x = x[:, patches.shape[1]:]
+    elif fam in ("dense", "moe"):
+        x = decoder_stack(model.blocks, model.embed_tokens(batch["tokens"]))
+    elif fam == "hybrid":
+        x = hybrid_stack(model, model.embed_tokens(batch["tokens"]))
+    elif fam == "ssm":
+        x = xlstm_stack(model, model.embed_tokens(batch["tokens"]))
+    else:
+        raise ValueError(fam)
+    return rms_norm(x, model.final_norm, cfg.norm_eps)
+
+
+def lm_loss(model: LanguageModel, batch) -> torch.Tensor:
+    """Mean next-token cross-entropy (forward only)."""
+    return chunked_cross_entropy(backbone(model, batch), model.unembed,
+                                 batch["labels"], true_vocab=model.cfg.vocab,
+                                 mask=batch.get("loss_mask"))

@@ -752,3 +752,92 @@ def test_search_on_the_card_has_the_cpu_cohorts(dev, tmp_path):
             if m not in ("design", "workload", "fidelity"):
                 assert a["best"][m] == pytest.approx(v, rel=1e-3), m
     assert len(logs["cuda"].rounds) == len(logs["cpu"].rounds) == 4
+
+
+# ---- the workload plane: the model zoo and the serve loop -----------------
+
+def _card_and_cpu_models(arch, seed=0):
+    """The SMOKE config in float32, the same weights on the CPU and on the
+    card (TF32 off: full float32 products)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import params as pm
+    from repro_torch.models.transformer import LanguageModel
+    from repro_torch.models.zoo import ModelBundle
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              param_dtype="float32")
+    bundle = ModelBundle(cfg)
+    tree = pm.init_params(bundle.defs, torch.Generator().manual_seed(seed))
+    return bundle, {"cpu": LanguageModel(cfg, tree),
+                    "cuda": LanguageModel(cfg, pm.tree_map(
+                        lambda t: t.to("cuda"), tree))}
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k])]
+    return [tree]
+
+
+def _close(a, b, tol=1e-3):
+    a, b = a.cpu().double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30)) < tol
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "mixtral-8x7b",
+                                  "granite-moe-3b-a800m", "yi-34b",
+                                  "qwen2-72b", "qwen2-1.5b", "glm4-9b",
+                                  "zamba2-7b", "xlstm-1.3b", "internvl2-1b"])
+def test_smoke_model_on_the_card_matches_the_cpu(dev, arch):
+    """Prefill, three decode steps and the loss: within 1e-3 of the CPU,
+    the same greedy tokens."""
+    bundle, models = _card_and_cpu_models(arch)
+    cfg = bundle.cfg
+    rng = np.random.default_rng(3)
+    x = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24))),
+         "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)))}
+    if cfg.family == "audio":
+        x["frames"] = torch.randn(2, 24, cfg.d_model,
+                                  generator=torch.Generator().manual_seed(4))
+    if cfg.family == "vlm":
+        x["patches"] = torch.randn(2, cfg.frontend_tokens, cfg.d_model,
+                                   generator=torch.Generator().manual_seed(4))
+    out = {}
+    with torch.inference_mode():
+        for d, m in models.items():
+            xd = {k: v.to(d) for k, v in x.items()}
+            logits, cache = bundle.prefill(
+                m, {k: v for k, v in xd.items() if k != "labels"})
+            steps = [logits]
+            for s in range(3):
+                logits, cache = bundle.decode(
+                    m, cache, logits.argmax(-1)[:, None], 24 + s)
+                steps.append(logits)
+            out[d] = (steps, cache, bundle.loss(m, xd))
+    for g, c in zip(out["cuda"][0], out["cpu"][0]):
+        assert _close(g, c)
+        assert torch.equal(g.argmax(-1).cpu(), c.argmax(-1))
+    for g, c in zip(_flat(out["cuda"][1]), _flat(out["cpu"][1])):
+        assert g.device.type == "cuda" and _close(g, c)
+    assert _close(out["cuda"][2], out["cpu"][2])
+
+
+def test_serve_on_the_card_matches_the_cpu(dev):
+    from repro_torch.launch import serve
+    bundle, models = _card_and_cpu_models("qwen2-1.5b", seed=1)
+    prompts = serve.make_prompts(bundle.cfg, requests=3, prompt_len=20)
+    res = {d: serve.serve_requests(m, prompts, batch=2, gen_len=6)
+           for d, m in models.items()}
+    assert res["cuda"].logits_finite and res["cuda"].done == 3
+    for g, c in zip(res["cuda"].waves, res["cpu"].waves):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), c)
+
+
+def test_serve_entry_point_runs_on_the_card_by_default(dev, capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--smoke", "--requests", "2", "--batch", "2",
+                       "--prompt-len", "8", "--gen-len", "3"]) == 0
+    assert "on cuda" in capsys.readouterr().out

@@ -203,6 +203,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "instantaneous_power_trace(f.active, repro_torch.tpu_like_config())\n"
         "sample_rowwise_counts(torch.Generator().manual_seed(0), 4, 16, 8)\n"
         "pack_with_report(torch.ones(4, 16), m=8)\n"
+        "import repro_torch.configs, repro_torch.models.zoo\n"
+        "from repro_torch.launch import serve\n"
+        "assert serve.main(['--smoke', '--device', 'cpu', '--requests', '1',"
+        " '--batch', '1', '--prompt-len', '4', '--gen-len', '2']) == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print('LEAKED', bad)\n"
