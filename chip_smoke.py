@@ -176,14 +176,39 @@ own line; any failure exits non-zero before the final result line:
   24. all 10 SMOKE configs in float32, prefill + 4 decode steps + the
      loss on the card against the card machine's CPU: within 1e-3, the
      same greedy tokens;
-  25. a `{"workload_plane": {...}}` line (the numbers of 21-24), a
-     `{"kernels": [...]}` line (all five kernels), the nvidia-smi line,
-     and last `{"ok": true, "device": {...}}`.
+  25. the ninth slice's path, training: qwen2-1.5b at full width and
+     depth (bfloat16), 6 steps of `ModelBundle.train_step` at batch 8 x
+     seq 1,024 (a cosine schedule peaking at 3e-4, random weights from
+     seed 0; every kernel count reset just before: none launched): every
+     loss and gradient norm finite, the first loss within 1.5 of
+     ln(vocab), every leaf's gradient nonzero and every leaf changed that
+     bfloat16 can move; step ms (median of steps 2-6) beside the step's
+     bound, tokens/s, peak memory, the card's busy share over one more
+     step (a profile); then `python -m repro_torch.launch.train --steps
+     6 --batch 8 --seq 1024 --sim-accel paper-128` as a subprocess: it
+     prints `done.`, and its modeled step equals the card's and the card
+     machine's CPU's co-simulation within 1e-3;
+  26. qwen2-1.5b at full width, 2 layers, float32: one train step from
+     the same weights on the card and the card machine's CPU (TF32 off):
+     loss, gradient norm, both moments and the updated parameters within
+     1e-3 (parameters where the gradient is at least 100 x AdamW's eps;
+     within 2 lr elsewhere, see `step_errors`);
+  27. the same one-step comparison for all 10 SMOKE configs in float32;
+  28. save (async), restore and replay on the card (qwen2 and granite
+     SMOKE configs, 6 steps, restored at 3) under deterministic
+     algorithms: parameters and moments bit for bit;
+  29. granite-moe-3b-a800m at full width, 3 steps of batch 4 x seq 512,
+     checked as in 25;
+  30. a `{"workload_plane": {...}}` line (the numbers of 21-24), a
+     `{"training": {...}}` line (25-29), a `{"kernels": [...]}` line (all
+     five kernels), the nvidia-smi line, and last `{"ok": true,
+     "device": {...}}`.
 
 Writes the measurements to chiprun_out/chip_smoke.json as well.
 """
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -1031,6 +1056,32 @@ def all_within(errs: dict, tol: float = RTOL) -> bool:
     return all(math.isfinite(v) and v <= tol for v in errs.values())
 
 
+def reset_launch_counts():
+    """Every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels.conflict import conflict as ck
+    from repro_torch.kernels.ellpack import ellpack as ek
+    from repro_torch.kernels.replay import megakernel as mk
+    from repro_torch.kernels.systolic import systolic as syk
+    mk.LAUNCHES = ck.LAUNCHES = ek.LAUNCHES = 0
+    syk.MATMUL_LAUNCHES = syk.WAVEFRONT_LAUNCHES = 0
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels.conflict import conflict as ck
+    from repro_torch.kernels.ellpack import ellpack as ek
+    from repro_torch.kernels.replay import megakernel as mk
+    from repro_torch.kernels.systolic import systolic as syk
+    return dict(replay=mk.LAUNCHES, conflict=ck.LAUNCHES,
+                ellpack=ek.LAUNCHES, matmul=syk.MATMUL_LAUNCHES,
+                wavefront=syk.WAVEFRONT_LAUNCHES)
+
+
+def no_launches(name, c):
+    """The workload plane and the co-simulation launch no kernel."""
+    if any(c.values()):
+        fail(f"{name}: kernel launches {c}, expected none")
+
+
 def workload_phases(report: dict) -> dict:
     """The eighth slice's path: the workload plane's serving path on the
     card. Returns the `workload_plane` line's numbers."""
@@ -1041,10 +1092,6 @@ def workload_phases(report: dict) -> dict:
 
     from repro_torch.api import Simulator
     from repro_torch.configs import get_config, list_archs
-    from repro_torch.kernels.conflict import conflict as ck
-    from repro_torch.kernels.ellpack import ellpack as ek
-    from repro_torch.kernels.replay import megakernel as mk
-    from repro_torch.kernels.systolic import systolic as syk
     from repro_torch.launch import serve
     from repro_torch.models import params as pm
     from repro_torch.models.transformer import LanguageModel
@@ -1055,19 +1102,7 @@ def workload_phases(report: dict) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     wp = dict(card=report["environment"]["card"])
 
-    def reset_counts():
-        mk.LAUNCHES = ck.LAUNCHES = ek.LAUNCHES = 0
-        syk.MATMUL_LAUNCHES = syk.WAVEFRONT_LAUNCHES = 0
-
-    def counts():
-        return dict(replay=mk.LAUNCHES, conflict=ck.LAUNCHES,
-                    ellpack=ek.LAUNCHES, matmul=syk.MATMUL_LAUNCHES,
-                    wavefront=syk.WAVEFRONT_LAUNCHES)
-
-    def no_launches(name, c):
-        """The serving path and the co-simulation launch no kernel."""
-        if any(c.values()):
-            fail(f"{name}: kernel launches {c}, expected none")
+    reset_counts, counts = reset_launch_counts, launch_counts
 
     def check_tokens(name, res, cfg):
         toks = torch.cat(res.waves)
@@ -1333,11 +1368,374 @@ def workload_phases(report: dict) -> dict:
     return wp
 
 
+def train_bound(cfg, bundle, B, L) -> dict:
+    """The least time of one train step of B x L tokens: the products of
+    the forward and backward over 989 TFLOP/s (6 x the parameters a token
+    reaches, the unembedding's included, the embedding's not; attention's
+    scores and context 4 B L^2 H hd a layer, three times) plus the
+    optimizer's bytes over 3.35 TB/s (each parameter read and written, its
+    gradient read, both float32 moments read and written). The optimizer
+    waits for the last gradient, so the two add."""
+    isz = bundle.param_bytes() / bundle.param_count()
+    inactive = cfg.layers * (cfg.num_experts - cfg.top_k) * 3 \
+        * cfg.d_model * cfg.d_ff if cfg.num_experts > 1 else 0
+    reached = bundle.param_count() - cfg.vocab_padded * cfg.d_model \
+        - inactive
+    tokens = B * L
+    attn = 3 * 4 * B * L * L * cfg.heads * cfg.head_dim * cfg.layers
+    flops = 6 * reached * tokens + attn
+    opt_bytes = bundle.param_count() * (3 * isz + 16)
+    ms = flops / BF16_OPS_PER_S * 1e3 + opt_bytes / HBM_BYTES_PER_S * 1e3
+    return dict(flops=flops, attention_flops=attn, optimizer_bytes=opt_bytes,
+                gemm_bound_ms=flops / BF16_OPS_PER_S * 1e3,
+                optimizer_bound_ms=opt_bytes / HBM_BYTES_PER_S * 1e3,
+                step_bound_ms=ms)
+
+
+def step_errors(card: dict, cpu: dict, lr: float) -> dict:
+    """One train step on the card against the same step on the CPU: the
+    loss and the gradient norm (relative), each moment (max |a - b| over
+    the leaf's max |b|), and the updated parameters relative to the leaf's
+    largest magnitude wherever the CPU's clipped gradient (the first
+    moment / (1 - 0.9)) is at least 100 x AdamW's eps of 1e-8. AdamW's
+    first step moves a parameter by lr g / (|g| + 1e-8): a gradient near
+    1e-8 moves it anywhere in [-lr, lr] on rounding alone, so there the
+    parameters are held, as `params_eps_share`, to the 2 lr every update
+    keeps. Each a dict of tensors: loss, grad_norm, params, m, v."""
+    from repro_torch.models.params import tree_leaves
+    e = dict(loss=max_rel(card["loss"], cpu["loss"]),
+             grad_norm=max_rel(card["grad_norm"], cpu["grad_norm"]),
+             m=tree_rel(card["m"], cpu["m"]), v=tree_rel(card["v"], cpu["v"]))
+    sure_err, eps_err = 0.0, 0.0
+    for a, b, m in zip(tree_leaves(card["params"]),
+                       tree_leaves(cpu["params"]), tree_leaves(cpu["m"])):
+        a, b = a.detach().cpu().double(), b.detach().double()
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            return dict(e, params=float("inf"))
+        err = (a - b).abs()
+        sure = m.double().abs() / 0.1 >= 100 * 1e-8
+        scale = b.abs().max().clamp_min(1e-30)
+        if sure.any():
+            sure_err = max(sure_err, float(err[sure].max() / scale))
+        if (~sure).any():
+            eps_err = max(eps_err, float(err[~sure].max()) / (2 * lr))
+    return dict(e, params=sure_err, params_eps_share=eps_err)
+
+
+def training_phases(report: dict) -> dict:
+    """The ninth slice's path: the training step on the card. Returns the
+    `training` line's numbers."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+    import warnings
+
+    from repro_torch.api import Simulator
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.models import params as pm
+    from repro_torch.models.transformer import LanguageModel
+    from repro_torch.models.zoo import ModelBundle, params_tree
+    from repro_torch.optim import cosine_schedule
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tr = dict(card=report["environment"]["card"])
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+
+    def batches(cfg, B, L, n, seed=0):
+        ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=L,
+                                           global_batch=B, seed=seed))
+        return [{k: torch.from_numpy(v).to(cuda)
+                 for k, v in ds.global_batch_at(i).items()}
+                for i in range(n)]
+
+    def full_width(name, arch, B, L, steps, profile):
+        """`steps` train steps of the arch at full width and depth from
+        seed 0's weights at a cosine schedule peaking at 3e-4: every loss
+        and gradient norm finite, the first loss within 1.5 of
+        ln(vocab), every leaf's gradient nonzero, every leaf changed that
+        bfloat16 can move, no kernel launched; step times, tokens/s, peak
+        memory, the bound, and with `profile` the card's busy share over
+        one more step."""
+        cfg = get_config(arch)
+        bundle = ModelBundle(cfg)
+        t0 = time.perf_counter()
+        model = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+        opt = bundle.opt_init(model)
+        before = pm.tree_map(torch.clone, params_tree(model))
+        data = batches(cfg, B, L, steps)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        lr_max = 3e-4
+        step = bundle.train_step(lr=cosine_schedule(lr_max, 1, steps))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        ms, losses, gnorms = [], [], []
+        for batch in data:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, opt, m = step(model, opt, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        launches = launch_counts()
+        no_launches(name, launches)
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in losses + gnorms):
+            fail(f"{name}: losses {losses}, grad norms {gnorms}")
+        if abs(losses[0] - math.log(cfg.vocab)) >= 1.5:
+            fail(f"{name}: first loss {losses[0]}, ln(vocab) "
+                 f"{math.log(cfg.vocab)}")
+        after = dict(flatten_with_paths(params_tree(model)))
+        same = [n for n, a in flatten_with_paths(before)
+                if torch.equal(a, after[n])]
+        # the gradient reached every leaf; every leaf moved but those
+        # bfloat16 cannot move: an element moves only if its step, at most
+        # lr (1.17 + 0.1 |p|) in AdamW (b1 0.9, b2 0.95, decay 0.1),
+        # reaches half its spacing, at least |p| 2^-9, so a leaf whose
+        # every |p| exceeds 1.17 lr / (2^-9 - 0.1 lr) stays (the norm
+        # gains at 1.0, at lr 3e-4)
+        floor = 1.17 * lr_max / (2 ** -9 - 0.1 * lr_max)
+        rounded = [n for n in same if after[n].dtype == torch.bfloat16
+                   and bool((after[n].abs() > floor).all())]
+        dead = [n for n, mt in flatten_with_paths(opt.m) if not mt.any()]
+        if dead or set(same) - set(rounded):
+            fail(f"{name}: leaves without a gradient {dead}; unchanged by "
+                 f"{steps} steps {same}, of which bfloat16 cannot move "
+                 f"{rounded}")
+        if int(opt.step) != steps:
+            fail(f"{name}: optimizer step {int(opt.step)}")
+        del before
+        steady = float(np.median(ms[1:]))
+        info = dict(arch=arch, layers=cfg.layers, d_model=cfg.d_model,
+                    dtype=cfg.param_dtype, batch=B, seq=L, steps=steps,
+                    params=bundle.param_count(),
+                    weight_bytes=bundle.param_bytes(), init_s=init_s,
+                    launches=launches, losses=losses, grad_norms=gnorms,
+                    unchanged_bf16_leaves=rounded,
+                    step_ms_all=ms, step_ms=steady,
+                    tokens_per_s=B * L / steady * 1e3,
+                    peak_memory_bytes=peak, **train_bound(cfg, bundle, B, L))
+        info["step_over_bound"] = steady / info["step_bound_ms"]
+        if profile:
+            t0 = time.perf_counter()
+            prof = profile_run(lambda: step(model, opt, data[0]))
+            info.update(profile_s=time.perf_counter() - t0,
+                        device_busy_share=prof["device_busy_share"],
+                        profiled_wall_ms=prof["profiled_wall_ms"],
+                        device_busy_ms=prof["device_busy_ms"],
+                        top_device_ops=prof["top_device_ops"])
+        phase(name, **info)
+        del model, opt, data
+        gc.collect()
+        torch.cuda.empty_cache()
+        return info
+
+    # ---- 25. qwen2-1.5b trained at full width, then through the CLI -------
+    arch, B, L = "qwen2-1.5b", 8, 1024
+    t0 = time.perf_counter()
+    qinfo = full_width("train_qwen2_full", arch, B, L, 6, profile=True)
+    ck = build / "train_cli_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    pp = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src")
+               + (os.pathsep + pp if pp else ""))
+    tc = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--steps", "6", "--batch", str(B), "--seq", str(L), "--sim-accel",
+         "paper-128", "--ckpt-dir", str(ck)], capture_output=True,
+        text=True, timeout=900, env=env, cwd=str(ROOT))
+    cli_s = time.perf_counter() - tc
+    ck_bytes = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file()) \
+        if ck.exists() else 0
+    shutil.rmtree(ck, ignore_errors=True)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or not lines or \
+            not lines[-1].startswith("done. loss "):
+        fail(f"train CLI: rc {proc.returncode}, out {lines[-8:]}, err "
+             f"{proc.stderr[-2000:]}")
+    sims = {}
+    for dname, dev in (("cuda", cuda), ("cpu", cpu)):
+        reset_launch_counts()
+        ts = time.perf_counter()
+        sim = Simulator("paper-128", device=dev)
+        rep = sim.run_lm(get_config(arch), seq=L, batch=B, mode="train")
+        sims[dname] = dict(cycles=rep.total_cycles, pj=rep.energy_pj,
+                           ms=sim.seconds(rep.total_cycles) * 1e3,
+                           utilization=rep.utilization,
+                           seconds=time.perf_counter() - ts,
+                           launches=launch_counts())
+        no_launches(f"train sim-accel ({dname})", sims[dname]["launches"])
+    cli_ms = float(lines[0].split("modeled train step: ")[1].split(" ms")[0]) \
+        if lines[0].startswith("[sim:paper-128] modeled train step: ") \
+        else float("nan")
+    errs = dict(cycles=abs(sims["cuda"]["cycles"] - sims["cpu"]["cycles"])
+                / sims["cpu"]["cycles"],
+                pj=abs(sims["cuda"]["pj"] - sims["cpu"]["pj"])
+                / sims["cpu"]["pj"],
+                cli_ms=abs(cli_ms - sims["cpu"]["ms"]) / sims["cpu"]["ms"])
+    if not all_within(errs):
+        fail(f"train CLI sim-accel: card / CLI vs CPU {errs}, "
+             f"line {lines[0]!r}")
+    qinfo.update(cli=dict(seconds=cli_s, checkpoint_bytes=ck_bytes,
+                          lines=lines, sim_card=sims["cuda"],
+                          sim_cpu=sims["cpu"], sim_rel_err=errs))
+    qinfo["phase_s"] = time.perf_counter() - t0
+    phase("train_qwen2_cli", **qinfo["cli"])
+    tr["train_qwen2_full"] = qinfo
+
+    # ---- 26. full width, 2 layers, float32: the card against its CPU -------
+    def one_step_both(cfg, tree, batch, lr):
+        """One train step from the same weights on the card and the CPU;
+        returns each side's loss, grad norm, params and moments."""
+        out = {}
+        for dname, dev in (("cuda", cuda), ("cpu", cpu)):
+            model = LanguageModel(cfg, pm.tree_map(
+                lambda t: t.to(dev, copy=True), tree))
+            bundle = ModelBundle(cfg)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            ts = time.perf_counter()
+            _, opt, m = bundle.train_step(lr=lr)(model, bundle.opt_init(model),
+                                                 b)
+            loss = m["loss"].cpu()
+            out[dname] = dict(loss=loss, grad_norm=m["grad_norm"],
+                              params=params_tree(model), m=opt.m, v=opt.v,
+                              seconds=time.perf_counter() - ts)
+        return out
+
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(get_config(arch), layers=2,
+                               param_dtype="float32")
+    tree = pm.init_params(ModelBundle(cfg2).defs,
+                          torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg2.vocab, (2, 128))),
+             "labels": torch.from_numpy(rng.integers(0, cfg2.vocab, (2, 128)))}
+    both = one_step_both(cfg2, tree, batch, 1e-2)
+    e = step_errors(both["cuda"], both["cpu"], 1e-2)
+    eps_share = e.pop("params_eps_share")
+    if not all_within(e) or not eps_share <= 1.0:
+        fail(f"train_qwen2_2layer_f32: card vs CPU {e}, "
+             f"eps share {eps_share}")
+    finfo = dict(arch=arch, layers=2, dtype="float32", batch=2, seq=128,
+                 lr=1e-2, tf32=False, rel_err=e, params_eps_share=eps_share,
+                 card_step_s=both["cuda"]["seconds"],
+                 cpu_step_s=both["cpu"]["seconds"],
+                 seconds=time.perf_counter() - t0)
+    phase("train_qwen2_2layer_f32", **finfo)
+    tr["train_qwen2_2layer_f32"] = finfo
+    del both, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 27. every family's SMOKE config: one step, card against CPU -------
+    fam = {}
+    t0 = time.perf_counter()
+    for a in list_archs():
+        c = dataclasses.replace(get_config(a, smoke=True),
+                                param_dtype="float32")
+        tree = pm.init_params(ModelBundle(c).defs,
+                              torch.Generator().manual_seed(1))
+        rng = np.random.default_rng(2)
+        x = {"tokens": torch.from_numpy(rng.integers(0, c.vocab, (2, 40))),
+             "labels": torch.from_numpy(rng.integers(0, c.vocab, (2, 40))),
+             "loss_mask": torch.from_numpy(
+                 (rng.random((2, 40)) < 0.9).astype(np.float32))}
+        if c.family == "audio":
+            x["frames"] = torch.from_numpy(
+                rng.standard_normal((2, 40, c.d_model)).astype(np.float32))
+        if c.family == "vlm":
+            x["patches"] = torch.from_numpy(rng.standard_normal(
+                (2, c.frontend_tokens, c.d_model)).astype(np.float32))
+        reset_launch_counts()
+        both = one_step_both(c, tree, x, 1e-2)
+        no_launches(f"train_families {a}", launch_counts())
+        e = step_errors(both["cuda"], both["cpu"], 1e-2)
+        eps_share = e.pop("params_eps_share")
+        if not all_within(e) or not eps_share <= 1.0:
+            fail(f"train_families {a}: card vs CPU {e}, eps share "
+                 f"{eps_share}")
+        fam[a] = dict(family=c.family, rel_err=e,
+                      params_eps_share=eps_share)
+    sfinfo = dict(archs=fam, dtype="float32", batch=2, seq=40, lr=1e-2,
+                  seconds=time.perf_counter() - t0)
+    phase("train_families", **sfinfo)
+    tr["train_families"] = sfinfo
+
+    # ---- 28. save (async), restore and replay: exact under determinism -----
+    # Plain CUDA adds the embedding gather's and the MoE scatter's
+    # gradients with atomics, in no fixed order; deterministic algorithms
+    # (CUBLAS_WORKSPACE_CONFIG is set before cuBLAS starts, in main) make a
+    # replay bit for bit
+    t0 = time.perf_counter()
+    rinfo = dict(deterministic=True, steps=6, saved_at=3, archs={})
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for a in ("qwen2-1.5b", "granite-moe-3b-a800m"):
+                bundle = ModelBundle(get_config(a, smoke=True))
+                model = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+                opt = bundle.opt_init(model)
+                step = bundle.train_step(lr=1e-3)
+                data = batches(bundle.cfg, 4, 64, 6, seed=2)
+                with tempfile.TemporaryDirectory(dir=build) as d:
+                    mgr = CheckpointManager(d)
+                    for i in range(6):
+                        if i == 3:
+                            mgr.save(3, {"p": params_tree(model), "o": opt})
+                        _, opt, _ = step(model, opt, data[i])
+                    model2 = bundle.init(
+                        torch.Generator(device=cuda).manual_seed(7))
+                    state = mgr.restore({"p": params_tree(model2),
+                                         "o": bundle.opt_init(model2)})
+                params_tree(model2, state["p"])
+                opt2 = state["o"]
+                for i in range(3, 6):
+                    _, opt2, _ = step(model2, opt2, data[i])
+                diff = [n for (n, x), (_, y) in zip(
+                    flatten_with_paths({"p": params_tree(model), "o": opt}),
+                    flatten_with_paths({"p": params_tree(model2),
+                                        "o": opt2}))
+                    if not torch.equal(x, y)]
+                if diff:
+                    fail(f"train_restart {a}: the replay differs in {diff}")
+                rinfo["archs"][a] = dict(dtype=bundle.cfg.param_dtype,
+                                         exact=True)
+        rinfo["nondeterministic_warnings"] = sorted(
+            {str(w.message)[:120] for w in caught})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rinfo["seconds"] = time.perf_counter() - t0
+    phase("train_restart", **rinfo)
+    tr["train_restart"] = rinfo
+
+    # ---- 29. the MoE family at full width -----------------------------------
+    t0 = time.perf_counter()
+    ginfo = full_width("train_granite_moe_full", "granite-moe-3b-a800m", 4,
+                       512, 3, profile=False)
+    ginfo["phase_s"] = time.perf_counter() - t0
+    tr["train_granite_moe_full"] = ginfo
+    report["training"] = tr
+    return tr
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs "
               "the port on the GPU", file=sys.stderr)
         return 2
+    # a deterministic cuBLAS workspace for the restart phase: read when
+    # cuBLAS starts, before the first product
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch as rt
     from repro_torch.api import simulator as sim
@@ -2848,6 +3246,12 @@ def main() -> int:
     report["workload_phases_s"] = time.perf_counter() - t0
     phase("workload_phases", seconds=report["workload_phases_s"])
 
+    # ---- 25-29. the ninth slice's path: training ---------------------------
+    t0 = time.perf_counter()
+    training = training_phases(report)
+    report["training_phases_s"] = time.perf_counter() - t0
+    phase("training_phases", seconds=report["training_phases_s"])
+
     kernels = {"kernels": [
         dict(name="replay_megakernel", route="cuda",
              source="src/repro_torch/csrc/replay_megakernel.cu",
@@ -2918,6 +3322,7 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                     default=str))
     print(json.dumps({"workload_plane": workload}, default=str))
+    print(json.dumps({"training": training}, default=str))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

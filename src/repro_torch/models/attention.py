@@ -1,7 +1,8 @@
 """GQA attention: query-chunked prefill, cached decode, windows.
 
 The full-sequence pass loops over query chunks of 256 with the full K/V
-per chunk (peak memory chunk x S instead of L x S); causal and window
+per chunk (peak memory chunk x S instead of L x S; under autograd a
+chunk's scores are recomputed in the backward); causal and window
 masks come from absolute positions, scores and softmax in float32, the
 probabilities cast to v's dtype, as in the reference
 (`repro/models/attention.py`). Written in plain PyTorch ops rather than
@@ -15,7 +16,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .common import F32, rope
+from .common import F32, remat, rope
 
 NEG = -1e30
 
@@ -60,7 +61,9 @@ def gqa_scores_ctx(q, k, v, *, causal: bool, window: int, q_offset: int,
     outs = []
     for i in range(n):
         qpos = q_offset + i * chunk + torch.arange(chunk, device=q.device)
-        outs.append(one_chunk(qg[:, i * chunk:(i + 1) * chunk], qpos))
+        # recomputed in the backward, as the reference's checkpointed scan
+        outs.append(remat(one_chunk, qg[:, i * chunk:(i + 1) * chunk],
+                          qpos))
     out = torch.cat(outs, dim=1)
     return out[:, :Lq].reshape(B, Lq, H, hd)
 

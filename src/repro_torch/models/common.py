@@ -5,8 +5,21 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 F32 = torch.float32
+
+
+def remat(fn, *args, **kwargs):
+    """fn(*args, **kwargs) with its activations recomputed in the backward
+    instead of kept, where the reference puts a `jax.checkpoint`; a plain
+    call when autograd is not recording (serving). Remat changes memory,
+    not numbers; the forward draws no random numbers, so no RNG state is
+    stashed."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+    return fn(*args, **kwargs)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5):
@@ -49,30 +62,36 @@ def chunked_cross_entropy(x: torch.Tensor, unembed: torch.Tensor,
                           labels: torch.Tensor, *, true_vocab: int,
                           chunk: int = 512,
                           mask: Optional[torch.Tensor] = None):
-    """Mean CE without materializing (B, L, V) logits (forward only).
+    """Mean CE without materializing (B, L, V) logits.
 
     x: (B, L, d) final hidden; unembed: (d, Vpad); labels: (B, L) integer.
-    A loop over L-chunks keeps peak memory at (B, chunk, Vpad); padded
-    vocab entries are masked to -1e30. mask: (B, L) 1.0 = count this token.
-    As in the reference, only the first (L // chunk) * chunk tokens of a
-    sequence count: the last L % chunk are skipped.
+    A loop over L-chunks keeps peak memory at (B, chunk, Vpad), and under
+    autograd each chunk's logits are recomputed in the backward (as the
+    reference's checkpointed scan body), so the backward too holds one
+    chunk; padded vocab entries are masked to -1e30. mask: (B, L) 1.0 =
+    count this token. As in the reference, only the first
+    (L // chunk) * chunk tokens of a sequence count: the last L % chunk
+    are skipped.
     """
     B, L, d = x.shape
     V = unembed.shape[1]
     chunk = min(chunk, L)
     n = L // chunk
     vocab_ok = torch.arange(V, device=x.device) < true_vocab
+    neg = torch.tensor(-1e30, dtype=F32, device=x.device)
+
+    def chunk_loss(xc, yc, mc):
+        logits = torch.where(vocab_ok, matmul_f32(xc, unembed), neg)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+        return torch.sum((lse - gold) * mc)
+
     tot = torch.zeros((), dtype=F32, device=x.device)
     cnt = torch.zeros((), dtype=F32, device=x.device)
     for i in range(n):
         sl = slice(i * chunk, (i + 1) * chunk)
         mc = (mask[:, sl].to(F32) if mask is not None
               else torch.ones((B, chunk), dtype=F32, device=x.device))
-        logits = matmul_f32(x[:, sl], unembed)
-        logits = torch.where(vocab_ok, logits,
-                             torch.tensor(-1e30, dtype=F32, device=x.device))
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, sl, None].long())[..., 0]
-        tot = tot + torch.sum((lse - gold) * mc)
+        tot = tot + remat(chunk_loss, x[:, sl], labels[:, sl], mc)
         cnt = cnt + torch.sum(mc)
     return tot / torch.clamp(cnt, min=1.0)

@@ -46,8 +46,10 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
 
 
 def tree_leaves(tree: PyTree) -> list:
+    """The leaves of nested dicts in the reference's flatten order (keys
+    sorted)."""
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     return [tree]
 
 

@@ -4,7 +4,9 @@ sLSTM (scanned scalar memory with exponential gating).
 Each has a parallel prefill form (a loop over sequence chunks carrying
 O(1) state) and a single-token decode form carrying explicit recurrent
 state, as in the reference (`repro/models/ssm.py`), whose `lax.scan`s are
-Python loops here. As there, a sequence longer than a chunk must be a
+Python loops here. Under autograd the Mamba2 and mLSTM chunks are
+recomputed in the backward, where the reference checkpoints its chunk
+bodies. As there, a sequence longer than a chunk must be a
 whole number of chunks, and `mamba2_forward` reads only the SSM part of a
 given state (not its conv buffer).
 """
@@ -15,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import F32, rms_norm
+from .common import F32, remat, rms_norm
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -54,6 +56,27 @@ def _mamba_out(p, y, z, x, cfg):
     return torch.matmul(y, p["out_proj"])
 
 
+def _mamba_chunk(S, xq, dq, bq, cq, A):
+    """One SSD chunk: (B,Q,H,hd) (B,Q,H) (B,Q,N) (B,Q,N) and the carried
+    state S -> (new S, the chunk's y)."""
+    xq = xq.to(F32)
+    Q = xq.shape[1]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xq.device))
+    dA = dq * A                                                # (B,Q,H)
+    cums = torch.cumsum(dA, dim=1)
+    seg = torch.exp(cums[:, :, None, :] - cums[:, None, :, :])  # (B,i,j,H)
+    scores = torch.einsum("bin,bjn->bij", cq, bq)              # shared heads
+    w = torch.where(mask[None, :, :, None], seg, 0.0) \
+        * scores[..., None] * dq[:, None, :, :]                # (B,i,j,H)
+    y_intra = torch.einsum("bijh,bjhp->bihp", w, xq)
+    decay_out = torch.exp(cums)                                # (B,Q,H)
+    y_inter = torch.einsum("bin,bhpn,bih->bihp", cq, S, decay_out)
+    tail = torch.exp(cums[:, -1:, :] - cums)                   # (B,Q,H)
+    contrib = torch.einsum("bjn,bjh,bjhp->bhpn", bq, tail * dq, xq)
+    S = S * torch.exp(cums[:, -1])[:, :, None, None] + contrib
+    return S, y_intra + y_inter
+
+
 def mamba2_forward(p, x, *, cfg, chunk: int = 128,
                    state: Optional[Tuple] = None):
     """x: (B, L, d) -> (y, (S (B,H,hd,N), conv_buf (B,K-1,di+2N)))."""
@@ -71,26 +94,12 @@ def mamba2_forward(p, x, *, cfg, chunk: int = 128,
     nc = L // chunk
     S = (torch.zeros((B, H, hd, N), dtype=F32, device=x.device)
          if state is None else state[0])
-    Q = chunk
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     ys = []
     for xq, dq, bq, cq in zip(_chunks(xin.reshape(B, L, H, hd), nc, chunk),
                               _chunks(dt, nc, chunk), _chunks(Bm, nc, chunk),
                               _chunks(Cm, nc, chunk)):
-        xq = xq.to(F32)                   # (B,Q,H,hd) (B,Q,H) (B,Q,N) (B,Q,N)
-        dA = dq * A                                            # (B,Q,H)
-        cums = torch.cumsum(dA, dim=1)
-        seg = torch.exp(cums[:, :, None, :] - cums[:, None, :, :])  # (B,i,j,H)
-        scores = torch.einsum("bin,bjn->bij", cq, bq)          # shared heads
-        w = torch.where(mask[None, :, :, None], seg, 0.0) \
-            * scores[..., None] * dq[:, None, :, :]            # (B,i,j,H)
-        y_intra = torch.einsum("bijh,bjhp->bihp", w, xq)
-        decay_out = torch.exp(cums)                            # (B,Q,H)
-        y_inter = torch.einsum("bin,bhpn,bih->bihp", cq, S, decay_out)
-        tail = torch.exp(cums[:, -1:, :] - cums)               # (B,Q,H)
-        contrib = torch.einsum("bjn,bjh,bjhp->bhpn", bq, tail * dq, xq)
-        S = S * torch.exp(cums[:, -1])[:, :, None, None] + contrib
-        ys.append(y_intra + y_inter)
+        S, y = remat(_mamba_chunk, S, xq, dq, bq, cq, A)
+        ys.append(y)
     y = torch.cat(ys, dim=1).reshape(B, L, H, hd)
     y = y + p["D"][None, None, :, None].to(F32) \
         * xin.reshape(B, L, H, hd).to(F32)
@@ -143,6 +152,33 @@ def _mlstm_out(p, y, z, x):
     return torch.matmul(y, p["down_proj"])
 
 
+def _mlstm_chunk(S, n, qc, kc, vc, lic, lfc, scale):
+    """One mLSTM chunk: q/k/v (B,Q,H,hd), log gates (B,Q,H) and the
+    carried (S, n) -> (new S, new n, the chunk's y)."""
+    qc, kc, vc = qc.to(F32), kc.to(F32), vc.to(F32)
+    Q = qc.shape[1]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                 device=qc.device))[None, :, :, None]
+    cums = torch.cumsum(lfc, dim=1)                            # (B,Q,H)
+    dmat = torch.exp(cums[:, :, None, :] - cums[:, None, :, :]
+                     + lic[:, None, :, :])                     # (B,i,j,H)
+    dmat = torch.where(mask, dmat, 0.0)
+    scores = torch.einsum("bihp,bjhp->bijh", qc, kc) * scale
+    w = scores * dmat
+    y_intra = torch.einsum("bijh,bjhp->bihp", w, vc)
+    dec = torch.exp(cums)
+    y_inter = torch.einsum("bihp,bhpk,bih->bihk", qc, S, dec) * scale
+    n_inter = torch.einsum("bihp,bhp,bih->bih", qc, n, dec) * scale
+    n_intra = torch.einsum("bijh,bjhp,bihp->bih", w, kc, qc) * scale
+    denom = torch.clamp(torch.abs(n_intra + n_inter), min=1.0)[..., None]
+    tail = torch.exp(cums[:, -1:, :] - cums + lic)
+    S = S * torch.exp(cums[:, -1])[..., None, None] \
+        + torch.einsum("bjh,bjhp,bjhk->bhpk", tail, kc, vc)
+    n = n * torch.exp(cums[:, -1])[..., None] \
+        + torch.einsum("bjh,bjhp->bhp", tail, kc)
+    return S, n, (y_intra + y_inter) / denom
+
+
 def mlstm_forward(p, x, *, cfg, chunk: int = 128,
                   state: Optional[Tuple] = None):
     """x: (B, L, d) -> (y, (S, n)). Matrix state per head (hd x hd)."""
@@ -160,31 +196,11 @@ def mlstm_forward(p, x, *, cfg, chunk: int = 128,
          if state is None else state[0])
     n = (torch.zeros((B, H, hd), dtype=F32, device=x.device)
          if state is None else state[1])
-    Q = chunk
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                 device=x.device))[None, :, :, None]
     ys = []
     for qc, kc, vc, lic, lfc in zip(*(_chunks(t, nc, chunk)
                                       for t in (q, k, v, logi, logf))):
-        qc, kc, vc = qc.to(F32), kc.to(F32), vc.to(F32)
-        cums = torch.cumsum(lfc, dim=1)                        # (B,Q,H)
-        dmat = torch.exp(cums[:, :, None, :] - cums[:, None, :, :]
-                         + lic[:, None, :, :])                 # (B,i,j,H)
-        dmat = torch.where(mask, dmat, 0.0)
-        scores = torch.einsum("bihp,bjhp->bijh", qc, kc) * scale
-        w = scores * dmat
-        y_intra = torch.einsum("bijh,bjhp->bihp", w, vc)
-        dec = torch.exp(cums)
-        y_inter = torch.einsum("bihp,bhpk,bih->bihk", qc, S, dec) * scale
-        n_inter = torch.einsum("bihp,bhp,bih->bih", qc, n, dec) * scale
-        n_intra = torch.einsum("bijh,bjhp,bihp->bih", w, kc, qc) * scale
-        denom = torch.clamp(torch.abs(n_intra + n_inter), min=1.0)[..., None]
-        ys.append((y_intra + y_inter) / denom)
-        tail = torch.exp(cums[:, -1:, :] - cums + lic)
-        S = S * torch.exp(cums[:, -1])[..., None, None] \
-            + torch.einsum("bjh,bjhp,bjhk->bhpk", tail, kc, vc)
-        n = n * torch.exp(cums[:, -1])[..., None] \
-            + torch.einsum("bjh,bjhp->bhp", tail, kc)
+        S, n, y = remat(_mlstm_chunk, S, n, qc, kc, vc, lic, lfc, scale)
+        ys.append(y)
     y = torch.cat(ys, dim=1).reshape(B, L, di).to(x.dtype)
     return _mlstm_out(p, y, z, x), (S, n)
 

@@ -9,17 +9,26 @@ and for zamba2 one shared attention block. The block functions take the block's
 parameters by the reference's names (`p["wq"]`), so they read as the
 reference's; the layer scans are Python loops.
 
+Each block's parameters are views of the stacked leaves, and the model
+keeps the stacked tree (`LanguageModel.tree`): the optimizer and the
+checkpoint work on that tree, as the reference's do, and an in-place
+update of a leaf moves every block's view of it. Under autograd each
+block of a decoder stack and of the mamba tail, and each group of a
+hybrid or ssm stack, is recomputed in the backward, where the reference
+checkpoints its layer scans.
+
 Layout: decoder-only (dense/moe/vlm), enc-dec (audio), hybrid, ssm.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict
 
 import torch
 from torch import nn
 
 from .attention import attention, decode_attention
-from .common import chunked_cross_entropy, rms_norm
+from .common import chunked_cross_entropy, remat, rms_norm
 from .config import ModelConfig
 from .ffn import dense_ffn, moe_ffn
 from .params import ParamDef
@@ -292,12 +301,14 @@ def unstack(tree: PyTree) -> list:
 class LanguageModel(nn.Module):
     """One architecture's parameters as modules, built over a tree of
     tensors shaped as `model_defs(cfg)` (each block's parameters are views
-    into the stacked leaves); `cfg` says which stacks it has (the
-    reference's tree keys)."""
+    into the stacked leaves, which `tree` keeps); `cfg` says which stacks
+    it has (the reference's tree keys). Its parameters take no gradient
+    except inside `bind_grads`."""
 
     def __init__(self, cfg: ModelConfig, tree: PyTree):
         super().__init__()
         self.cfg = cfg
+        self.tree = tree
         for k in ("embed", "final_norm", "unembed", "enc_norm"):
             if k in tree:
                 self.register_parameter(
@@ -335,7 +346,16 @@ class LanguageModel(nn.Module):
 
 def decoder_stack(blocks, x, *, causal=True, cross=None):
     for blk in blocks:
-        x, _ = blk(x, causal=causal, cross=cross)
+        x, _ = remat(blk, x, causal=causal, cross=cross)
+    return x
+
+
+def _group(x, blocks, last):
+    """A hybrid or ssm group: its blocks, then `last` (zamba2's shared
+    attention block, xLSTM's sLSTM block)."""
+    for blk in blocks:
+        x, _ = blk(x)
+    x, _ = last(x)
     return x
 
 
@@ -343,19 +363,15 @@ def hybrid_stack(model: LanguageModel, x):
     """zamba2: groups of (attn_every - 1) mamba blocks + 1 shared attn,
     then the tail mamba blocks."""
     for group in model.mamba_groups:
-        for blk in group:
-            x, _ = blk(x)
-        x, _ = model.shared_attn(x)
+        x = remat(_group, x, group, model.shared_attn)
     for blk in model.mamba_tail:
-        x, _ = blk(x)
+        x, _ = remat(blk, x)
     return x
 
 
 def xlstm_stack(model: LanguageModel, x):
     for group, sblk in zip(model.mlstm_groups, model.slstm_blocks):
-        for blk in group:
-            x, _ = blk(x)
-        x, _ = sblk(x)
+        x = remat(_group, x, group, sblk)
     return x
 
 
@@ -389,7 +405,29 @@ def backbone(model: LanguageModel, batch) -> torch.Tensor:
 
 
 def lm_loss(model: LanguageModel, batch) -> torch.Tensor:
-    """Mean next-token cross-entropy (forward only)."""
+    """Mean next-token cross-entropy; differentiable in the model's
+    parameters inside `bind_grads`."""
     return chunked_cross_entropy(backbone(model, batch), model.unembed,
                                  batch["labels"], true_vocab=model.cfg.vocab,
                                  mask=batch.get("loss_mask"))
+
+
+@contextlib.contextmanager
+def bind_grads(model: LanguageModel, grads: PyTree):
+    """Within the block, the model's parameters take gradients, and each
+    one's `.grad` is its view of `grads` (a tree shaped as `model.tree`,
+    in the leaves' dtypes): autograd accumulates in place into the
+    stacked leaves, so `grads` is the reference's gradient tree. On exit
+    the parameters take no gradient again."""
+    params = list(model.parameters())
+    views = [g.detach() for g in LanguageModel(model.cfg, grads).parameters()]
+    try:
+        for p, g in zip(params, views):
+            p.requires_grad_(True)
+            p.grad = g
+        with torch.enable_grad():
+            yield
+    finally:
+        for p in params:
+            p.grad = None
+            p.requires_grad_(False)

@@ -1,8 +1,8 @@
 """Tests of the port that need an NVIDIA card: the CUDA replay (single-
 and multi-core), bank-conflict, fold matmul, wavefront and ELLPACK kernels
 against their plain PyTorch versions (both ELLPACK paths), the fold plane,
-the contention path and NoC pods against the CPU, and studies on the
-default device.
+the contention path and NoC pods against the CPU, studies on the
+default device, and the served and trained models against the CPU.
 Each skips (inside the test) on a machine without CUDA; run them on the
 card with
 
@@ -841,3 +841,61 @@ def test_serve_entry_point_runs_on_the_card_by_default(dev, capsys):
     assert serve.main(["--smoke", "--requests", "2", "--batch", "2",
                        "--prompt-len", "8", "--gen-len", "3"]) == 0
     assert "on cuda" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "granite-moe-3b-a800m",
+                                  "zamba2-7b", "whisper-base"])
+def test_train_step_on_the_card_matches_the_cpu(dev, arch):
+    """One train step from the same float32 weights: loss, gradient norm
+    and moments within 1e-3 of the CPU's, the updated parameters within
+    1e-3 wherever the CPU's gradient is at least 100 x AdamW's eps (see
+    `tests/test_torch_train.py`), within 2 lr elsewhere."""
+    from repro_torch.models.zoo import params_tree
+    bundle, models = _card_and_cpu_models(arch, seed=2)
+    cfg = bundle.cfg
+    rng = np.random.default_rng(5)
+    x = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24))),
+         "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)))}
+    if cfg.family == "audio":
+        x["frames"] = torch.randn(2, 24, cfg.d_model,
+                                  generator=torch.Generator().manual_seed(6))
+    out = {}
+    for d, m in models.items():
+        _, opt, met = bundle.train_step(lr=1e-2)(
+            m, bundle.opt_init(m), {k: v.to(d) for k, v in x.items()})
+        out[d] = (met, opt, params_tree(m))
+    (gm, go, gp), (cm, co, cp) = out["cuda"], out["cpu"]
+    assert go.step.device.type == "cuda"
+    assert _close(gm["loss"], cm["loss"]) and _close(gm["grad_norm"],
+                                                     cm["grad_norm"])
+    for tree_g, tree_c in ((go.m, co.m), (go.v, co.v)):
+        for g, c in zip(_flat(tree_g), _flat(tree_c)):
+            assert g.device.type == "cuda" and _close(g, c)
+    for g, c, m in zip(_flat(gp), _flat(cp), _flat(co.m)):
+        err = (g.cpu().double() - c.double()).abs()
+        sure = m.double().abs() / 0.1 >= 1e-6
+        if sure.any():
+            assert float(err[sure].max()) <= 1e-3 * float(c.abs().max())
+        if (~sure).any():
+            assert float(err[~sure].max()) <= 2 * 1e-2
+
+
+def test_train_entry_point_runs_on_the_card_by_default(dev, capsys,
+                                                       tmp_path):
+    from repro_torch.launch import train
+    assert train.main(["--smoke", "--steps", "2", "--batch", "2", "--seq",
+                       "16", "--ckpt-dir", str(tmp_path)]) == 0
+    assert "done. " in capsys.readouterr().out
+
+
+def test_checkpoint_restores_onto_the_card(dev, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+    tree = {"w": torch.arange(6, dtype=torch.bfloat16),
+            "s": torch.tensor(3, dtype=torch.int32)}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, tree, blocking=True)
+    got = mgr.restore(tree, device="cuda")
+    assert got["w"].device.type == "cuda" and got["s"].shape == ()
+    assert torch.equal(got["w"].cpu(), tree["w"])
+    like = {k: v.to("cuda") for k, v in tree.items()}
+    assert mgr.restore(like)["s"].device.type == "cuda"
