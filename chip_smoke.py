@@ -51,7 +51,9 @@ own line; any failure exits non-zero before the final result line:
      reset just before it (one conflict launch per layout-on group, one
      replay launch per trace group); layout-on rows never faster than
      their layout-off twins; the whole frame against the same sweep on
-     the CPU, per column; the wall time per fidelity (three runs each),
+     the CPU (its batch groups split over four processes and put
+     together as a farm client does), per column; the wall time per
+     fidelity (three runs each),
      profiled fast and trace sweeps (the conflict kernel's device time
      among them), and the conflict kernel against its plain version,
      timed, on the largest layout group's launch; then each conflict
@@ -199,10 +201,45 @@ own line; any failure exits non-zero before the final result line:
      algorithms: parameters and moments bit for bit;
   29. granite-moe-3b-a800m at full width, 3 steps of batch 4 x seq 512,
      checked as in 25;
-  30. a `{"workload_plane": {...}}` line (the numbers of 21-24), a
-     `{"training": {...}}` line (25-29), a `{"kernels": [...]}` line (all
-     five kernels), the nvidia-smi line, and last `{"ok": true,
-     "device": {...}}`.
+  30. the tenth slice's path, sharding (`sharding_phases`; no kernel):
+     NCCL refuses two processes on one card (its message recorded); an
+     NCCL world of one, a 1 x 1 mesh: qwen2-1.5b at full width and depth
+     (bf16) served (batch 4, prompt 512, 32 greedy tokens) and trained (3
+     steps of batch 8 x 1,024) through `prefill_step`, `decode_step` and
+     `train_step(ctx)`, equal to the same on one device (losses and
+     gradient norms within 1e-6, tokens equal), step ms beside it;
+  31. four processes of this script (`--sharded-rank`) share the card as
+     a 2 x 2 gloo mesh (the backend printed): qwen2-1.5b at full width,
+     depth cut to 4 layers, in megatron (head tensor parallelism) and
+     weightgather (sequence-sharded attention) modes, a prefill and 16
+     decode steps on an S-sharded cache teacher-forced on one device's
+     greedy stream at the same depth (logits within 3e-2, the greedy
+     token equal wherever one device's top-2 margin exceeds twice the
+     step's logit difference), then 3 train steps (losses and gradient
+     norms within 3e-2 of one device's); each rank's step ms,
+     collective seconds (the device synchronized around each) and bytes,
+     their share of the step, bytes staged through the host, peak
+     memory; a 2-layer float32 twin on the card and, side by side, on the
+     card machine's CPU (2 x 2 gloo, CPU tensors): loss, gradient norm
+     and logits within 1e-5, tokens equal, the updated parameters under
+     AdamW's first-step rule (1e-4 of a leaf's largest magnitude where
+     the gradient is at least 1e-6, 2 lr elsewhere);
+  32. granite-moe-3b-a800m at full width, 4 layers, global batch 4 x
+     2,048 = 8,192 tokens (the sharded MoE path, per-shard capacity), 2
+     train steps on the 2 x 2 gloo mesh: finite, losses and gradient
+     norms within 3e-2 of one device's at the same depth; a 2-layer
+     float32 twin at 8 x 520 tokens card vs CPU as in 31;
+  33. `launch/train.py --arch whisper-base --tp 2 --backend gloo` as four
+     processes (`repro_torch.launch.spawn`) at full width and depth, 2
+     steps of batch 8 x 256 and its final checkpoint (streamed by rank
+     0): rank 0 prints the mesh and `done.`;
+  34. a `{"workload_plane": {...}}` line (the numbers of 21-24), a
+     `{"training": {...}}` line (25-29), a `{"sharding": {...}}` line
+     (30-33), a `{"kernels": [...]}` line (all five kernels), the
+     nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+
+`python3 chip_smoke.py --sharded-rank JOBS.json` is one rank of phase
+31-32's worlds (started by the script itself).
 
 Writes the measurements to chiprun_out/chip_smoke.json as well.
 """
@@ -273,6 +310,62 @@ def frame_rel_err(res, ref, noc_free=()) -> dict:
                               / np.maximum(np.abs(b[~nan]), 1e-30),
                               initial=0.0))
     return out
+
+
+def feature_sweep_study(wl=None):
+    """Phase 6's feature sweep: 162 designs (array, SRAM, dataflow,
+    sparsity, cores) and their layout-on twins over resnet18 and vit_base
+    (`wl`, built here when None) at fast and trace. Returns (the base
+    designs, all designs, the study)."""
+    import repro_torch as rt
+    from repro_torch.core.accelerator import LayoutConfig
+    from repro_torch.core.workloads import resnet18, vit_base
+    if wl is None:
+        wl = {"resnet18": resnet18(), "vit_base": vit_base()}
+    base = rt.preset_grid(array=[32, 64, 128], sram_mb=[0.5, 2, 8],
+                          dataflow=["ws", "os", "is"],
+                          sparsity=[None, "2:4", "1:4-rw"], cores=[1, 4])
+    lay_cfg = LayoutConfig(enabled=True)
+    feat = base + [c.with_(layout=lay_cfg) for c in base]
+    study = rt.Study("feature_sweep").designs(feat).workloads(wl) \
+        .fidelity("fast", "trace")
+    return base, feat, study
+
+
+def feature_cpu_cells(shard: int, n: int, threads: int) -> dict:
+    """Shard `shard` of n of the feature sweep's cells, run on the CPU in
+    this process (one of `cpu_feature_frame`'s): whole batch groups, every
+    n-th of them ordered by fidelity (so each shard gets its share of the
+    costly trace groups), and the fallback cells on shard 0."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(threads)
+    _, _, study = feature_sweep_study()
+    plan = study.plan()
+    order = sorted(range(len(plan.groups)),
+                   key=lambda g: plan.groups[g].fidelity)
+    cells = [c for g in order[shard::n] for c in plan.groups[g].cells]
+    if shard == 0:
+        cells += list(plan.fallback)
+    res, _, _ = study._execute_cells(plan, cells, device="cpu")
+    return res
+
+
+def cpu_feature_frame(study, n: int = 4, threads: int = 2):
+    """The feature sweep's whole frame on the CPU, its cells split over n
+    spawned processes and put together by `Study.assemble_frame` (a farm
+    client's path: with every cell present, a local run's frame). One
+    process took 150-221 s of the script's time limit."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(
+            n, mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = list(pool.map(feature_cpu_cells, range(n), [n] * n,
+                              [threads] * n))
+    results = {}
+    for part in parts:
+        results.update(part)
+    return study.assemble_frame(results, executed_cells=len(results),
+                                plan=study.plan(), device="cpu")
 
 
 def timed_cuda(fn, reps: int) -> float:
@@ -1728,6 +1821,623 @@ def training_phases(report: dict) -> dict:
     return tr
 
 
+# ---------------------------------------------------------------------------
+# the tenth slice: the sharded workload plane (phases 30-33)
+# ---------------------------------------------------------------------------
+
+def sharded_job(job: dict) -> dict:
+    """One job of a rank of a sharded world (`--sharded-rank`): the model
+    at the job's width, depth and dtype on the job's device, sharded on
+    the world's (dp, tp) mesh; a prefill and `gen` greedy decode steps on
+    an S-sharded cache from the initial weights, then `steps` train steps.
+    Returns this rank's numbers; rank 0's carry the losses, gradient
+    norms, tokens and logits."""
+    import dataclasses
+
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist.sharding import make_mesh_ctx
+    from repro_torch.models import params as pm
+    from repro_torch.models.zoo import ModelBundle
+    from repro_torch.optim import cosine_schedule
+
+    mesh = job["mesh_obj"]
+    ctx = make_mesh_ctx(mesh)
+    dev = torch.device(job["device"])
+    cfg = get_config(job["arch"])
+    over = {k: job[k] for k in ("layers", "param_dtype", "sp_mode")
+            if job.get(k) is not None}
+    cfg = dataclasses.replace(cfg, **over)
+    bundle = ModelBundle(cfg)
+
+    def make(serve):
+        """The job's weights from its seed, this rank's blocks of them cut
+        by `param_shardings(ctx, serve=serve)`."""
+        if not job.get("init_cpu"):
+            return bundle.init(torch.Generator(device=dev).manual_seed(
+                job["seed"]), ctx, serve=serve)
+        tree = pm.init_params(bundle.defs,
+                              torch.Generator().manual_seed(job["seed"]))
+        return bundle.shard(pm.tree_map(lambda t: t.to(dev), tree), ctx,
+                            serve=serve)
+    sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" \
+        else (lambda: None)
+    out = dict(rank=mesh.rank, backend=mesh.backend, mesh=dict(mesh.shape))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    st = col.stats(mesh)
+    pre = job.get("prefill")
+    if pre:
+        # serving: weights TP-resident, replicated over data
+        model = make(serve=True)
+        ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=pre["L"],
+                                           global_batch=pre["B"], seed=1))
+        toks = torch.from_numpy(ds.global_batch_at(0)["tokens"]).to(dev)
+        st.reset()
+        t0 = time.perf_counter()
+        logits, cache = bundle.prefill_step(ctx)(model, {"tokens": toks})
+        sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        cache = grow_sharded(bundle, ctx, cache, pre["B"], pre["L"],
+                             pre["gen"], dev)
+        tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None].to(
+            torch.int32)
+        gen, dl, step_ms = [tok[:, 0].cpu()], [logits.cpu()], []
+        # teacher forcing: step i reads the given token i (another run's
+        # greedy stream), so every step of both runs sees the same input
+        force = pre.get("force")
+        for i in range(pre["gen"]):
+            if force is not None:
+                tok = torch.tensor([row[i] for row in force],
+                                   dtype=torch.int32, device=dev)[:, None]
+            t0 = time.perf_counter()
+            logits, cache = bundle.decode_step(ctx)(model, cache, tok,
+                                                    pre["L"] + i)
+            tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None].to(
+                torch.int32)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            gen.append(tok[:, 0].cpu())
+            dl.append(logits.cpu())
+        out.update(prefill_ms=prefill_ms, decode_ms=float(np.median(step_ms)),
+                   tokens=torch.stack(gen, 1).tolist(),
+                   serve_collectives=st.as_dict(),
+                   kv_sharded=bool(cache.specs["k"][2] is not None))
+        out["logits"] = torch.stack(dl).numpy()
+        del cache, model
+    if job.get("steps"):
+        model = make(serve=False)
+        ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=job["L"],
+                                           global_batch=job["B"], seed=0))
+        step = bundle.train_step(ctx, lr=cosine_schedule(
+            job.get("lr", 3e-4), 1, job["steps"]))
+        opt = bundle.opt_init(model)
+        losses, gnorms, ms, coll = [], [], [], []
+        for i in range(job["steps"]):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in ds.global_batch_at(i).items()}
+            st.reset()
+            sync()
+            t0 = time.perf_counter()
+            _, opt, m = step(model, opt, batch)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            coll.append(st.as_dict())
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        out.update(losses=losses, grad_norms=gnorms, step_ms_all=ms,
+                   step_ms=float(np.median(ms[1:] if len(ms) > 1 else ms)),
+                   train_collectives=coll[-1])
+        if job.get("keep_params"):
+            # each whole leaf's largest magnitude and every k-th element
+            # (at most 65,536 of them), of the updated parameters and of
+            # the step's clipped gradient (the first moment over 1 - b1
+            # after one step): enough to hold two worlds' steps against
+            # each other under AdamW's first-step rule without writing
+            # the model
+            out["params"] = {}
+            whole = {"param/": bundle.unshard(model),
+                     "grad/": pm.gather_tree(opt.m, model.specs, model.mesh)}
+            for pre, tree in whole.items():
+                for n, t in flatten_with_paths(tree):
+                    flat = t.float().flatten()
+                    if pre == "grad/":
+                        flat = flat / (1 - 0.9)
+                    k = max(1, flat.numel() // 65536)
+                    out["params"][pre + n] = np.concatenate([
+                        [float(flat.abs().max())], flat[::k].cpu().numpy()])
+        del model, opt
+    if dev.type == "cuda":
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def grow_sharded(bundle, ctx, cache, B, L, gen, dev):
+    """A sharded prefill cache of length L as one of length L + gen, the
+    prefill's rows in place (through whole leaves): the decode's room."""
+    from repro_torch.models import params as pm
+    whole = pm.gather_tree(dict(cache), cache.specs, ctx.mesh)
+    big = bundle.init_cache(batch=B, cache_len=L + gen, device=dev, ctx=ctx)
+    full = {k: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, gen))
+            for k, t in whole.items()}
+    local = pm.shard_tree(full, big.specs, ctx.mesh)
+    for k in big:
+        big[k].copy_(local[k])
+    return big
+
+
+def sharded_rank_main(jobs_path: str) -> int:
+    """A rank of a sharded world started by `repro_torch.launch.spawn`:
+    the jobs of `jobs_path` in order, each result written as
+    <out>/<name>.rank<r>.npz (arrays) and .json (numbers)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import bind_mesh, init_world
+    from repro_torch.launch.spawn import world_from_env
+    with open(jobs_path) as f:
+        spec = json.load(f)
+    torch.set_num_threads(int(spec.get("threads", 2)))
+    w = world_from_env()
+    if spec["device"] == "cuda":
+        torch.cuda.set_device(0)
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    init_world(backend=spec["backend"], init_method=w["init_method"],
+               rank=w["rank"], world_size=w["world_size"], timeout_s=600)
+    mesh = bind_mesh(tuple(spec["mesh"]), ("data", "model"))
+    for job in spec["jobs"]:
+        res = sharded_job(dict(job, device=spec["device"], mesh_obj=mesh))
+        base = os.path.join(spec["out"], f"{job['name']}.rank{mesh.rank}")
+        arrays = {"logits": res.pop("logits")} if "logits" in res else {}
+        arrays.update(res.pop("params", {}))
+        if arrays:
+            np.savez(base + ".npz", **arrays)
+        with open(base + ".json", "w") as f:
+            json.dump(res, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_world(name: str, spec: dict, nprocs: int = 4,
+              timeout: float = 900) -> dict:
+    """Spawn a world of `nprocs` ranks of this script on `spec`; returns
+    {job name: [each rank's result dict, rank 0's arrays]}."""
+    out = ROOT / "build" / "sharded" / name
+    out.mkdir(parents=True, exist_ok=True)
+    spec = dict(spec, out=str(out))
+    path = out / "jobs.json"
+    path.write_text(json.dumps(spec))
+    pp = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src")
+               + (os.pathsep + pp if pp else ""),
+               OMP_NUM_THREADS=str(spec.get("threads", 2)))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.spawn", "--nprocs",
+         str(nprocs), "--timeout", str(timeout), "--", str(ROOT /
+                                                         "chip_smoke.py"),
+         "--sharded-rank", str(path)], env=env, cwd=str(ROOT),
+        capture_output=True, text=True, timeout=timeout + 60)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{name}: the world of {nprocs} exited {proc.returncode}: "
+             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    res = {}
+    for job in spec["jobs"]:
+        ranks = [json.loads((out / f"{job['name']}.rank{r}.json").read_text())
+                 for r in range(nprocs)]
+        arr = out / f"{job['name']}.rank0.npz"
+        arrays = dict(np.load(arr)) if arr.exists() else {}
+        res[job["name"]] = (ranks, arrays)
+    res["_seconds"] = secs
+    return res
+
+
+def run_worlds(*worlds):
+    """`run_world` on each (name, spec), the worlds side by side (a card
+    world and its CPU twin: one waits on the card and the host's copies,
+    the other on the CPU)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(worlds)) as pool:
+        futs = [pool.submit(run_world, n, s) for n, s in worlds]
+        return [f.result() for f in futs]
+
+
+def greedy_agreement(got: np.ndarray, ref: np.ndarray, vocab: int) -> dict:
+    """A teacher-forced decode's logits (steps, B, V) against the run whose
+    greedy stream it was fed. Passes when the logits agree within 3e-2 of
+    their largest magnitude (bfloat16) and each step's greedy token is
+    the reference's wherever the reference's top-2 margin exceeds twice
+    that step's largest logit difference: a closer pair is a tie at
+    bfloat16's resolution, which either run may break either way."""
+    g, r = got[..., :vocab].astype(np.float64), ref[..., :vocab].astype(
+        np.float64)
+    err = np.abs(g - r).max(axis=-1)                     # (steps, B)
+    top2 = np.sort(r, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    same = g.argmax(-1) == r.argmax(-1)
+    decided = margin > 2 * err
+    scale = float(np.abs(r).max())
+    out = dict(steps=int(g.shape[0]), rows=int(g.shape[1]),
+               logits_rel_err=float(err.max()) / scale,
+               tokens_equal=int(same.sum()), tokens=int(same.size),
+               decided=int(decided.sum()),
+               differing_margins=[float(x) for x in margin[~same]],
+               differing_errors=[float(x) for x in err[~same]])
+    out["ok"] = bool(out["logits_rel_err"] <= 3e-2
+                     and (same | ~decided).all())
+    return out
+
+
+def twin_params_err(got: dict, ref: dict, lr: float) -> dict:
+    """Two float32 worlds' parameters after one train step (`sharded_job`'s
+    samples) under AdamW's first-step rule: within 1e-4 of the leaf's
+    largest magnitude where the reference's clipped gradient is at least
+    1e-6, within 2 lr elsewhere (a near-zero gradient's rounding decides
+    a move of up to lr either way). Returns the largest of each share and
+    whether both hold."""
+    big_err, small_err = 0.0, 0.0
+    for k in ref:
+        if not k.startswith("param/"):
+            continue
+        a, b = got[k][1:], ref[k][1:]
+        g = ref["grad/" + k[len("param/"):]][1:]
+        d = np.abs(a - b)
+        big = np.abs(g) >= 1e-6
+        scale = max(float(ref[k][0]), 1e-30)
+        big_err = max(big_err, float(d[big].max(initial=0)) / scale)
+        small_err = max(small_err, float(d[~big].max(initial=0)))
+    return dict(rel_err_where_grad_big=big_err,
+                abs_err_elsewhere=small_err, lr=lr,
+                ok=bool(big_err <= 1e-4 and small_err <= 2 * lr))
+
+
+def world_summary(ranks: list) -> dict:
+    """The per-rank numbers of a job: step ms, collective host seconds and
+    bytes, staged bytes, peak memory, each as a list by rank."""
+    out = {}
+    for key in ("step_ms", "prefill_ms", "decode_ms", "peak_memory_bytes"):
+        if key in ranks[0]:
+            out[key + "_by_rank"] = [r[key] for r in ranks]
+    for key in ("train_collectives", "serve_collectives"):
+        if key in ranks[0]:
+            out[key + "_by_rank"] = [r[key] for r in ranks]
+    if "train_collectives" in ranks[0]:
+        # the last step's seconds in collectives over its wall time
+        out["collective_share_by_rank"] = [
+            r["train_collectives"]["seconds"] * 1e3 / r["step_ms_all"][-1]
+            for r in ranks]
+    return out
+
+
+def sharding_phases(report: dict) -> dict:
+    """The tenth slice's path: the sharded train, prefill and decode steps
+    on the card. Returns the `sharding` line's numbers."""
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist.sharding import make_mesh_ctx
+    from repro_torch.launch.mesh import bind_mesh, init_world
+    from repro_torch.models.zoo import ModelBundle
+    from repro_torch.optim import cosine_schedule
+
+    import dataclasses
+
+    cuda = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    DEPTH = 4
+    sh = dict(card=report["environment"]["card"],
+              note="four processes share one card; gloo goes through the "
+                   "host: these times are not those of four cards")
+    build = ROOT / "build"
+    pp = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src")
+               + (os.pathsep + pp if pp else ""))
+
+    # ---- 30. NCCL refuses two ranks on one card; a world of one ------------
+    t0 = time.perf_counter()
+    probe = ("import os, datetime, torch, torch.distributed as d\n"
+             "torch.cuda.set_device(0)\n"
+             "d.init_process_group('nccl', init_method=os.environ["
+             "'INIT_METHOD'], rank=int(os.environ['RANK']), world_size=2, "
+             "timeout=datetime.timedelta(seconds=60))\n"
+             "x = torch.ones(1, device='cuda')\n"
+             "try:\n    d.all_reduce(x); torch.cuda.synchronize()\n"
+             "except Exception as e:\n"
+             "    print('REFUSED', str(e).splitlines()[-1][:300]); "
+             "raise SystemExit(3)\n"
+             "print('ACCEPTED')\n")
+    pr = subprocess.run([sys.executable, "-m", "repro_torch.launch.spawn",
+                         "--nprocs", "2", "--timeout", "120", "--", "-c",
+                         probe], env=env, capture_output=True, text=True,
+                        timeout=180)
+    refused = [ln for ln in pr.stdout.splitlines() if ln.startswith("REFUSED")]
+    if pr.returncode == 0 or not refused:
+        fail(f"sharded_one_rank: NCCL took two ranks on one card? rc "
+             f"{pr.returncode} {pr.stdout[-800:]} {pr.stderr[-800:]}")
+    nccl_msg = refused[0][len("REFUSED "):]
+
+    arch, B, L, steps = "qwen2-1.5b", 8, 1024, 3
+    PB, PL, GEN = 4, 512, 32
+    cfg = get_config(arch)
+    bundle = ModelBundle(cfg)
+
+    def run_single(make, ctx, bundle, gen=GEN):
+        """Prefill + `gen` greedy tokens from the initial weights (served
+        with `param_shardings(serve=True)`), then `steps` train steps, on
+        `ctx` (None: one device). "logits": each step's, on the host."""
+        cfg = bundle.cfg
+        model = make(True)
+        ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=PL,
+                                           global_batch=PB, seed=1))
+        toks = torch.from_numpy(ds.global_batch_at(0)["tokens"]).to(cuda)
+        with torch.no_grad():
+            if ctx is None:
+                logits, cache = bundle.prefill(model, {"tokens": toks})
+                cache = {k: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, gen))
+                         for k, t in cache.items()}
+            else:
+                logits, cache = bundle.prefill_step(ctx)(model,
+                                                         {"tokens": toks})
+                cache = grow_sharded(bundle, ctx, cache, PB, PL, gen, cuda)
+            tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None].to(
+                torch.int32)
+            toks_out, lg = [tok[:, 0]], [logits.cpu()]
+            for i in range(gen):
+                logits, cache = (bundle.decode(model, cache, tok, PL + i)
+                                 if ctx is None else bundle.decode_step(ctx)(
+                                     model, cache, tok, PL + i))
+                tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None].to(
+                    torch.int32)
+                toks_out.append(tok[:, 0])
+                lg.append(logits.cpu())
+        del cache, model
+        model = make(False)
+        ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=L,
+                                           global_batch=B, seed=0))
+        step = bundle.train_step(ctx, lr=cosine_schedule(3e-4, 1, steps))
+        opt = bundle.opt_init(model)
+        losses, gnorms, ms = [], [], []
+        for i in range(steps):
+            batch = {k: torch.from_numpy(v).to(cuda)
+                     for k, v in ds.global_batch_at(i).items()}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, opt, m = step(model, opt, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        del opt, model
+        return dict(tokens=torch.stack(toks_out, 1).cpu().tolist(),
+                    logits=torch.stack(lg).numpy(), losses=losses,
+                    grad_norms=gnorms, step_ms_all=ms,
+                    step_ms=float(np.median(ms[1:])))
+
+    reset_launch_counts()
+    single = run_single(lambda serve: bundle.init(
+        torch.Generator(device=cuda).manual_seed(0)), None, bundle)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        init_world(backend="nccl", init_method="file://" + d + "/store",
+                   rank=0, world_size=1, timeout_s=300)
+        try:
+            mesh = bind_mesh((1, 1), ("data", "model"))
+            ctx = make_mesh_ctx(mesh)
+            col.stats(mesh).reset()
+            one = run_single(lambda serve: bundle.init(
+                torch.Generator(device=cuda).manual_seed(0), ctx,
+                serve=serve), ctx, bundle)
+            one["collectives"] = col.stats(mesh).as_dict()
+        finally:
+            dist.destroy_process_group()
+    no_launches("sharded_one_rank", launch_counts())
+    single.pop("logits")
+    one.pop("logits")
+    errs = dict(loss=max(abs(a - b) / abs(b) for a, b in
+                         zip(one["losses"], single["losses"])),
+                grad_norm=max(abs(a - b) / abs(b) for a, b in
+                              zip(one["grad_norms"], single["grad_norms"])))
+    if not (errs["loss"] <= 1e-6 and errs["grad_norm"] <= 1e-6) or \
+            one["tokens"] != single["tokens"] or \
+            not all(math.isfinite(x) for x in one["losses"]):
+        fail(f"sharded_one_rank: 1 x 1 NCCL mesh vs one device {errs}, "
+             f"tokens equal {one['tokens'] == single['tokens']}")
+    info = dict(arch=arch, layers=cfg.layers, d_model=cfg.d_model,
+                dtype=cfg.param_dtype, batch=B, seq=L, steps=steps,
+                prefill_batch=PB, prompt=PL, gen=GEN,
+                nccl_two_ranks_one_card=nccl_msg, backend="nccl",
+                mesh=[1, 1], rel_err=errs, single=single, sharded=one,
+                seconds=time.perf_counter() - t0)
+    phase("sharded_one_rank", **info)
+    sh["sharded_one_rank"] = info
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 31. a 2 x 2 gloo mesh of four processes on the one card -----------
+    # full width, depth cut to DEPTH layers: four processes share the card
+    # and gloo's host path, ~20 s a full-depth step on an H100 (8 layers:
+    # 6.3-11.2 s)
+    t0 = time.perf_counter()
+    cut = ModelBundle(dataclasses.replace(cfg, layers=DEPTH))
+    single = run_single(lambda serve: cut.init(
+        torch.Generator(device=cuda).manual_seed(0)), None, cut, gen=16)
+    ref_logits = single.pop("logits")
+    gc.collect()
+    torch.cuda.empty_cache()
+    jobs = [dict(name=f"qwen2_{m}", arch=arch, layers=DEPTH, sp_mode=m,
+                 seed=0, B=B, L=L, steps=steps,
+                 prefill=dict(B=PB, L=PL, gen=16, force=single["tokens"]))
+            for m in ("megatron", "weightgather")]
+    f32 = dict(name="qwen2_2layer_f32", arch=arch, layers=2,
+               param_dtype="float32", seed=0, init_cpu=True, B=2, L=128,
+               steps=1, lr=1e-2, keep_params=True,
+               prefill=dict(B=2, L=64, gen=4))
+    card, cpu = run_worlds(
+        ("sharded_2x2_one_card", dict(backend="gloo", device="cuda",
+                                      mesh=[2, 2], threads=1,
+                                      jobs=jobs + [f32])),
+        ("sharded_2x2_cpu", dict(backend="gloo", device="cpu", mesh=[2, 2],
+                                 threads=1, jobs=[f32])))
+    modes = {}
+    for m in ("megatron", "weightgather"):
+        ranks, arrays = card[f"qwen2_{m}"]
+        r0 = ranks[0]
+        e = max(abs(a - b) / abs(b) for a, b in
+                zip(r0["losses"], single["losses"]))
+        ge = max(abs(a - b) / abs(b) for a, b in
+                 zip(r0["grad_norms"], single["grad_norms"]))
+        dec = greedy_agreement(arrays["logits"], ref_logits, cfg.vocab)
+        if not (e <= 3e-2 and ge <= 3e-2) or not dec["ok"] or \
+                not all(math.isfinite(x) for x in r0["losses"]):
+            fail(f"sharded_2x2_one_card {m}: loss vs one device {e}, "
+                 f"gradient norm {ge}, decode {dec}")
+        if not r0["kv_sharded"]:
+            fail(f"sharded_2x2_one_card {m}: the decode cache is not "
+                 "S-sharded")
+        modes[m] = dict(loss_rel_err=e, grad_norm_rel_err=ge, decode=dec,
+                        losses=r0["losses"], grad_norms=r0["grad_norms"],
+                        step_ms=r0["step_ms"],
+                        staged_bytes=max(r["train_collectives"]
+                                         ["staged_bytes"] for r in ranks),
+                        **world_summary(ranks))
+    (cr, ca), (pr_, pa) = card["qwen2_2layer_f32"], cpu["qwen2_2layer_f32"]
+    fe = dict(loss=abs(cr[0]["losses"][0] - pr_[0]["losses"][0])
+              / abs(pr_[0]["losses"][0]),
+              grad_norm=abs(cr[0]["grad_norms"][0] - pr_[0]["grad_norms"][0])
+              / abs(pr_[0]["grad_norms"][0]),
+              logits=float(np.abs(ca["logits"] - pa["logits"]).max()
+                           / np.abs(pa["logits"]).max()))
+    pe = twin_params_err(ca, pa, f32["lr"])
+    if not all(v <= 1e-5 for v in fe.values()) or not pe["ok"] or \
+            cr[0]["tokens"] != pr_[0]["tokens"]:
+        fail(f"sharded_2x2_one_card 2-layer f32: card vs CPU {fe}, "
+             f"parameters {pe}, tokens {cr[0]['tokens']} vs "
+             f"{pr_[0]['tokens']}")
+    info = dict(backend="gloo", mesh=[2, 2], arch=arch, layers=DEPTH,
+                batch=B, seq=L, steps=steps, prefill_batch=PB, prompt=PL,
+                gen=16, single_device=single, modes=modes,
+                f32_2layer=dict(rel_err=fe, params=pe, batch=2, seq=128),
+                world_seconds=card["_seconds"], cpu_seconds=cpu["_seconds"],
+                seconds=time.perf_counter() - t0)
+    phase("sharded_2x2_one_card", **info)
+    sh["sharded_2x2_one_card"] = info
+
+    # ---- 32. granite-moe at 8,192 tokens: the sharded MoE path -------------
+    t0 = time.perf_counter()
+    g_arch, GB, GL, gsteps = "granite-moe-3b-a800m", 4, 2048, 2
+    gcfg = dataclasses.replace(get_config(g_arch), layers=DEPTH)
+    gbundle = ModelBundle(gcfg)
+    model = gbundle.init(torch.Generator(device=cuda).manual_seed(0))
+    ds = SyntheticLMDataset(DataConfig(vocab=gcfg.vocab, seq_len=GL,
+                                       global_batch=GB, seed=0))
+    step = gbundle.train_step(lr=cosine_schedule(3e-4, 1, gsteps))
+    opt = gbundle.opt_init(model)
+    glosses, ggnorms = [], []
+    for i in range(gsteps):
+        batch = {k: torch.from_numpy(v).to(cuda)
+                 for k, v in ds.global_batch_at(i).items()}
+        _, opt, m = step(model, opt, batch)
+        glosses.append(float(m["loss"]))
+        ggnorms.append(float(m["grad_norm"]))
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the float32 twin at 8 x 520 = 4,160 tokens: still past 4,096, so
+    # still the sharded MoE path, at an eighth of the CPU's attention work
+    gf32 = dict(name="granite_2layer_f32", arch=g_arch, layers=2,
+                param_dtype="float32", seed=0, init_cpu=True, B=8, L=520,
+                steps=1, lr=1e-2, keep_params=True)
+    gcard, gcpu = run_worlds(
+        ("sharded_granite_moe_2x2", dict(
+            backend="gloo", device="cuda", mesh=[2, 2], threads=1,
+            jobs=[dict(name="granite", arch=g_arch, layers=DEPTH, seed=0,
+                       B=GB, L=GL, steps=gsteps), gf32])),
+        ("sharded_granite_cpu", dict(backend="gloo", device="cpu",
+                                     mesh=[2, 2], threads=1, jobs=[gf32])))
+    ranks, _ = gcard["granite"]
+    r0 = ranks[0]
+    e = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], glosses))
+    gne = max(abs(a - b) / abs(b) for a, b in zip(r0["grad_norms"], ggnorms))
+    if not all(math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]) \
+            or not (e <= 3e-2 and gne <= 3e-2):
+        fail(f"sharded_granite_moe_2x2: losses {r0['losses']} vs one device "
+             f"{glosses} ({e}), gradient norms {r0['grad_norms']} vs "
+             f"{ggnorms} ({gne})")
+    (cr, ca), (pr_, pa) = gcard["granite_2layer_f32"], gcpu[
+        "granite_2layer_f32"]
+    ge = dict(loss=abs(cr[0]["losses"][0] - pr_[0]["losses"][0])
+              / abs(pr_[0]["losses"][0]),
+              grad_norm=abs(cr[0]["grad_norms"][0] - pr_[0]["grad_norms"][0])
+              / abs(pr_[0]["grad_norms"][0]))
+    gpe = twin_params_err(ca, pa, gf32["lr"])
+    if not all(v <= 1e-5 for v in ge.values()) or not gpe["ok"]:
+        fail(f"sharded_granite_moe_2x2 2-layer f32: card vs CPU {ge}, "
+             f"parameters {gpe}")
+    t_loc = GB * GL // 2
+    info = dict(backend="gloo", mesh=[2, 2], arch=g_arch, layers=DEPTH,
+                batch=GB, seq=GL,
+                tokens=GB * GL, tokens_per_dp_shard=t_loc,
+                per_shard_capacity=max(1, int(t_loc * gcfg.top_k
+                                              / gcfg.num_experts
+                                              * gcfg.moe_capacity_factor)),
+                steps=gsteps, losses=r0["losses"], grad_norms=r0["grad_norms"],
+                single_device_losses=glosses, loss_rel_err=e,
+                single_device_grad_norms=ggnorms, grad_norm_rel_err=gne,
+                step_ms=r0["step_ms"], f32_2layer=dict(rel_err=ge,
+                                                       params=gpe),
+                world_seconds=gcard["_seconds"], cpu_seconds=gcpu["_seconds"],
+                **world_summary(ranks), seconds=time.perf_counter() - t0)
+    phase("sharded_granite_moe_2x2", **info)
+    sh["sharded_granite_moe_2x2"] = info
+
+    # ---- 33. the train CLI with --tp 2 on the 2 x 2 gloo mesh --------------
+    # whisper-base at its full width and depth: the encoder-decoder family
+    # through the CLI, and a final checkpoint of 0.9 GB, not qwen2's 17.8
+    t0 = time.perf_counter()
+    cli_arch = "whisper-base"
+    ck = build / "sharded_cli_ckpt"
+    import shutil
+    shutil.rmtree(ck, ignore_errors=True)
+    met = build / "sharded_cli_metrics.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.spawn", "--nprocs", "4",
+         "--timeout", "600", "--", "-m", "repro_torch.launch.train",
+         "--arch", cli_arch, "--tp", "2", "--backend", "gloo", "--steps", "2",
+         "--batch", "8", "--seq", "256", "--ckpt-every", "0", "--ckpt-dir",
+         str(ck), "--metrics", str(met), "--log-every", "1"],
+        capture_output=True, text=True, timeout=700,
+        env=dict(env, OMP_NUM_THREADS="2"), cwd=str(ROOT))
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "sharded_train_cli.log").write_text(
+        proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    lines = proc.stdout.splitlines()
+    ck_bytes = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file()) \
+        if ck.exists() else 0
+    shutil.rmtree(ck, ignore_errors=True)
+    if proc.returncode != 0 or not any(ln.startswith("done. loss ")
+                                       for ln in lines) \
+            or "mesh {'data': 2, 'model': 2} on gloo" not in proc.stdout:
+        fail(f"sharded_train_cli: rc {proc.returncode}, out {lines[-8:]}, "
+             f"err {proc.stderr[-2000:]}")
+    metrics = json.loads(met.read_text())
+    info = dict(backend="gloo", mesh=[2, 2], arch=cli_arch, steps=2,
+                batch=8, seq=256, lines=lines, checkpoint_bytes=ck_bytes,
+                losses=metrics["losses"], seconds=time.perf_counter() - t0)
+    phase("sharded_train_cli", **info)
+    sh["sharded_train_cli"] = info
+    report["sharding"] = sh
+    return sh
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs "
@@ -2269,13 +2979,8 @@ def main() -> int:
     del ins, ins2, strm, dk2, dp2
 
     # ---- 6. the second slice's path: the feature sweep --------------------
-    base = rt.preset_grid(array=[32, 64, 128], sram_mb=[0.5, 2, 8],
-                          dataflow=["ws", "os", "is"],
-                          sparsity=[None, "2:4", "1:4-rw"], cores=[1, 4])
+    base, feat, fsweep = feature_sweep_study(wl)
     lay_cfg = LayoutConfig(enabled=True)
-    feat = base + [c.with_(layout=lay_cfg) for c in base]
-    fsweep = rt.Study("feature_sweep").designs(feat).workloads(wl) \
-        .fidelity("fast", "trace")
     plan = fsweep.plan()
     layout_groups = sum(plan.cells[g.cells[0]].config.layout.enabled
                         for g in plan.groups)
@@ -2303,7 +3008,7 @@ def main() -> int:
     if not (tot[:, :, 1] >= tot[:, :, 0]).all():
         fail("feature sweep: a layout-on design is faster than its twin")
     t0 = time.perf_counter()
-    fcpu = fsweep.run(device="cpu")
+    fcpu = cpu_feature_frame(fsweep)
     fcpu_s = time.perf_counter() - t0
     fcol_err = frame_rel_err(fframe, fcpu)
     bad = {c: e for c, e in fcol_err.items() if not e <= RTOL}
@@ -3252,6 +3957,12 @@ def main() -> int:
     report["training_phases_s"] = time.perf_counter() - t0
     phase("training_phases", seconds=report["training_phases_s"])
 
+    # ---- 30-33. the tenth slice's path: the sharded workload plane --------
+    t0 = time.perf_counter()
+    sharding = sharding_phases(report)
+    report["sharding_phases_s"] = time.perf_counter() - t0
+    phase("sharding_phases", seconds=report["sharding_phases_s"])
+
     kernels = {"kernels": [
         dict(name="replay_megakernel", route="cuda",
              source="src/repro_torch/csrc/replay_megakernel.cu",
@@ -3323,6 +4034,7 @@ def main() -> int:
                                                     default=str))
     print(json.dumps({"workload_plane": workload}, default=str))
     print(json.dumps({"training": training}, default=str))
+    print(json.dumps({"sharding": sharding}, default=str))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3332,4 +4044,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank_main(sys.argv[2]))
     sys.exit(main())

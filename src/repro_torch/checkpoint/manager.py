@@ -13,7 +13,13 @@ package (`repro/checkpoint/manager.py`).
     fields in order, named `.field`); bfloat16 leaves are stored as their
     uint16 bits. A checkpoint of either package restores in the other;
   - *retention*: keep_last N checkpoints, older ones garbage-collected;
-  - *preemption*: PreemptionHandler turns SIGTERM into save-and-exit.
+  - *preemption*: PreemptionHandler turns SIGTERM into save-and-exit;
+  - *elastic*: a sharded tree (each process's blocks, with its placements
+    given as `shardings`) is saved as the whole arrays: the blocks are
+    gathered a slab at a time and the process of rank 0 streams them into
+    the same archive. `restore(...,
+    shardings=)` cuts each whole array to this process's block on any
+    mesh shape, as the reference places it on any mesh.
 """
 from __future__ import annotations
 
@@ -98,32 +104,97 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
 
     # -- save ---------------------------------------------------------------
-    def save(self, step: int, tree: PyTree, blocking: bool = False) -> None:
+    def save(self, step: int, tree: PyTree, blocking: bool = False,
+             shardings: Optional[PyTree] = None) -> None:
+        """shardings: `tree` holds this process's blocks, placed as this
+        tree of `NamedSharding`s on a bound mesh. Every process of the
+        mesh calls save; the whole leaves are gathered slab by slab and
+        the process of rank 0 streams them into the archive, so a sharded
+        save returns on every process once it is written (`blocking` is
+        moot there)."""
         self.wait()
+        if shardings is not None:
+            self._save_sharded(step, tree, shardings)
+            return
         flat = flatten_with_paths(tree)
         names = [n for n, _ in flat]
         host = [to_host(v) for _, v in flat]
 
         def _write():
-            tmp = os.path.join(self.dir, f"step_{step:08d}.tmp")
-            final = os.path.join(self.dir, f"step_{step:08d}")
-            os.makedirs(tmp, exist_ok=True)
+            tmp, final = self._begin(step)
             np.savez(os.path.join(tmp, "arrays.npz"),
                      **{f"a{i}": a for i, (a, _) in enumerate(host)})
-            with open(os.path.join(tmp, "manifest.json"), "w") as f:
-                json.dump({"step": step, "names": names,
-                           "dtypes": [d for _, d in host],
-                           "shapes": [list(a.shape) for a, _ in host]}, f)
-            if os.path.exists(final):
-                shutil.rmtree(final)
-            os.replace(tmp, final)
-            self._gc()
+            self._finish(tmp, final, step, names, [d for _, d in host],
+                         [list(a.shape) for a, _ in host])
 
         if blocking:
             _write()
         else:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
+
+    def _begin(self, step: int):
+        tmp = os.path.join(self.dir, f"step_{step:08d}.tmp")
+        os.makedirs(tmp, exist_ok=True)
+        return tmp, os.path.join(self.dir, f"step_{step:08d}")
+
+    def _finish(self, tmp, final, step, names, dtypes, shapes) -> None:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump({"step": step, "names": names, "dtypes": dtypes,
+                       "shapes": shapes}, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        self._gc()
+
+    def _save_sharded(self, step: int, tree: PyTree, shardings: PyTree):
+        """The archive `np.savez` would write, streamed: each leaf's .npy
+        entry is its header, then its whole value gathered one slab of its
+        leading axis at a time (a stacked leaf: one layer), so rank 0
+        holds one slab on the host, not the tree."""
+        import zipfile
+        from ..models.params import gather_leaf
+        flat = flatten_with_paths(tree)
+        sh = [s for _, s in flatten_with_paths(shardings)]
+        if len(sh) != len(flat):
+            raise ValueError("shardings do not match the tree")
+        mesh = sh[0].mesh
+        writer = mesh.rank == 0
+        dtypes, shapes = [], []
+        if writer:
+            tmp, final = self._begin(step)
+            zf = zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), "w",
+                                 zipfile.ZIP_STORED, allowZip64=True)
+        try:
+            for i, ((_, v), s) in enumerate(zip(flat, sh)):
+                spec = tuple(s.spec) + (None,) * (v.ndim - len(s.spec))
+                sliced = v.ndim > 0 and spec[0] is None
+                slabs = ([(v[j], spec[1:]) for j in range(v.shape[0])]
+                         if sliced else [(v, spec)])
+                out = None
+                for t, sp in slabs:
+                    a, name = to_host(gather_leaf(t, sp, mesh))
+                    if not writer:
+                        continue
+                    if out is None:
+                        shape = ((v.shape[0],) + a.shape if sliced
+                                 else a.shape)
+                        dtypes.append(name)
+                        shapes.append(list(shape))
+                        out = zf.open(f"a{i}.npy", "w", force_zip64=True)
+                        np.lib.format.write_array_header_2_0(out, {
+                            "descr": np.lib.format.dtype_to_descr(a.dtype),
+                            "fortran_order": False, "shape": shape})
+                    out.write(np.ascontiguousarray(a).tobytes())
+                if out is not None:
+                    out.close()
+        finally:
+            if writer:
+                zf.close()
+        if writer:
+            self._finish(tmp, final, step, [n for n, _ in flat], dtypes,
+                         shapes)
+        torch.distributed.barrier()
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -149,10 +220,12 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, tree_like: PyTree, step: Optional[int] = None,
-                device=None) -> PyTree:
+                device=None, shardings: Optional[PyTree] = None) -> PyTree:
         """The checkpoint at `step` (the latest by default) in the
         structure of `tree_like`, each leaf in its stored dtype on
-        `device`, or where `tree_like`'s leaf lies."""
+        `device`, or where `tree_like`'s leaf lies. shardings: a tree of
+        `NamedSharding`s on a bound mesh of any shape; each leaf is then
+        this process's block of the stored array (elastic restore)."""
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
@@ -169,6 +242,13 @@ class CheckpointManager:
             leaves = [from_host(z[f"a{i}"], manifest["dtypes"][i],
                                 device if device is not None else like.device)
                       for i, (_, like) in enumerate(flat)]
+        if shardings is not None:
+            from ..models.params import shard_leaf
+            sh = [s for _, s in flatten_with_paths(shardings)]
+            if len(sh) != len(leaves):
+                raise ValueError("shardings do not match the tree")
+            leaves = [shard_leaf(t, s.spec, s.mesh)
+                      for t, s in zip(leaves, sh)]
         return unflatten_like(tree_like, iter(leaves))
 
 

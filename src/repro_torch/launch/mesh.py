@@ -1,0 +1,84 @@
+"""Mesh construction (the reference's `repro/launch/mesh.py`).
+
+Functions, not module-level constants: importing this module starts no
+process group. `make_production_mesh` builds the dry run's unbound meshes
+(spec arithmetic, no processes); `make_host_mesh` binds a (data, model)
+mesh to the `torch.distributed` world this process belongs to, one
+process per device. The backend and the store are explicit: nothing
+chooses one for the caller, and a world that cannot be built raises.
+"""
+from __future__ import annotations
+
+import datetime
+from typing import Optional
+
+import torch.distributed as dist
+
+from ..dist.sharding import Mesh, axis_subsets, group_members
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16x16 = 256 chips per pod; 2 pods = 512 chips when multi_pod."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(shape, axes)
+
+
+def init_world(*, backend: str, init_method: str, rank: int,
+               world_size: int, timeout_s: float = 60.0) -> None:
+    """`torch.distributed.init_process_group` with every argument given:
+    `init_method` a `file://` store or `tcp://host:port`, and a timeout
+    after which a collective that waits on a lost peer raises."""
+    dist.init_process_group(
+        backend, init_method=init_method, rank=rank, world_size=world_size,
+        timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def bind_mesh(shape, axis_names) -> Mesh:
+    """A mesh of `shape` over the initialised world (its size must be the
+    world's), with one process group for every set of axes. Every process
+    of the world calls this, in the same order as its other groups."""
+    if not dist.is_initialized():
+        raise RuntimeError("no torch.distributed world: call init_world "
+                           "(or init_process_group) first")
+    n = dist.get_world_size()
+    size = 1
+    for s in shape:
+        size *= s
+    if size != n:
+        raise ValueError(f"mesh {tuple(shape)} needs {size} processes, the "
+                         f"world has {n}")
+    rank = dist.get_rank()
+    groups = {}
+    for axes in axis_subsets(tuple(axis_names)):
+        for members in group_members(tuple(shape), tuple(axis_names), axes):
+            g = dist.new_group(members)
+            if rank in members:
+                groups[axes] = g
+    return Mesh(tuple(shape), tuple(axis_names), rank=rank,
+                backend=dist.get_backend(), groups=groups)
+
+
+def make_host_mesh(tp: int = 1, *, backend: Optional[str] = None,
+                   init_method: Optional[str] = None,
+                   rank: Optional[int] = None,
+                   world_size: Optional[int] = None,
+                   timeout_s: float = 60.0) -> Mesh:
+    """A (data, model) mesh over this host's world: n processes, tp
+    clamped to n as the reference clamps it to its devices. If the world
+    is not initialised yet, `backend`, `init_method`, `rank` and
+    `world_size` initialise it (all four are required then)."""
+    if not dist.is_initialized():
+        if None in (backend, init_method, rank, world_size):
+            raise ValueError("no torch.distributed world: give backend, "
+                             "init_method, rank and world_size")
+        init_world(backend=backend, init_method=init_method, rank=rank,
+                   world_size=world_size, timeout_s=timeout_s)
+    elif backend is not None and backend != dist.get_backend():
+        raise ValueError(f"the world's backend is {dist.get_backend()}, "
+                         f"not {backend}")
+    n = dist.get_world_size()
+    tp = min(tp, n)
+    if n % tp:
+        raise ValueError(f"{n} processes do not split into tp={tp}")
+    return bind_mesh((n // tp, tp), ("data", "model"))

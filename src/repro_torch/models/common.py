@@ -7,6 +7,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..dist import collectives as col
+
 F32 = torch.float32
 
 
@@ -61,7 +63,8 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def chunked_cross_entropy(x: torch.Tensor, unembed: torch.Tensor,
                           labels: torch.Tensor, *, true_vocab: int,
                           chunk: int = 512,
-                          mask: Optional[torch.Tensor] = None):
+                          mask: Optional[torch.Tensor] = None,
+                          ctx=None, parts: bool = False):
     """Mean CE without materializing (B, L, V) logits.
 
     x: (B, L, d) final hidden; unembed: (d, Vpad); labels: (B, L) integer.
@@ -72,18 +75,36 @@ def chunked_cross_entropy(x: torch.Tensor, unembed: torch.Tensor,
     count this token. As in the reference, only the first
     (L // chunk) * chunk tokens of a sequence count: the last L % chunk
     are skipped.
+
+    ctx: `unembed` is this model rank's block of the vocabulary columns
+    (vocab-parallel): the log-sum-exp takes its maximum and its sum over
+    `model`, and the gold logit comes from the rank that holds it.
+    parts: return (the sum of the token losses, the token count) instead
+    of their quotient.
     """
     B, L, d = x.shape
     V = unembed.shape[1]
     chunk = min(chunk, L)
     n = L // chunk
-    vocab_ok = torch.arange(V, device=x.device) < true_vocab
+    lo = ctx.tp_rank * V if ctx is not None else 0
+    vocab_ok = lo + torch.arange(V, device=x.device) < true_vocab
     neg = torch.tensor(-1e30, dtype=F32, device=x.device)
 
     def chunk_loss(xc, yc, mc):
         logits = torch.where(vocab_ok, matmul_f32(xc, unembed), neg)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+        if ctx is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+            return torch.sum((lse - gold) * mc)
+        mesh, tp = ctx.mesh, ctx.tp_axis
+        m = col.all_reduce_max(torch.amax(logits, dim=-1), mesh, tp)
+        lse = torch.log(col.all_reduce(
+            torch.sum(torch.exp(logits - m[..., None]), dim=-1), mesh,
+            tp)) + m
+        ids = yc.long() - lo
+        mine = (ids >= 0) & (ids < V)
+        gold = torch.gather(logits, -1, torch.where(mine, ids, 0)[..., None])
+        gold = col.all_reduce(torch.where(mine, gold[..., 0], 0.0), mesh, tp)
         return torch.sum((lse - gold) * mc)
 
     tot = torch.zeros((), dtype=F32, device=x.device)
@@ -94,4 +115,6 @@ def chunked_cross_entropy(x: torch.Tensor, unembed: torch.Tensor,
               else torch.ones((B, chunk), dtype=F32, device=x.device))
         tot = tot + remat(chunk_loss, x[:, sl], labels[:, sl], mc)
         cnt = cnt + torch.sum(mc)
+    if parts:
+        return tot, cnt
     return tot / torch.clamp(cnt, min=1.0)

@@ -1,24 +1,83 @@
-"""Dense SwiGLU FFN and Mixture-of-Experts with capacity-based dispatch
-(the reference's single-device `_moe_local` path; its shard_map path waits
-for the sharding slice).
+"""Dense SwiGLU FFN and Mixture-of-Experts with capacity-based dispatch.
 
 Dispatch: top-k experts per token by a stable descending sort (ties go to
 the lower expert index, as `jax.lax.top_k` breaks them), each (token,
 expert) pair's position within its expert by a one-hot cumsum in the
 flattened token-major order, pairs at or past the capacity dropped, the
 kept ones scattered into an (E, C, d) buffer.
+
+Under a mesh context (`ctx`), as the reference:
+  - the dense FFN is tensor-parallel over `model` on d_ff. Its `w_up` is
+    [gate | up] and its stored shards are contiguous slices of that
+    layout (the reference's specs), so rank r's gate and up columns lie
+    on two ranks: the leaf is gathered whole and rank r takes columns
+    [r F/tp, (r+1) F/tp) of each half, or, with fewer rows than d (a
+    decode step), each rank's block of activations x @ w_up is gathered
+    instead (rows x 2F elements, not d x 2F) and the partial sums are
+    reduced in float32. `w_down`'s rows are its stored block. The partial
+    outputs are summed over `model`. In
+    weightgather mode the rank's L / tp rows go through the gathered
+    weights instead;
+  - the MoE layer with more than 4,096 tokens that the dp width divides
+    runs the reference's shard_map body on each process: the dp block of
+    the tokens dispatched with the per-shard capacity cap(T / dp),
+    `w_up` and `w_down` gathered over `data` (ZeRO-3) but kept as the
+    rank's contiguous `model` block (so its swiglu splits the rank's
+    block of [gate | up] in two halves, exactly as the reference's body
+    does), and the output summed over `model`;
+  - any other MoE call (decode steps, short batches) dispatches the whole
+    global batch's tokens with the global capacity (`ffn.py:84` of the
+    reference), every process on all of them, and keeps its rows.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..dist import collectives as col
+from ..dist.sharding import entry_axes
 from .common import matmul_f32, swiglu
+from .spmd import (batch_sharded, param, param_tp_block, res_shard,
+                   seq_sharded, tp_combine)
 
 
-def dense_ffn(p, x):
-    """x: (B, L, d); p: w_up (d, 2*dff) [gate|up], w_down (dff, d)."""
-    return torch.matmul(swiglu(torch.matmul(x, p["w_up"])), p["w_down"])
+def dense_ffn(p, x, ctx=None, sp_mode: str = "megatron",
+              seq_len: Optional[int] = None):
+    """x: (B, L, d); p: w_up (d, 2*dff) [gate|up], w_down (dff, d).
+    Under `ctx`, x and the result are rows as in `attention.attention`."""
+    if ctx is None:
+        return torch.matmul(swiglu(torch.matmul(x, p["w_up"])), p["w_down"])
+    L = seq_len or x.shape[1]
+    if sp_mode == "weightgather" and seq_sharded(ctx, L) or ctx.tp == 1:
+        return torch.matmul(swiglu(torch.matmul(x, param(p, "w_up", ctx))),
+                            param(p, "w_down", ctx))
+    F_ = p["w_down"].shape[0]
+    if ctx.tp_axis in entry_axes(p.specs["w_down"][0]):
+        F_ *= ctx.tp
+    if F_ % ctx.tp:                       # d_ff does not split: replicated
+        y = torch.matmul(swiglu(torch.matmul(x, param(p, "w_up", ctx))),
+                         param(p, "w_down", ctx))
+        return res_shard(y, ctx) if seq_sharded(ctx, L) else y
+    w_down = param_tp_block(p, "w_down", ctx, 0)
+    n = F_ // ctx.tp
+    lo = ctx.tp_rank * n
+    if x.shape[0] * x.shape[1] < x.shape[2]:
+        # fewer rows than d (decode): gather the rank's [gate | up] block
+        # of activations, not the weight
+        h = col.all_gather(torch.matmul(x, param_tp_block(p, "w_up", ctx,
+                                                          1)),
+                           ctx.mesh, ctx.tp_axis, -1)
+        a = swiglu(h)[..., lo:lo + n]
+        # the partial sums in float32, rounded once after the reduction
+        part = torch.matmul(a.to(torch.float32), w_down.to(torch.float32))
+        return tp_combine(part, ctx, L).to(x.dtype)
+    else:
+        w_up = param(p, "w_up", ctx)
+        a = swiglu(torch.matmul(x, torch.cat(
+            [w_up[:, lo:lo + n], w_up[:, F_ + lo:F_ + lo + n]], 1)))
+    return tp_combine(torch.matmul(a, w_down), ctx, L)
 
 
 def top_k(gates: torch.Tensor, k: int):
@@ -74,10 +133,37 @@ def moe_capacity(tokens: int, cfg) -> int:
                       * cfg.moe_capacity_factor))
 
 
-def moe_ffn(p, x, *, cfg):
+def moe_ffn(p, x, *, cfg, ctx=None):
     """x: (B, L, d) -> (B, L, d). p: wr (d, E), w_up (E, d, 2F),
-    w_down (E, F, d)."""
+    w_down (E, F, d). Under `ctx`: this process's batch rows over the
+    whole sequence, `ctx.batch` the global batch."""
     B, L, d = x.shape
-    y = moe_local(x.reshape(B * L, d), p["wr"], p["w_up"], p["w_down"],
-                  k=cfg.top_k, capacity=moe_capacity(B * L, cfg))
+    if ctx is None:
+        y = moe_local(x.reshape(B * L, d), p["wr"], p["w_up"], p["w_down"],
+                      k=cfg.top_k, capacity=moe_capacity(B * L, cfg))
+        return y.reshape(B, L, d).to(x.dtype)
+    mesh, dp = ctx.mesh, ctx.dp_axes
+    rows = batch_sharded(ctx, ctx.batch)
+    T = ctx.batch * L
+    if T % ctx.dp or T <= 4096:
+        # local dispatch over the global batch's tokens, weights whole
+        xg = col.all_gather(x, mesh, dp, 0) if rows else x
+        y = moe_local(xg.reshape(T, d), param(p, "wr", ctx),
+                      param(p, "w_up", ctx), param(p, "w_down", ctx),
+                      k=cfg.top_k, capacity=moe_capacity(T, cfg))
+        y = y.reshape(ctx.batch, L, d)
+        if rows:
+            y = col.local_block(y, mesh, dp, 0)
+        return y.to(x.dtype)
+    # the reference's shard_map body on this process's block of tokens
+    xt = x.reshape(B * L, d)
+    if not rows:
+        xt = col.local_block(xt, mesh, dp, 0)
+    y = moe_local(xt, param(p, "wr", ctx),
+                  param_tp_block(p, "w_up", ctx, 2),
+                  param_tp_block(p, "w_down", ctx, 1), k=cfg.top_k,
+                  capacity=moe_capacity(T // ctx.dp, cfg))
+    y = col.all_reduce(y, mesh, ctx.tp_axis)
+    if not rows:
+        y = col.all_gather(y, mesh, dp, 0)
     return y.reshape(B, L, d).to(x.dtype)

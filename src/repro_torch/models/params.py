@@ -1,11 +1,18 @@
 """Spec-driven parameters: one definition serves real initialization,
-the counts and the conversion of the reference's parameters.
+the counts, the conversion of the reference's parameters and the
+sharding trees.
 
 A parameter tree is a nested dict whose leaves are `ParamDef`s (shape,
 logical axes, init, dtype), stacked over layers (and, for hybrid and ssm
 models, over groups) exactly as in the reference;
 `transformer.LanguageModel` turns a tree of tensors of that shape into the
 port's modules.
+
+Sharded, each process holds of a leaf the contiguous block its mesh
+coordinates select along every dimension its spec shards (`shard_leaf`);
+`gather_leaf` puts the blocks back together. So a leaf's shards are
+slices of the reference's layout, and a checkpoint or a spec tree means
+the same in both packages.
 """
 from __future__ import annotations
 
@@ -15,6 +22,10 @@ from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..dist import collectives as col
+from ..dist.sharding import (MeshCtx, NamedSharding, PartitionSpec,
+                             entry_axes, logical_to_spec)
 
 PyTree = Any
 
@@ -26,6 +37,21 @@ class ParamDef:
     init: str = "normal"                   # normal | zeros | ones
     scale: float = 0.02
     dtype: str = "bfloat16"
+
+    def spec(self, ctx: MeshCtx) -> PartitionSpec:
+        """PartitionSpec with automatic replication of non-divisible dims
+        (e.g. 8 KV heads over a 16-way model axis)."""
+        full = logical_to_spec(ctx, *self.logical)
+        out = []
+        for dim, axes in zip(self.shape, full):
+            if axes is None:
+                out.append(None)
+                continue
+            size = 1
+            for n in entry_axes(axes):
+                size *= ctx.mesh.shape[n]
+            out.append(axes if dim % size == 0 else None)
+        return PartitionSpec(*out)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -51,6 +77,55 @@ def tree_leaves(tree: PyTree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_specs(defs: PyTree, ctx: MeshCtx) -> PyTree:
+    return tree_map(lambda d: d.spec(ctx), defs)
+
+
+def tree_shardings(defs: PyTree, ctx: MeshCtx) -> PyTree:
+    return tree_map(lambda d: NamedSharding(ctx.mesh, d.spec(ctx)), defs)
+
+
+def shard_leaf(full: torch.Tensor, spec, mesh, skip=()) -> torch.Tensor:
+    """This process's block of a whole leaf (a contiguous copy): along
+    each dimension its spec shards, the block of its coordinates. Axes in
+    `skip` are taken as already local (a batch dimension a step was given
+    sliced)."""
+    t = full
+    for dim, entry in enumerate(spec):
+        axes = tuple(a for a in entry_axes(entry) if a not in skip)
+        if axes:
+            t = col.local_block(t, mesh, axes, dim)
+    return t.contiguous().clone()
+
+
+def gather_leaf(local: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole leaf from every process's block (no gradient)."""
+    t = local.detach()
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            t = col._raw_all_gather(mesh, mesh.ordered(entry_axes(entry)), t,
+                                    dim)
+    return t
+
+
+def shard_tree(tree: PyTree, specs: PyTree, mesh, skip=()) -> PyTree:
+    return tree_map(lambda t, s: shard_leaf(t, s, mesh, skip), tree, specs)
+
+
+def gather_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+    return tree_map(lambda t, s: gather_leaf(t, s, mesh), tree, specs)
+
+
+class Sharded(dict):
+    """A tree of this process's blocks that carries its spec tree (a
+    sharded cache: a local block alone does not say how large the whole
+    leaf is)."""
+
+    def __init__(self, tree: dict, specs: dict):
+        super().__init__(tree)
+        self.specs = specs
 
 
 def init_params(defs: PyTree, generator: torch.Generator) -> PyTree:

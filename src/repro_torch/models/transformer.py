@@ -22,16 +22,20 @@ Layout: decoder-only (dense/moe/vlm), enc-dec (audio), hybrid, ssm.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
+from ..dist import collectives as col
+from ..dist.sharding import PartitionSpec, entry_axes
 from .attention import attention, decode_attention
 from .common import chunked_cross_entropy, remat, rms_norm
 from .config import ModelConfig
 from .ffn import dense_ffn, moe_ffn
-from .params import ParamDef
+from .params import ParamDef, Sharded, tree_leaves, tree_map
+from .spmd import (batch_sharded, loss_copies, param, res_gather, res_shard,
+                   rows_gather)
 from .ssm import (mamba2_decode, mamba2_forward, mlstm_decode, mlstm_forward,
                   slstm_decode, slstm_forward)
 
@@ -179,65 +183,103 @@ def model_defs(cfg: ModelConfig) -> PyTree:
 
 # --------------------------------------------------------------------------
 # block functions (p maps the reference's parameter names)
+#
+# Under a mesh context the residual stream x of a block is this process's
+# batch rows, over L / tp rows of the sequence where it is sharded
+# (`spmd.seq_sharded(ctx, L)`, L the global length) and whole otherwise;
+# each sublayer takes `res_gather` of its normed input and returns rows
+# in the residual's layout.
 # --------------------------------------------------------------------------
 
 def cross_params(pl):
-    """A decoder block's cross-attention parameters, `x_` prefix dropped."""
-    return {k[2:]: v for k, v in pl.items() if k.startswith("x_")}
+    """A decoder block's cross-attention parameters, `x_` prefix dropped
+    (with their specs)."""
+    specs = getattr(pl, "specs", None) or {}
+    return Sharded({k[2:]: v for k, v in pl.items() if k.startswith("x_")},
+                   {k[2:]: v for k, v in specs.items() if k.startswith("x_")})
 
 
-def ffn_apply(pl, x, cfg):
+def ffn_apply(pl, x, cfg, ctx=None, L=None):
     if cfg.num_experts > 1:
-        return moe_ffn(pl, x, cfg=cfg)
-    return dense_ffn(pl, x)
+        if ctx is None:
+            return moe_ffn(pl, x, cfg=cfg)
+        L = L or x.shape[1]
+        if cfg.sp_mode == "weightgather":
+            x = rows_gather(x, ctx, L)
+        y = moe_ffn(pl, x, cfg=cfg, ctx=ctx)
+        return res_shard(y, ctx)
+    return dense_ffn(pl, x, ctx, cfg.sp_mode, L)
 
 
-def transformer_block(pl, x, *, cfg, causal=True, cross=None):
+def _norm(x, pl, name, cfg, ctx):
+    return rms_norm(x, param(pl, name, ctx), cfg.norm_eps)
+
+
+def transformer_block(pl, x, *, cfg, ctx=None, causal=True, cross=None,
+                      seq_len=None):
     """One block; returns (x, (k, v)) with the block's self-attention K/V
     (prefill keeps them)."""
-    h, kv = attention(pl, rms_norm(x, pl["ln1"], cfg.norm_eps), cfg=cfg,
-                      causal=causal)
+    L = seq_len or x.shape[1]
+    h, kv = attention(pl, res_gather(_norm(x, pl, "ln1", cfg, ctx), ctx, L,
+                                     cfg.sp_mode),
+                      cfg=cfg, ctx=ctx, causal=causal, seq_len=L)
     x = x + h
     if cross is not None:
         h, _ = attention(cross_params(pl),
-                         rms_norm(x, pl["ln3"], cfg.norm_eps), cfg=cfg,
-                         causal=False, kv_x=cross, use_rope=False)
+                         res_gather(_norm(x, pl, "ln3", cfg, ctx), ctx, L,
+                                    cfg.sp_mode),
+                         cfg=cfg, ctx=ctx, causal=False, kv_x=cross,
+                         use_rope=False, seq_len=L)
         x = x + h
-    x = x + ffn_apply(pl, rms_norm(x, pl["ln2"], cfg.norm_eps), cfg)
+    x = x + ffn_apply(pl, res_gather(_norm(x, pl, "ln2", cfg, ctx), ctx, L,
+                                     cfg.sp_mode), cfg, ctx, L)
     return x, kv
 
 
-def transformer_block_decode(pl, x, cache_l, cache_len, *, cfg, cross=None):
+def transformer_block_decode(pl, x, cache_l, cache_len, *, cfg, ctx=None,
+                             cross=None, kv_sharded=False):
     """One token through one block; writes the block's cache in place."""
-    h, kv = decode_attention(pl, rms_norm(x, pl["ln1"], cfg.norm_eps),
-                             cache_l["k"], cache_l["v"], cache_len, cfg=cfg)
+    h, kv = decode_attention(pl, _norm(x, pl, "ln1", cfg, ctx),
+                             cache_l["k"], cache_l["v"], cache_len, cfg=cfg,
+                             ctx=ctx, kv_sharded=kv_sharded)
     x = x + h
     if cross is not None:
-        h, _ = attention(cross_params(pl),
-                         rms_norm(x, pl["ln3"], cfg.norm_eps), cfg=cfg,
-                         causal=False, kv_x=cross, use_rope=False)
+        h, _ = attention(cross_params(pl), _norm(x, pl, "ln3", cfg, ctx),
+                         cfg=cfg, ctx=ctx, causal=False, kv_x=cross,
+                         use_rope=False)
         x = x + h
-    x = x + ffn_apply(pl, rms_norm(x, pl["ln2"], cfg.norm_eps), cfg)
+    x = x + ffn_apply(pl, _norm(x, pl, "ln2", cfg, ctx), cfg, ctx)
     return x, dict(cache_l, k=kv[0], v=kv[1])
 
 
-def _residual(fwd, dec, pl, x, cfg, state, decode):
-    h = rms_norm(x, pl["ln"], cfg.norm_eps)
-    y, s = (dec(pl, h, state, cfg=cfg) if decode
-            else fwd(pl, h, cfg=cfg, state=state))
-    return x + y, s
+def _residual(fwd, dec, pl, x, cfg, state, decode, ctx=None, seq_len=None):
+    """A recurrent block on the whole sequence: under a mesh its weights
+    are gathered whole and every model rank runs it on its batch rows
+    (compute replicated over `model`)."""
+    L = seq_len or x.shape[1]
+    h = rows_gather(_norm(x, pl, "ln", cfg, ctx), ctx, L)
+    pw = pl if ctx is None else {k: param(pl, k, ctx) for k, _ in pl.items()}
+    y, s = (dec(pw, h, state, cfg=cfg) if decode
+            else fwd(pw, h, cfg=cfg, state=state))
+    return x + res_shard(y, ctx), s
 
 
-def mamba_block(pl, x, *, cfg, state=None, decode=False):
-    return _residual(mamba2_forward, mamba2_decode, pl, x, cfg, state, decode)
+def mamba_block(pl, x, *, cfg, ctx=None, state=None, decode=False,
+                seq_len=None):
+    return _residual(mamba2_forward, mamba2_decode, pl, x, cfg, state, decode,
+                     ctx, seq_len)
 
 
-def mlstm_block(pl, x, *, cfg, state=None, decode=False):
-    return _residual(mlstm_forward, mlstm_decode, pl, x, cfg, state, decode)
+def mlstm_block(pl, x, *, cfg, ctx=None, state=None, decode=False,
+                seq_len=None):
+    return _residual(mlstm_forward, mlstm_decode, pl, x, cfg, state, decode,
+                     ctx, seq_len)
 
 
-def slstm_block(pl, x, *, cfg, state=None, decode=False):
-    return _residual(slstm_forward, slstm_decode, pl, x, cfg, state, decode)
+def slstm_block(pl, x, *, cfg, ctx=None, state=None, decode=False,
+                seq_len=None):
+    return _residual(slstm_forward, slstm_decode, pl, x, cfg, state, decode,
+                     ctx, seq_len)
 
 
 # --------------------------------------------------------------------------
@@ -246,11 +288,14 @@ def slstm_block(pl, x, *, cfg, state=None, decode=False):
 
 class Params(nn.Module):
     """A block's parameters under the reference's names, readable as
-    `p["wq"]`, `p.get("bq")`, `p.items()`."""
+    `p["wq"]`, `p.get("bq")`, `p.items()`; `specs` maps each name to its
+    PartitionSpec when the tensors are this process's shards."""
 
-    def __init__(self, cfg: ModelConfig, tree: Dict[str, torch.Tensor]):
+    def __init__(self, cfg: ModelConfig, tree: Dict[str, torch.Tensor],
+                 specs: Optional[Dict] = None):
         super().__init__()
         self.cfg = cfg
+        self.specs = specs
         for k, v in tree.items():
             self.register_parameter(k, nn.Parameter(v, requires_grad=False))
 
@@ -265,28 +310,33 @@ class Params(nn.Module):
 
 
 class TransformerBlock(Params):
-    def forward(self, x, *, causal=True, cross=None):
-        return transformer_block(self, x, cfg=self.cfg, causal=causal,
-                                 cross=cross)
+    def forward(self, x, *, ctx=None, causal=True, cross=None, seq_len=None):
+        return transformer_block(self, x, cfg=self.cfg, ctx=ctx,
+                                 causal=causal, cross=cross, seq_len=seq_len)
 
-    def decode(self, x, cache_l, cache_len, *, cross=None):
+    def decode(self, x, cache_l, cache_len, *, ctx=None, cross=None,
+               kv_sharded=False):
         return transformer_block_decode(self, x, cache_l, cache_len,
-                                        cfg=self.cfg, cross=cross)
+                                        cfg=self.cfg, ctx=ctx, cross=cross,
+                                        kv_sharded=kv_sharded)
 
 
 class MambaBlock(Params):
-    def forward(self, x, *, state=None, decode=False):
-        return mamba_block(self, x, cfg=self.cfg, state=state, decode=decode)
+    def forward(self, x, *, ctx=None, state=None, decode=False, seq_len=None):
+        return mamba_block(self, x, cfg=self.cfg, ctx=ctx, state=state,
+                           decode=decode, seq_len=seq_len)
 
 
 class MLSTMBlock(Params):
-    def forward(self, x, *, state=None, decode=False):
-        return mlstm_block(self, x, cfg=self.cfg, state=state, decode=decode)
+    def forward(self, x, *, ctx=None, state=None, decode=False, seq_len=None):
+        return mlstm_block(self, x, cfg=self.cfg, ctx=ctx, state=state,
+                           decode=decode, seq_len=seq_len)
 
 
 class SLSTMBlock(Params):
-    def forward(self, x, *, state=None, decode=False):
-        return slstm_block(self, x, cfg=self.cfg, state=state, decode=decode)
+    def forward(self, x, *, ctx=None, state=None, decode=False, seq_len=None):
+        return slstm_block(self, x, cfg=self.cfg, ctx=ctx, state=state,
+                           decode=decode, seq_len=seq_len)
 
 
 def unstack(tree: PyTree) -> list:
@@ -298,37 +348,67 @@ def unstack(tree: PyTree) -> list:
     return list(tree.unbind(0))
 
 
+def unstack_specs(specs: PyTree, n: int) -> list:
+    """A spec tree of leaves stacked on axis 0 (replicated) -> the spec
+    tree of one index, n times."""
+    one = tree_map(lambda s: PartitionSpec(*s[1:]), specs)
+    return [one] * n
+
+
 class LanguageModel(nn.Module):
     """One architecture's parameters as modules, built over a tree of
     tensors shaped as `model_defs(cfg)` (each block's parameters are views
     into the stacked leaves, which `tree` keeps); `cfg` says which stacks
     it has (the reference's tree keys). Its parameters take no gradient
-    except inside `bind_grads`."""
+    except inside `bind_grads`.
 
-    def __init__(self, cfg: ModelConfig, tree: PyTree):
+    Sharded: `tree` holds this process's blocks of the leaves, `specs` the
+    spec tree they were cut by and `mesh` the bound mesh; the steps of
+    `models/zoo.py` take a mesh context over that mesh."""
+
+    def __init__(self, cfg: ModelConfig, tree: PyTree,
+                 specs: Optional[PyTree] = None, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.tree = tree
+        self.specs = specs
+        self.mesh = mesh
+        sp = specs or {}
         for k in ("embed", "final_norm", "unembed", "enc_norm"):
             if k in tree:
                 self.register_parameter(
                     k, nn.Parameter(tree[k], requires_grad=False))
-        stack = lambda cls, t: nn.ModuleList(cls(cfg, b) for b in unstack(t))
-        groups = lambda cls, t: nn.ModuleList(stack(cls, g)
-                                              for g in unstack(t))
+
+        def stack(cls, t, s):
+            ss = unstack_specs(s, t_len(t)) if s else None
+            return nn.ModuleList(cls(cfg, b, ss[i] if ss else None)
+                                 for i, b in enumerate(unstack(t)))
+
+        def groups(cls, t, s):
+            ss = unstack_specs(s, t_len(t)) if s else None
+            return nn.ModuleList(stack(cls, g, ss[i] if ss else None)
+                                 for i, g in enumerate(unstack(t)))
         fam = cfg.family
         if fam in ("dense", "moe", "vlm"):
-            self.blocks = stack(TransformerBlock, tree["blocks"])
+            self.blocks = stack(TransformerBlock, tree["blocks"],
+                                sp.get("blocks"))
         elif fam == "audio":
-            self.enc_blocks = stack(TransformerBlock, tree["enc_blocks"])
-            self.dec_blocks = stack(TransformerBlock, tree["dec_blocks"])
+            self.enc_blocks = stack(TransformerBlock, tree["enc_blocks"],
+                                    sp.get("enc_blocks"))
+            self.dec_blocks = stack(TransformerBlock, tree["dec_blocks"],
+                                    sp.get("dec_blocks"))
         elif fam == "hybrid":
-            self.mamba_groups = groups(MambaBlock, tree["mamba_groups"])
-            self.mamba_tail = stack(MambaBlock, tree["mamba_tail"])
-            self.shared_attn = TransformerBlock(cfg, tree["shared_attn"])
+            self.mamba_groups = groups(MambaBlock, tree["mamba_groups"],
+                                       sp.get("mamba_groups"))
+            self.mamba_tail = stack(MambaBlock, tree["mamba_tail"],
+                                    sp.get("mamba_tail"))
+            self.shared_attn = TransformerBlock(cfg, tree["shared_attn"],
+                                                sp.get("shared_attn"))
         elif fam == "ssm":
-            self.mlstm_groups = groups(MLSTMBlock, tree["mlstm_groups"])
-            self.slstm_blocks = stack(SLSTMBlock, tree["slstm_blocks"])
+            self.mlstm_groups = groups(MLSTMBlock, tree["mlstm_groups"],
+                                       sp.get("mlstm_groups"))
+            self.slstm_blocks = stack(SLSTMBlock, tree["slstm_blocks"],
+                                      sp.get("slstm_blocks"))
         else:
             raise ValueError(fam)
 
@@ -336,80 +416,147 @@ class LanguageModel(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def embed_tokens(self, tokens):
-        return self.embed[tokens]
+    def leaf(self, name: str, ctx) -> torch.Tensor:
+        """A model-level leaf (final_norm, enc_norm) gathered whole."""
+        return param(self._named(), name, ctx)
+
+    def _named(self):
+        return Sharded(dict(self._parameters), self.specs or {})
+
+    def embed_tokens(self, tokens, ctx=None):
+        """Token embeddings. Under `ctx`, with the vocabulary sharded over
+        `model`, each rank looks up the ids in its block of rows and the
+        rows are summed over `model` (vocab-parallel embedding)."""
+        if ctx is None:
+            return self.embed[tokens]
+        named = self._named()
+        if not vocab_sharded(self, "embed", 0, ctx):
+            return param(named, "embed", ctx)[tokens]
+        emb = param(named, "embed", ctx, keep=(ctx.tp_axis,))
+        lo = ctx.tp_rank * emb.shape[0]
+        ids = tokens.long() - lo
+        mine = (ids >= 0) & (ids < emb.shape[0])
+        x = emb[torch.where(mine, ids, 0)] * mine[..., None].to(emb.dtype)
+        return col.all_reduce(x, ctx.mesh, ctx.tp_axis)
+
+
+def vocab_sharded(model: LanguageModel, name: str, dim: int, ctx) -> bool:
+    """Whether a model-level leaf's vocabulary dimension is split over a
+    model axis of more than one process (vocab-parallel embedding and
+    cross-entropy)."""
+    return ctx.tp > 1 and ctx.tp_axis in entry_axes(model.specs[name][dim])
+
+
+def t_len(tree: PyTree) -> int:
+    """The leading (stacked) size of a tree's leaves."""
+    return len(tree_leaves(tree)[0])
 
 
 # --------------------------------------------------------------------------
-# stacks
+# stacks: under a mesh the sequence is sharded between blocks and whole at
+# a stack's entry and exit
 # --------------------------------------------------------------------------
 
-def decoder_stack(blocks, x, *, causal=True, cross=None):
+def decoder_stack(blocks, x, *, ctx=None, causal=True, cross=None):
+    L = x.shape[1]
+    x = res_shard(x, ctx)
     for blk in blocks:
-        x, _ = remat(blk, x, causal=causal, cross=cross)
-    return x
+        x, _ = remat(blk, x, ctx=ctx, causal=causal, cross=cross, seq_len=L)
+    return rows_gather(x, ctx, L)
 
 
-def _group(x, blocks, last):
+def _group(x, blocks, last, ctx=None, seq_len=None):
     """A hybrid or ssm group: its blocks, then `last` (zamba2's shared
     attention block, xLSTM's sLSTM block)."""
     for blk in blocks:
-        x, _ = blk(x)
-    x, _ = last(x)
+        x, _ = blk(x, ctx=ctx, seq_len=seq_len)
+    x, _ = last(x, ctx=ctx, seq_len=seq_len)
     return x
 
 
-def hybrid_stack(model: LanguageModel, x):
+def hybrid_stack(model: LanguageModel, x, ctx=None):
     """zamba2: groups of (attn_every - 1) mamba blocks + 1 shared attn,
     then the tail mamba blocks."""
+    L = x.shape[1]
+    x = res_shard(x, ctx)
     for group in model.mamba_groups:
-        x = remat(_group, x, group, model.shared_attn)
+        x = remat(_group, x, group, model.shared_attn, ctx, L)
     for blk in model.mamba_tail:
-        x, _ = remat(blk, x)
-    return x
+        x, _ = remat(blk, x, ctx=ctx, seq_len=L)
+    return rows_gather(x, ctx, L)
 
 
-def xlstm_stack(model: LanguageModel, x):
+def xlstm_stack(model: LanguageModel, x, ctx=None):
+    L = x.shape[1]
+    x = res_shard(x, ctx)
     for group, sblk in zip(model.mlstm_groups, model.slstm_blocks):
-        x = remat(_group, x, group, sblk)
-    return x
+        x = remat(_group, x, group, sblk, ctx, L)
+    return rows_gather(x, ctx, L)
 
 
-def backbone(model: LanguageModel, batch) -> torch.Tensor:
-    """Full forward to final hidden states (B, L, d)."""
+def backbone(model: LanguageModel, batch, ctx=None) -> torch.Tensor:
+    """Full forward to final hidden states (B, L, d); under `ctx` the
+    batch is this process's rows (`spmd.shard_batch`)."""
     cfg = model.cfg
     fam = cfg.family
     if fam == "audio":
-        enc = decoder_stack(model.enc_blocks, batch["frames"],
+        enc = decoder_stack(model.enc_blocks, batch["frames"], ctx=ctx,
                             causal=False)                 # stub frontend
-        enc = rms_norm(enc, model.enc_norm, cfg.norm_eps)
-        x = model.embed_tokens(batch["tokens"])
-        x = decoder_stack(model.dec_blocks, x, causal=True, cross=enc)
+        enc = rms_norm(enc, model.leaf("enc_norm", ctx), cfg.norm_eps)
+        x = model.embed_tokens(batch["tokens"], ctx)
+        x = decoder_stack(model.dec_blocks, x, ctx=ctx, causal=True,
+                          cross=enc)
     elif fam == "vlm":
-        x = model.embed_tokens(batch["tokens"])
+        x = model.embed_tokens(batch["tokens"], ctx)
         patches = batch.get("patches")
         if patches is not None:                           # stub ViT frontend
             x = torch.cat([patches.to(x.dtype), x], dim=1)
-        x = decoder_stack(model.blocks, x)
+        x = decoder_stack(model.blocks, x, ctx=ctx)
         if patches is not None:
             x = x[:, patches.shape[1]:]
     elif fam in ("dense", "moe"):
-        x = decoder_stack(model.blocks, model.embed_tokens(batch["tokens"]))
+        x = decoder_stack(model.blocks,
+                          model.embed_tokens(batch["tokens"], ctx), ctx=ctx)
     elif fam == "hybrid":
-        x = hybrid_stack(model, model.embed_tokens(batch["tokens"]))
+        x = hybrid_stack(model, model.embed_tokens(batch["tokens"], ctx), ctx)
     elif fam == "ssm":
-        x = xlstm_stack(model, model.embed_tokens(batch["tokens"]))
+        x = xlstm_stack(model, model.embed_tokens(batch["tokens"], ctx), ctx)
     else:
         raise ValueError(fam)
-    return rms_norm(x, model.final_norm, cfg.norm_eps)
+    return rms_norm(x, model.leaf("final_norm", ctx), cfg.norm_eps)
 
 
-def lm_loss(model: LanguageModel, batch) -> torch.Tensor:
+def lm_loss(model: LanguageModel, batch, ctx=None) -> torch.Tensor:
     """Mean next-token cross-entropy; differentiable in the model's
-    parameters inside `bind_grads`."""
-    return chunked_cross_entropy(backbone(model, batch), model.unembed,
-                                 batch["labels"], true_vocab=model.cfg.vocab,
-                                 mask=batch.get("loss_mask"))
+    parameters inside `bind_grads`.
+
+    Under `ctx` (`ctx.batch` the global batch, `batch` this process's
+    rows): the value is the global mean, the same on every process, and
+    its gradient is that of this process's share of it. Every process
+    differentiates it, and the shares add up to the gradient of the
+    global loss (`dist/collectives.py`)."""
+    h = backbone(model, batch, ctx)
+    if ctx is None:
+        return chunked_cross_entropy(h, model.unembed, batch["labels"],
+                                     true_vocab=model.cfg.vocab,
+                                     mask=batch.get("loss_mask"))
+    named = model._named()
+    vocab_tp = vocab_sharded(model, "unembed", 1, ctx)
+    unembed = param(named, "unembed", ctx,
+                    keep=(ctx.tp_axis,) if vocab_tp else ())
+    tot, cnt = chunked_cross_entropy(
+        h, unembed, batch["labels"], true_vocab=model.cfg.vocab,
+        mask=batch.get("loss_mask"), ctx=ctx if vocab_tp else None,
+        parts=True)
+    mesh = ctx.mesh
+    sharded = batch_sharded(ctx, ctx.batch)
+    if sharded:
+        cnt = col._raw_all_reduce(mesh, mesh.ordered(ctx.dp_axes), cnt,
+                                  torch.distributed.ReduceOp.SUM)
+    share = tot / torch.clamp(cnt, min=1.0) / loss_copies(ctx, ctx.batch)
+    whole = col._raw_all_reduce(mesh, mesh.axis_names, share.detach(),
+                                torch.distributed.ReduceOp.SUM)
+    return share + (whole - share).detach()
 
 
 @contextlib.contextmanager

@@ -19,6 +19,13 @@ block parameters are views of its stacked leaves
 leaves go through in chunks of `CHUNK` elements; every operation there is
 elementwise, so the result is the same and the float32 temporaries stay
 small.
+
+Sharded (a spec tree and its bound mesh given): each leaf is this
+process's block, and the norm keeps the reference's global meaning. A
+leaf's squares are summed over the axes it is sharded on, so every
+element of the logical leaf counts once and a replicated leaf is counted
+once, not once per copy; the update is elementwise and runs on the
+blocks in place.
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ from typing import Any, Callable, NamedTuple, Union
 
 import torch
 
+from ..dist import collectives as col
+from ..dist.sharding import entry_axes
 from ..models.params import tree_leaves, tree_map
 
 PyTree = Any
@@ -54,15 +63,48 @@ def adamw_init(params: PyTree) -> AdamWState:
                       tree_map(zeros, params), tree_map(zeros, params))
 
 
-def clip_by_global_norm(grads: PyTree, max_norm: float):
+def sharded_axes(spec, mesh):
+    """The mesh axes of more than one process that a leaf's spec shards
+    it over, in mesh order."""
+    used = {a for e in spec for a in entry_axes(e)}
+    return tuple(a for a in mesh.axis_names
+                 if a in used and mesh.shape[a] > 1)
+
+
+def global_sq_norm(grads: PyTree, specs: PyTree = None, mesh=None
+                   ) -> torch.Tensor:
+    """The sum of the squares of every element of the logical leaves, in
+    float32. Sharded: per set of sharded axes, the blocks' sums are summed
+    over those axes (one all-reduce per set), in a fixed order on every
+    process."""
+    leaves = tree_leaves(grads)
+    sums = [sum(torch.sum(torch.square(c.to(F32))) for c in chunks(g))
+            for g in leaves]
+    if specs is None:
+        gn2 = None
+        for s in sums:
+            gn2 = s if gn2 is None else gn2 + s
+        return gn2
+    by_axes = {}
+    for s, sp in zip(sums, tree_leaves(specs)):
+        key = sharded_axes(sp, mesh)
+        by_axes[key] = s if key not in by_axes else by_axes[key] + s
+    gn2 = None
+    for key in sorted(by_axes):
+        s = by_axes[key]
+        if key:
+            s = col._raw_all_reduce(mesh, key, s, torch.distributed.ReduceOp.SUM)
+        gn2 = s if gn2 is None else gn2 + s
+    return gn2
+
+
+def clip_by_global_norm(grads: PyTree, max_norm: float, specs: PyTree = None,
+                        mesh=None):
     """Scale `grads` in place to a global norm of at most `max_norm`
     (each leaf through float32, cast back to its dtype); returns
-    (grads, the norm before clipping)."""
-    gn2 = None
-    for g in tree_leaves(grads):
-        s = sum(torch.sum(torch.square(c.to(F32))) for c in chunks(g))
-        gn2 = s if gn2 is None else gn2 + s
-    gn = torch.sqrt(gn2)
+    (grads, the norm before clipping). specs, mesh: `grads` holds this
+    process's blocks, cut by the spec tree `specs` on `mesh`."""
+    gn = torch.sqrt(global_sq_norm(grads, specs, mesh))
     scale = torch.clamp(gn.new_tensor(max_norm) / (gn + 1e-9), max=1.0)
     for g in tree_leaves(grads):
         for c in chunks(g):

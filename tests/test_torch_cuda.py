@@ -899,3 +899,43 @@ def test_checkpoint_restores_onto_the_card(dev, tmp_path):
     assert torch.equal(got["w"].cpu(), tree["w"])
     like = {k: v.to("cuda") for k, v in tree.items()}
     assert mgr.restore(like)["s"].device.type == "cuda"
+
+
+def test_sharded_world_of_one_on_the_card_equals_one_device(dev, tmp_path):
+    """An NCCL world of one process, a 1 x 1 mesh: the sharded train step,
+    prefill and decode of qwen2-1.5b's SMOKE config (bfloat16) equal the
+    single-device ones bit for bit (a size-1 axis takes the single-device
+    code paths and moves nothing), under deterministic algorithms (the
+    embedding's backward otherwise adds with atomics in no fixed order)."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import make_mesh_ctx
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.zoo import ModelBundle, params_tree
+    bundle = ModelBundle(get_config("qwen2-1.5b", smoke=True))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 512, (2, 32))).to(dev)
+    batch = {"tokens": x, "labels": x.roll(1, 1)}
+    mesh = make_host_mesh(1, backend="nccl", rank=0, world_size=1,
+                          init_method="file://" + str(tmp_path / "store"))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ctx = make_mesh_ctx(mesh)
+        out = {}
+        for name, c in (("one", None), ("mesh", ctx)):
+            model = bundle.init(torch.Generator(device=dev).manual_seed(0), c)
+            opt = bundle.opt_init(model)
+            _, opt, m = bundle.train_step(c, lr=1e-3)(model, opt, batch)
+            logits, cache = bundle.prefill_step(c)(model, {"tokens": x})
+            nxt, _ = bundle.decode_step(c)(model, cache, x[:, :1], 31)
+            out[name] = (m, params_tree(model), logits, nxt)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    (m1, p1, l1, n1), (m2, p2, l2, n2) = out["one"], out["mesh"]
+    assert torch.equal(m1["loss"], m2["loss"])
+    assert torch.equal(m1["grad_norm"], m2["grad_norm"])
+    for (n, a), (_, b) in zip(flatten_with_paths(p1), flatten_with_paths(p2)):
+        assert a.device.type == "cuda" and torch.equal(a, b), n
+    assert torch.equal(l1, l2) and torch.equal(n1, n2)

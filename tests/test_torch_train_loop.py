@@ -117,10 +117,20 @@ def test_accumulation_needs_whole_microbatches():
 
 
 def test_a_mesh_context_waits_for_the_sharding_slice():
+    """A step under a mesh context runs only on a model sharded on that
+    context's mesh (`ModelBundle.shard`): a whole model is refused, never
+    run on one device quietly."""
+    from repro_torch.dist.sharding import Mesh, make_mesh_ctx
     bundle = TBundle(tget("qwen2-1.5b", smoke=True))
-    for call in (lambda: bundle.loss_fn(object()),
-                 lambda: bundle.train_step(object(), lr=1e-3)):
-        with pytest.raises(NotImplementedError, match="10c"):
+    model = bundle.init(torch.Generator().manual_seed(0))
+    ctx = make_mesh_ctx(Mesh((2, 2), ("data", "model")))
+    x = torch.zeros((2, 8), dtype=torch.int64)
+    batch = {"tokens": x, "labels": x}
+    opt = bundle.opt_init(model)
+    for call in (lambda: bundle.loss_fn(ctx)(model, batch),
+                 lambda: bundle.train_step(ctx, lr=1e-3)(model, opt, batch),
+                 lambda: bundle.prefill_step(ctx)(model, {"tokens": x})):
+        with pytest.raises(ValueError, match="not sharded"):
             call()
 
 
