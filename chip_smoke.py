@@ -233,10 +233,26 @@ own line; any failure exits non-zero before the final result line:
      processes (`repro_torch.launch.spawn`) at full width and depth, 2
      steps of batch 8 x 256 and its final checkpoint (streamed by rank
      0): rank 0 prints the mesh and `done.`;
-  34. a `{"workload_plane": {...}}` line (the numbers of 21-24), a
+  34. the eleventh slice's path, the dry run (`dryrun_phases`; no
+     kernel): qwen2-1.5b `train` at batch 8 x 1,024, full width and
+     depth, counted by `launch/dryrun.py` on a 1 x 1 dry mesh (meta
+     tensors, nothing allocated) and the same step run for real on the
+     card under the same `OpCounter`: counted FLOPs equal (relative gap
+     <= 1e-6), argument bytes equal to the byte, the dry peak within 10 %
+     of `max_memory_allocated` over the step, the measured step at or
+     above the dry run's roofline bound; its compute term beside
+     `train_bound`'s GEMM bound (they differ by the recompute);
+  35. three production cells on meta (`DRY_CELLS`: qwen2-72b `train_4k`
+     on the pod, mixtral-8x7b `decode_32k` on the multipod, zamba2-7b
+     `long_500k` on the pod) under the reference's artifact checks, with
+     each cell's host seconds;
+  36. `run_cell(..., sim_accel="paper-128")` on the card against the
+     CPU, within 1e-3;
+  37. a `{"workload_plane": {...}}` line (the numbers of 21-24), a
      `{"training": {...}}` line (25-29), a `{"sharding": {...}}` line
-     (30-33), a `{"kernels": [...]}` line (all five kernels), the
-     nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+     (30-33), a `{"dryrun": {...}}` line (34-36), a `{"kernels": [...]}`
+     line (all five kernels), the nvidia-smi line, and last `{"ok": true,
+     "device": {...}}`.
 
 `python3 chip_smoke.py --sharded-rank JOBS.json` is one rank of phase
 31-32's worlds (started by the script itself).
@@ -2438,6 +2454,168 @@ def sharding_phases(report: dict) -> dict:
     return sh
 
 
+# production cells of the dry run's phase: one per family kind, each the
+# most expensive of its mode that fits the phase's budget
+DRY_CELLS = (("qwen2-72b", "train_4k", "pod"),
+             ("mixtral-8x7b", "decode_32k", "multipod"),
+             ("zamba2-7b", "long_500k", "pod"))
+DRY_TERMS = ("compute_s", "memory_s", "collective_s")
+
+
+def check_dry_cell(name: str, c: dict):
+    """The reference's artifact checks on one cell's JSON."""
+    t = c["terms"]
+    if not (c.get("ok") and all(v >= 0 for v in t.values())
+            and c["op_flops_per_device"] > 0 and c["dominant"] in DRY_TERMS
+            and 0 < c["useful_flops_ratio"] < 5):
+        fail(f"dry run {name}: {json.dumps(c, default=str)[:2000]}")
+
+
+def dryrun_phases(report: dict) -> dict:
+    """The eleventh slice's path: the dry run (`launch/dryrun.py`, its
+    `OpCounter`) held against a real train step on the card, three
+    production cells on meta, `--sim-accel` card against CPU. Returns the
+    `dryrun` line's numbers."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models.zoo import ModelBundle
+
+    cuda = torch.device("cuda")
+    total = torch.cuda.get_device_properties(0).total_memory
+    dp = dict(card=report["environment"]["card"], total_memory=total,
+              hbm_bytes_constant=dr.HBM_BYTES)
+    if total != dr.HBM_BYTES:
+        print(f"note: this card has {total} bytes, dryrun.HBM_BYTES is "
+              f"{dr.HBM_BYTES}", flush=True)
+
+    # ---- 34. the validation cell: the dry run against a real step -------
+    arch, B, L = "qwen2-1.5b", 8, 1024
+    cfg = get_config(arch)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    dry = dr.count_cell(cfg, dr.dry_mesh((1, 1), ("data", "model")), seq=L,
+                        batch=B, mode="train")
+    dry_s = time.perf_counter() - t0
+    terms, dominant, bound_s = dr.roofline(dry)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    bundle = ModelBundle(cfg)
+    model = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+    opt = bundle.opt_init(model)
+    ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=L,
+                                       global_batch=B, seed=0))
+    data = [{k: torch.from_numpy(v).to(cuda)
+             for k, v in ds.global_batch_at(i).items()} for i in range(3)]
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - base \
+        - sum(t.untyped_storage().nbytes() for b in data[1:]
+              for t in b.values())
+    step = bundle.train_step()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    real = dr.count_step(step, (model, opt, data[0]), None)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    # the counted step's peak, less what the card held before the model
+    # and the two batches of the timed steps
+    peak = torch.cuda.max_memory_allocated() - base \
+        - sum(t.untyped_storage().nbytes() for b in data[1:]
+              for t in b.values())
+    ms = []
+    for b in data[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model, opt, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    no_launches("dryrun_validation", launch_counts())
+    gemm = train_bound(cfg, bundle, B, L)
+    flops_gap = abs(real["flops"] - dry["flops"]) / dry["flops"]
+    vinfo = dict(
+        arch=arch, batch=B, seq=L, layers=cfg.layers, mesh="1 x 1 dry",
+        dry_host_s=dry_s, counted_step_host_s=counted_s,
+        dry_flops=dry["flops"], real_flops=real["flops"],
+        flops_rel_gap=flops_gap,
+        dry_hbm_bytes=dry["hbm_bytes"], real_hbm_bytes=real["hbm_bytes"],
+        dry_arg_bytes=dry["arg_bytes"], real_arg_bytes=real["arg_bytes"],
+        real_allocated_for_args=allocated,
+        dry_peak_bytes=dry["peak_bytes"], real_peak_bytes=peak,
+        peak_ratio=dry["peak_bytes"] / peak,
+        real_counted_peak_bytes=real["peak_bytes"],
+        terms=terms, dominant=dominant, roofline_bound_ms=bound_s * 1e3,
+        step_ms_all=ms, step_ms=min(ms),
+        step_over_bound=min(ms) / (bound_s * 1e3),
+        compute_ms=terms["compute_s"] * 1e3,
+        gemm_bound_ms=gemm["gemm_bound_ms"],
+        compute_over_gemm_bound=terms["compute_s"] * 1e3
+        / gemm["gemm_bound_ms"],
+        top_ops={k: v for k, v in sorted(
+            dry["ops"].items(), key=lambda kv: -kv[1]["flops"])[:4]})
+    phase("dryrun_validation", **vinfo)
+    if flops_gap > 1e-6:
+        fail(f"dryrun_validation: counted FLOPs {real['flops']} on the card, "
+             f"{dry['flops']} dry")
+    if dry["arg_bytes"] != real["arg_bytes"]:
+        fail(f"dryrun_validation: argument bytes {dry['arg_bytes']} dry, "
+             f"{real['arg_bytes']} on the card")
+    if abs(vinfo["peak_ratio"] - 1) > 0.1:
+        fail(f"dryrun_validation: dry peak {dry['peak_bytes']}, the card's "
+             f"{peak}")
+    if min(ms) < bound_s * 1e3:
+        fail(f"dryrun_validation: a step of {min(ms)} ms under the roofline "
+             f"bound {bound_s * 1e3} ms")
+    dp["validation"] = vinfo
+    del model, opt, data, real
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 35. production cells on meta -----------------------------------
+    cells = {}
+    for arch_, shape, mesh in DRY_CELLS:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        c = dr.run_cell(arch_, shape, mesh)
+        wall = time.perf_counter() - t0
+        name = f"{arch_}__{shape}__{mesh}"
+        no_launches(f"dry run {name}", launch_counts())
+        check_dry_cell(name, c)
+        cells[name] = dict(wall_s=wall, **{k: c[k] for k in (
+            "host_s", "chips", "op_flops_per_device", "op_bytes_per_device",
+            "collective_bytes_per_chip", "arg_bytes_per_device",
+            "peak_bytes_per_device", "fits_hbm", "useful_flops_ratio",
+            "terms", "dominant", "roofline_bound_s")})
+    phase("dryrun_production_cells", **cells)
+    dp["production_cells"] = cells
+
+    # ---- 36. --sim-accel on the card against the CPU ---------------------
+    sims = {}
+    for dname in ("cuda", "cpu"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        c = dr.run_cell("qwen2-1.5b", "decode_32k", "pod",
+                        sim_accel="paper-128", device=dname)
+        no_launches(f"dry run sim-accel ({dname})", launch_counts())
+        sims[dname] = dict(c["sim_accel"], wall_s=time.perf_counter() - t0,
+                           op_flops_per_device=c["op_flops_per_device"])
+    errs = {k: abs(sims["cuda"][k] - sims["cpu"][k])
+            / max(abs(sims["cpu"][k]), 1e-30)
+            for k in ("total_cycles", "stall_cycles", "energy_pj",
+                      "utilization", "modeled_s")}
+    sinfo = dict(cell="qwen2-1.5b__decode_32k__pod", card=sims["cuda"],
+                 cpu=sims["cpu"], rel_err=errs)
+    phase("dryrun_sim_accel", **sinfo)
+    if not all_within(errs) or sims["cuda"]["device"] != "cuda" or \
+            sims["cuda"]["op_flops_per_device"] != \
+            sims["cpu"]["op_flops_per_device"]:
+        fail(f"dryrun_sim_accel: card vs CPU {errs}")
+    dp["sim_accel"] = sinfo
+    return dp
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs "
@@ -3963,6 +4141,12 @@ def main() -> int:
     report["sharding_phases_s"] = time.perf_counter() - t0
     phase("sharding_phases", seconds=report["sharding_phases_s"])
 
+    # ---- 34-36. the eleventh slice's path: the dry run --------------------
+    t0 = time.perf_counter()
+    dryrun = dryrun_phases(report)
+    report["dryrun_phases_s"] = time.perf_counter() - t0
+    phase("dryrun_phases", seconds=report["dryrun_phases_s"])
+
     kernels = {"kernels": [
         dict(name="replay_megakernel", route="cuda",
              source="src/repro_torch/csrc/replay_megakernel.cu",
@@ -4035,6 +4219,7 @@ def main() -> int:
     print(json.dumps({"workload_plane": workload}, default=str))
     print(json.dumps({"training": training}, default=str))
     print(json.dumps({"sharding": sharding}, default=str))
+    print(json.dumps({"dryrun": dryrun}, default=str))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,12 @@ gloo, a CUDA tensor goes to the host for every collective gloo does not
 take on CUDA tensors (`GLOO_CUDA_NATIVE`) and back; this is decided by the
 mesh's backend, never as a retry, and the bytes are counted
 (`CollectiveStats.staged_bytes`). A collective that fails raises.
+
+A dry mesh (`Mesh(sizes, names, rank=0, backend="dry")`, the dry run's
+`launch/dryrun.py`) stands for one process of a mesh that does not
+exist: it has no groups, and each collective returns an empty meta tensor
+of its result's shape, counted as the real one would be. It takes meta
+tensors only; a tensor anywhere else raises.
 """
 from __future__ import annotations
 
@@ -38,6 +44,26 @@ from .sharding import Mesh
 # every other one is staged through the host
 GLOO_CUDA_NATIVE = frozenset({"all_reduce", "all_gather", "reduce_scatter"})
 
+# the backend name of a mesh with no processes behind it (the dry run's)
+DRY = "dry"
+
+
+def ring_traffic(name: str, g: int) -> float:
+    """Bytes one process sends per byte of a collective's input, by the
+    ring algorithm over a group of g (the reference's `_ring_factor` in
+    `launch/hlocost.py`, which scales the shape XLA prints: the gathered
+    shape for an all-gather, the scattered shard for a reduce-scatter;
+    here the base is the input, the shard and the whole respectively)."""
+    if g <= 1:
+        return 0.0
+    if name == "all_gather":
+        return float(g - 1)
+    if name == "all_reduce":
+        return 2.0 * (g - 1) / g
+    if name in ("reduce_scatter", "all_to_all"):
+        return (g - 1) / g
+    raise ValueError(f"unknown collective {name!r}")
+
 
 @dataclasses.dataclass
 class CollectiveStats:
@@ -46,14 +72,24 @@ class CollectiveStats:
     gloo mesh the device is synchronized before and after a collective on
     a CUDA tensor (gloo makes the host wait for the tensor anyway), so
     `seconds` holds the collectives alone, not the device work queued
-    before them; on NCCL it is the host's time to enqueue them."""
+    before them; on NCCL it is the host's time to enqueue them.
+    `kinds` splits the calls and bytes by collective and adds each one's
+    ring traffic (`ring_traffic`: the bytes this process sends)."""
     calls: int = 0
     seconds: float = 0.0
     bytes: int = 0
     staged_bytes: int = 0
+    kinds: dict = dataclasses.field(default_factory=dict)
 
     def reset(self) -> None:
         self.calls, self.seconds, self.bytes, self.staged_bytes = 0, 0.0, 0, 0
+        self.kinds = {}
+
+    def count(self, name: str, nbytes: int, g: int) -> None:
+        k = self.kinds.setdefault(name, dict(calls=0, bytes=0, traffic=0.0))
+        k["calls"] += 1
+        k["bytes"] += nbytes
+        k["traffic"] += nbytes * ring_traffic(name, g)
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -66,27 +102,34 @@ def stats(mesh: Mesh) -> CollectiveStats:
     return s
 
 
-def _run(mesh: Mesh, name: str, x: torch.Tensor, fn):
+def _run(mesh: Mesh, name: str, axes, x: torch.Tensor, fn, shape):
     """fn(x) on the host when the mesh's backend does not take `x` where
-    it lies; counts the call."""
+    it lies; on a dry mesh an empty meta tensor of the result's `shape`.
+    Counts the call."""
     st = stats(mesh)
-    sync = mesh.backend == "gloo" and x.is_cuda
-    if sync:
-        torch.cuda.synchronize(x.device)
-    t0 = time.perf_counter()
     nbytes = x.numel() * x.element_size()
-    staged = sync and name not in GLOO_CUDA_NATIVE
-    if staged:
-        y = fn(x.cpu())
-        st.staged_bytes += nbytes + y.numel() * y.element_size()
-        y = y.to(x.device)
+    if mesh.backend == DRY:
+        if x.device.type != "meta":
+            raise ValueError(f"a dry mesh takes meta tensors only, not one "
+                             f"on {x.device}")
+        y = torch.empty(shape, dtype=x.dtype, device="meta")
     else:
-        y = fn(x)
-    if sync:
-        torch.cuda.synchronize(x.device)
+        sync = mesh.backend == "gloo" and x.is_cuda
+        if sync:
+            torch.cuda.synchronize(x.device)
+        t0 = time.perf_counter()
+        if sync and name not in GLOO_CUDA_NATIVE:
+            y = fn(x.cpu())
+            st.staged_bytes += nbytes + y.numel() * y.element_size()
+            y = y.to(x.device)
+        else:
+            y = fn(x)
+        if sync:
+            torch.cuda.synchronize(x.device)
+        st.seconds += time.perf_counter() - t0
     st.calls += 1
     st.bytes += nbytes
-    st.seconds += time.perf_counter() - t0
+    st.count(name, nbytes, mesh.axes_size(axes))
     return y
 
 
@@ -100,7 +143,9 @@ def _raw_all_gather(mesh, axes, x, dim):
         parts = [torch.empty_like(t) for _ in range(n)]
         dist.all_gather(parts, t, group=mesh.group(axes))
         return torch.cat(parts, dim)
-    return _run(mesh, "all_gather", x, fn)
+    shape = list(x.shape)
+    shape[dim] *= n
+    return _run(mesh, "all_gather", axes, x, fn, shape)
 
 
 def _raw_reduce_scatter(mesh, axes, x, dim):
@@ -116,7 +161,9 @@ def _raw_reduce_scatter(mesh, axes, x, dim):
         out = torch.empty_like(ins[0])
         dist.reduce_scatter(out, ins, group=mesh.group(axes))
         return out
-    return _run(mesh, "reduce_scatter", x, fn)
+    shape = list(x.shape)
+    shape[dim] //= n
+    return _run(mesh, "reduce_scatter", axes, x, fn, shape)
 
 
 def _raw_all_reduce(mesh, axes, x, op):
@@ -127,7 +174,7 @@ def _raw_all_reduce(mesh, axes, x, op):
         t = t.contiguous().clone()
         dist.all_reduce(t, op=op, group=mesh.group(axes))
         return t
-    return _run(mesh, "all_reduce", x, fn)
+    return _run(mesh, "all_reduce", axes, x, fn, x.shape)
 
 
 def _raw_all_to_all(mesh, axes, x, split_dim, cat_dim):
@@ -143,7 +190,10 @@ def _raw_all_to_all(mesh, axes, x, split_dim, cat_dim):
         outs = [torch.empty_like(c) for c in ins]
         dist.all_to_all(outs, ins, group=mesh.group(axes))
         return torch.cat(outs, cat_dim)
-    return _run(mesh, "all_to_all", x, fn)
+    shape = list(x.shape)
+    shape[split_dim] //= n
+    shape[cat_dim] *= n
+    return _run(mesh, "all_to_all", axes, x, fn, shape)
 
 
 class _AllGather(torch.autograd.Function):

@@ -108,7 +108,7 @@ def _positions(B, start, n, device):
 
 def attention(p, x, *, cfg, ctx=None, causal: bool = True,
               kv_x: Optional[torch.Tensor] = None, use_rope: bool = True,
-              seq_len: Optional[int] = None):
+              seq_len: Optional[int] = None, kv_out: bool = True):
     """Full-sequence attention (train / prefill). x: (B, L, d); p maps
     wq (d, H, hd), wk/wv (d, KV, hd), wo (H, hd, d) and, with QKV bias,
     bq/bk/bv. kv_x: the encoder states of a cross-attention. Returns
@@ -117,11 +117,13 @@ def attention(p, x, *, cfg, ctx=None, causal: bool = True,
     Under `ctx`: seq_len is the global L; x holds this rank's L / tp rows
     where the sequence is sharded and the mode is weightgather, its whole
     rows otherwise, and y this rank's L / tp rows wherever the sequence is
-    sharded (`spmd.seq_sharded`)."""
+    sharded (`spmd.seq_sharded`). kv_out=False: the caller drops k/v (a
+    training stack); in head tensor parallelism each model rank then
+    projects only its own KV heads and returns (y, None)."""
     if ctx is not None:
         return _attention_ctx(p, x, cfg=cfg, ctx=ctx, causal=causal,
                               kv_x=kv_x, use_rope=use_rope,
-                              L=seq_len or x.shape[1])
+                              L=seq_len or x.shape[1], kv_out=kv_out)
     B, L, d = x.shape
     src = x if kv_x is None else kv_x
     q, k, v = _qkv(p, x, src)
@@ -144,7 +146,8 @@ def seq_chunk(b_loc: int, heads: int, s_full: int, l_loc: int) -> int:
     return min(chunk, l_loc)
 
 
-def _attention_ctx(p, x, *, cfg, ctx, causal, kv_x, use_rope, L):
+def _attention_ctx(p, x, *, cfg, ctx, causal, kv_x, use_rope, L,
+                   kv_out=True):
     H, KV = cfg.heads, cfg.kv_heads
     mesh, tp = ctx.mesh, ctx.tp_axis
     B = x.shape[0]
@@ -153,16 +156,22 @@ def _attention_ctx(p, x, *, cfg, ctx, causal, kv_x, use_rope, L):
     sp = seq_sharded(ctx, L)
     if H % ctx.tp == 0 and not weightgather:
         # Megatron-style GQA TP: KV heads repeated to H so the head axis
-        # shards evenly; each rank's q heads see their own kv copy
+        # shards evenly; each rank's q heads see their own kv copy. Rank
+        # r's q heads read KV heads [r KV / tp, (r + 1) KV / tp) when tp
+        # divides KV, so a caller that drops k/v has the rank project
+        # those alone (as XLA partitions the reference's projection)
         src = x if kv_x is None else kv_x
+        own_kv = ctx.tp > 1 and KV % ctx.tp == 0 and not kv_out
+        kvw = ((lambda n, dim: param_tp_block(p, n, ctx, dim)) if own_kv
+               else (lambda n, dim: param(p, n, ctx)))
         q = torch.einsum("bld,dnh->blnh", x,
                          param_tp_block(p, "wq", ctx, 1))
-        k = torch.einsum("bsd,dnh->bsnh", src, param(p, "wk", ctx))
-        v = torch.einsum("bsd,dnh->bsnh", src, param(p, "wv", ctx))
+        k = torch.einsum("bsd,dnh->bsnh", src, kvw("wk", 1))
+        v = torch.einsum("bsd,dnh->bsnh", src, kvw("wv", 1))
         if p.get("bq") is not None:
             q = q + param_tp_block(p, "bq", ctx, 0)
-            k = k + param(p, "bk", ctx)
-            v = v + param(p, "bv", ctx)
+            k = k + kvw("bk", 0)
+            v = v + kvw("bv", 0)
         if use_rope and kv_x is None:
             pos = _positions(B, 0, L, x.device)
             q = rope(q, pos, cfg.rope_theta)
@@ -173,13 +182,14 @@ def _attention_ctx(p, x, *, cfg, ctx, causal, kv_x, use_rope, L):
             if group > 1:
                 kr = kr.repeat_interleave(group, dim=2)
                 vr = vr.repeat_interleave(group, dim=2)
-            kr = col.local_block(kr, mesh, tp, 2)
-            vr = col.local_block(vr, mesh, tp, 2)
+            if not own_kv:
+                kr = col.local_block(kr, mesh, tp, 2)
+                vr = col.local_block(vr, mesh, tp, 2)
         out = gqa_scores_ctx(q, kr, vr, causal=is_causal,
                              window=cfg.attn_window, q_offset=0)
         y = torch.einsum("blnh,nhd->bld", out,
                          param_tp_block(p, "wo", ctx, 0))
-        return tp_combine(y, ctx, L), (k, v)
+        return tp_combine(y, ctx, L), ((k, v) if kv_out else None)
     if sp:
         # sequence-parallel attention: this rank's L / tp query rows at
         # offset r * L / tp against the full K/V

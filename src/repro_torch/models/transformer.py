@@ -22,6 +22,7 @@ Layout: decoder-only (dense/moe/vlm), enc-dec (audio), hybrid, ssm.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -216,20 +217,22 @@ def _norm(x, pl, name, cfg, ctx):
 
 
 def transformer_block(pl, x, *, cfg, ctx=None, causal=True, cross=None,
-                      seq_len=None):
+                      seq_len=None, kv_out=True):
     """One block; returns (x, (k, v)) with the block's self-attention K/V
-    (prefill keeps them)."""
+    (prefill keeps them; kv_out=False: a stack that drops them, k/v then
+    None under a mesh context)."""
     L = seq_len or x.shape[1]
     h, kv = attention(pl, res_gather(_norm(x, pl, "ln1", cfg, ctx), ctx, L,
                                      cfg.sp_mode),
-                      cfg=cfg, ctx=ctx, causal=causal, seq_len=L)
+                      cfg=cfg, ctx=ctx, causal=causal, seq_len=L,
+                      kv_out=kv_out)
     x = x + h
     if cross is not None:
         h, _ = attention(cross_params(pl),
                          res_gather(_norm(x, pl, "ln3", cfg, ctx), ctx, L,
                                     cfg.sp_mode),
                          cfg=cfg, ctx=ctx, causal=False, kv_x=cross,
-                         use_rope=False, seq_len=L)
+                         use_rope=False, seq_len=L, kv_out=False)
         x = x + h
     x = x + ffn_apply(pl, res_gather(_norm(x, pl, "ln2", cfg, ctx), ctx, L,
                                      cfg.sp_mode), cfg, ctx, L)
@@ -310,9 +313,11 @@ class Params(nn.Module):
 
 
 class TransformerBlock(Params):
-    def forward(self, x, *, ctx=None, causal=True, cross=None, seq_len=None):
+    def forward(self, x, *, ctx=None, causal=True, cross=None, seq_len=None,
+                kv_out=True):
         return transformer_block(self, x, cfg=self.cfg, ctx=ctx,
-                                 causal=causal, cross=cross, seq_len=seq_len)
+                                 causal=causal, cross=cross, seq_len=seq_len,
+                                 kv_out=kv_out)
 
     def decode(self, x, cache_l, cache_len, *, ctx=None, cross=None,
                kv_sharded=False):
@@ -461,7 +466,8 @@ def decoder_stack(blocks, x, *, ctx=None, causal=True, cross=None):
     L = x.shape[1]
     x = res_shard(x, ctx)
     for blk in blocks:
-        x, _ = remat(blk, x, ctx=ctx, causal=causal, cross=cross, seq_len=L)
+        x, _ = remat(blk, x, ctx=ctx, causal=causal, cross=cross, seq_len=L,
+                     kv_out=False)
     return rows_gather(x, ctx, L)
 
 
@@ -479,8 +485,9 @@ def hybrid_stack(model: LanguageModel, x, ctx=None):
     then the tail mamba blocks."""
     L = x.shape[1]
     x = res_shard(x, ctx)
+    shared = functools.partial(model.shared_attn, kv_out=False)
     for group in model.mamba_groups:
-        x = remat(_group, x, group, model.shared_attn, ctx, L)
+        x = remat(_group, x, group, shared, ctx, L)
     for blk in model.mamba_tail:
         x, _ = remat(blk, x, ctx=ctx, seq_len=L)
     return rows_gather(x, ctx, L)

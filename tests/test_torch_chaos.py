@@ -285,7 +285,8 @@ def test_error_shard_requeued_within_budget(tmp_path):
 
 def test_chaos_cli_passes_all_three_schedules(tmp_path):
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    # one intra-op thread: the suite runs several workers on the same cores
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src), OMP_NUM_THREADS="1")
     report = str(tmp_path / "FAULTS_report.json")
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.farm", "chaos", "--smoke",

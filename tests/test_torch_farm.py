@@ -460,7 +460,9 @@ def test_smoke_cli_spawns_workers_on_the_named_device(tmp_path):
     """`python -m repro_torch.farm smoke`: a broker thread and two worker
     subprocesses on `--device cpu` run edp_array_size, claims gated."""
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    # one intra-op thread in the CLI and in the workers it spawns: the
+    # suite runs several workers on the same cores
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src), OMP_NUM_THREADS="1")
     metrics = str(tmp_path / "FARM_metrics.json")
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.farm", "smoke", "--smoke",

@@ -12,9 +12,6 @@ on the port's smoke run through the CLI."""
 import dataclasses
 import json
 import math
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -412,27 +409,31 @@ def test_search_edp_is_registered_with_the_reference_s_claims():
         s.plan()
 
 
-def test_search_edp_smoke_cli_holds_its_claims(tmp_path):
-    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+def test_search_edp_smoke_cli_holds_its_claims(tmp_path, capsys):
+    """`python -m repro_torch.api` run in this process (its `_main` with
+    the command line's argv) on one intra-op thread: a child process on
+    every core waited on six test workers sharing the same cores."""
+    from repro_torch.api.study import _main
     log = str(tmp_path / "LOG.json")
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.api", "--study", "search_edp",
-         "--smoke", "--device", "cpu", "--search-log", log],
-        env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.count("claim PASS") == 7
-    assert "row dump suppressed" in proc.stdout
-    d = SearchLog.from_json(open(log).read())
-    assert [(e["kind"], e["fidelity"], len(e["cohort"]))
-            for e in d.rounds] == [("screen", "fast", 768),
-                                   ("propose", "fast", 192),
-                                   ("propose", "fast", 48),
-                                   ("rung", "trace", 12)]
-    # a non-search study has no log to write
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.api", "--study",
-         "edp_array_size", "--smoke", "--device", "cpu", "--search-log",
-         str(tmp_path / "none.json")],
-        env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 1 and "not a search study" in proc.stdout
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rc = _main(["--study", "search_edp", "--smoke", "--device", "cpu",
+                    "--search-log", log])
+        out = capsys.readouterr().out
+        assert rc == 0, out
+        assert out.count("claim PASS") == 7
+        assert "row dump suppressed" in out
+        d = SearchLog.from_json(open(log).read())
+        assert [(e["kind"], e["fidelity"], len(e["cohort"]))
+                for e in d.rounds] == [("screen", "fast", 768),
+                                       ("propose", "fast", 192),
+                                       ("propose", "fast", 48),
+                                       ("rung", "trace", 12)]
+        # a non-search study has no log to write
+        rc = _main(["--study", "edp_array_size", "--smoke", "--device",
+                    "cpu", "--search-log", str(tmp_path / "none.json")])
+        out = capsys.readouterr().out
+        assert rc == 1 and "not a search study" in out
+    finally:
+        torch.set_num_threads(n)

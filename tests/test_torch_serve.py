@@ -163,7 +163,8 @@ def test_wave_cost_matches_the_reference_simulator():
 
 
 def _run(args, **kw):
-    env = dict(os.environ, PYTHONPATH=SRC)
+    # one intra-op thread: the suite runs several workers on the same cores
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, *args], env=env,
                           capture_output=True, text=True, timeout=300, **kw)
 

@@ -212,7 +212,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "print('LEAKED', bad)\n"
         "assert not bad, bad\n")
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    # one intra-op thread: the suite runs several workers on the same cores
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src),
+               OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -364,7 +366,9 @@ def test_shards_and_assemble_frame_equal_run():
 
 def test_cli_runs_a_named_study(tmp_path):
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    # one intra-op thread: the suite runs several workers on the same cores
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src),
+               OMP_NUM_THREADS="1")
     out = str(tmp_path / "edp.json")
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.api", "--study",
