@@ -25,11 +25,13 @@ own line; any failure exits non-zero before the final result line:
      2^31 - 1, 1,024 banks), on ids one element into a buffer, on bank
      ids outside [0, num_banks) and on 1,000,000 random rows of k = 128:
      exactly equal; the fold matmul
-     (float32 within 1e-5, bfloat16 and float16 within 2e-2), the
+     (float32 within 1e-5, bfloat16 and float16 within 2e-2; integer and
+     integer x float pairs and an overflowing int8 fold bit for bit), the
      wavefront kernel (both entries, and its closed form) and the ELLPACK
      packer (exactly equal, each case aligned and as a view one element
      into its buffer, which takes the scalar path: float32 m = 2, 4, 8,
-     16, bfloat16 and float16 m = 4, 8, 16, keep 3 and 6) against their plain
+     16, bfloat16 and float16 m = 4, 8, 16, keep 3 and 6, int8, uint8,
+     int16 and int32 over their full range) against their plain
      versions on edge shapes: empty inputs, B = 1, T = 1, T < 0,
      n_cycles % 4 != 0, T = 60,000, ragged tiles, mixed dtypes;
   4. the paper's named studies on the card (`edp_array_size`,
@@ -85,8 +87,10 @@ own line; any failure exits non-zero before the final result line:
      and their bounds; the ELLPACK packer's vector path on the mlp2
      weight (2:4 float32) beside the same weight one element into its
      buffer (the scalar path), 4:8 float32 and bfloat16 at m = 8; the
-     matmul also at each distinct fold shape of
-     the fold pass, with its grid's block count; the wavefront kernel
+     matmul also at each distinct fold shape of the fold pass, with its
+     grid's block count, and on an int8 x int8 qkv fold (the integer
+     kernel; bit for bit with plain) beside `torch._int_mm` narrowed to
+     int8 and its bound at the int8 tensor-core rate; the wavefront kernel
      also on one qkv fold through its one-fold entry, beside the same
      fold through the batched entry and beside the launch floor, an
      empty kernel launched the same way (graph replay and host loop);
@@ -210,7 +214,7 @@ own line; any failure exits non-zero before the final result line:
      gradient norms within 1e-6, tokens equal), step ms beside it;
   31. four processes of this script (`--sharded-rank`) share the card as
      a 2 x 2 gloo mesh (the backend printed): qwen2-1.5b at full width,
-     depth cut to 4 layers, in megatron (head tensor parallelism) and
+     depth cut to 2 layers, in megatron (head tensor parallelism) and
      weightgather (sequence-sharded attention) modes, a prefill and 16
      decode steps on an S-sharded cache teacher-forced on one device's
      greedy stream at the same depth (logits within 3e-2, the greedy
@@ -218,17 +222,27 @@ own line; any failure exits non-zero before the final result line:
      step's logit difference), then 3 train steps (losses and gradient
      norms within 3e-2 of one device's); each rank's step ms,
      collective seconds (the device synchronized around each) and bytes,
-     their share of the step, bytes staged through the host, peak
-     memory; a 2-layer float32 twin on the card and, side by side, on the
-     card machine's CPU (2 x 2 gloo, CPU tensors): loss, gradient norm
-     and logits within 1e-5, tokens equal, the updated parameters under
-     AdamW's first-step rule (1e-4 of a leaf's largest magnitude where
-     the gradient is at least 1e-6, 2 lr elsewhere);
+     their share of the step, peak memory; a 2-layer float32 twin on
+     the card and, side by side, on the card machine's CPU (2 x 2 gloo,
+     CPU tensors): loss, gradient norm and logits within 1e-5, tokens
+     equal, the updated parameters under AdamW's first-step rule (1e-4
+     of a leaf's largest magnitude where the gradient is at least 1e-6,
+     2 lr elsewhere);
   32. granite-moe-3b-a800m at full width, 4 layers, global batch 4 x
      2,048 = 8,192 tokens (the sharded MoE path, per-shard capacity), 2
      train steps on the 2 x 2 gloo mesh: finite, losses and gradient
      norms within 3e-2 of one device's at the same depth; a 2-layer
      float32 twin at 8 x 520 tokens card vs CPU as in 31;
+  32b. in the same worlds, the partitioned blocks
+     (`sharded_partitioned_blocks`, `PARTITIONED`) at full width:
+     granite-moe at 2 layers and 4 x 512 (the short MoE path: expert
+     products split over d and F), zamba2-7b at 6 layers and xlstm-1.3b
+     at 8 (Mamba2, mLSTM and sLSTM blocks split over `model`), each a
+     prefill and 2 decode steps teacher-forced on one device's stream
+     and a train step, as in 31, the step under `OpCounter`: every
+     rank's counted FLOPs equal to `launch/dryrun.py`'s count of the
+     same cell on a dry 2 x 2 mesh (relative gap <= 1e-6); zamba2's and
+     xlstm's 2-layer float32 twins card vs CPU as in 31;
   33. `launch/train.py --arch whisper-base --tp 2 --backend gloo` as four
      processes (`repro_torch.launch.spawn`) at full width and depth, 2
      steps of batch 8 x 256 and its final checkpoint (streamed by rank
@@ -255,7 +269,7 @@ own line; any failure exits non-zero before the final result line:
      "device": {...}}`.
 
 `python3 chip_smoke.py --sharded-rank JOBS.json` is one rank of phase
-31-32's worlds (started by the script itself).
+31-32b's worlds (started by the script itself).
 
 Writes the measurements to chiprun_out/chip_smoke.json as well.
 """
@@ -277,6 +291,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # and the dense bfloat16 tensor-core rate (the served model's products)
 BF16_OPS_PER_S = 989e12
+# and the dense int8 tensor-core rate (the integer fold's bound)
+INT8_OPS_PER_S = 1979e12
 RTOL = 1e-3
 # 16 cores on 16 private channels: the largest per-core gap between the
 # merged and the isolated replays this script accepts (the contract's
@@ -1847,7 +1863,9 @@ def sharded_job(job: dict) -> dict:
     the world's (dp, tp) mesh; a prefill and `gen` greedy decode steps on
     an S-sharded cache from the initial weights, then `steps` train steps.
     Returns this rank's numbers; rank 0's carry the losses, gradient
-    norms, tokens and logits."""
+    norms, tokens and logits. With "count_flops" the first train step
+    runs under `launch/opcost.py`'s `OpCounter` and its FLOPs are
+    returned ("step_flops"; its time then includes the counting)."""
     import dataclasses
 
     from repro_torch.checkpoint.manager import flatten_with_paths
@@ -1863,20 +1881,25 @@ def sharded_job(job: dict) -> dict:
     ctx = make_mesh_ctx(mesh)
     dev = torch.device(job["device"])
     cfg = get_config(job["arch"])
-    over = {k: job[k] for k in ("layers", "param_dtype", "sp_mode")
+    over = {k: job[k] for k in ("layers", "param_dtype", "sp_mode",
+                                "attn_every", "slstm_every")
             if job.get(k) is not None}
     cfg = dataclasses.replace(cfg, **over)
     bundle = ModelBundle(cfg)
 
+    whole = []
+
     def make(serve):
         """The job's weights from its seed, this rank's blocks of them cut
-        by `param_shardings(ctx, serve=serve)`."""
+        by `param_shardings(ctx, serve=serve)` (with "init_cpu", drawn on
+        the host once for the job)."""
         if not job.get("init_cpu"):
             return bundle.init(torch.Generator(device=dev).manual_seed(
                 job["seed"]), ctx, serve=serve)
-        tree = pm.init_params(bundle.defs,
-                              torch.Generator().manual_seed(job["seed"]))
-        return bundle.shard(pm.tree_map(lambda t: t.to(dev), tree), ctx,
+        if not whole:
+            whole.append(pm.init_params(
+                bundle.defs, torch.Generator().manual_seed(job["seed"])))
+        return bundle.shard(pm.tree_map(lambda t: t.to(dev), whole[0]), ctx,
                             serve=serve)
     sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" \
         else (lambda: None)
@@ -1884,10 +1907,19 @@ def sharded_job(job: dict) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     st = col.stats(mesh)
+    # the job's wall seconds by stage on this rank (where a world's time
+    # goes): weights made, served, trained, parameters sampled
+    walls, t_job = {}, time.perf_counter()
+
+    def lap(key, t0):
+        walls[key] = walls.get(key, 0.0) + time.perf_counter() - t0
+        return time.perf_counter()
     pre = job.get("prefill")
     if pre:
         # serving: weights TP-resident, replicated over data
+        tw = time.perf_counter()
         model = make(serve=True)
+        tw = lap("init", tw)
         ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=pre["L"],
                                            global_batch=pre["B"], seed=1))
         toks = torch.from_numpy(ds.global_batch_at(0)["tokens"]).to(dev)
@@ -1920,16 +1952,20 @@ def sharded_job(job: dict) -> dict:
         out.update(prefill_ms=prefill_ms, decode_ms=float(np.median(step_ms)),
                    tokens=torch.stack(gen, 1).tolist(),
                    serve_collectives=st.as_dict(),
-                   kv_sharded=bool(cache.specs["k"][2] is not None))
+                   kv_sharded=bool("k" in cache.specs
+                                   and cache.specs["k"][2] is not None))
         out["logits"] = torch.stack(dl).numpy()
         del cache, model
+        lap("serve", tw)
     if job.get("steps"):
+        tw = time.perf_counter()
         model = make(serve=False)
         ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=job["L"],
                                            global_batch=job["B"], seed=0))
         step = bundle.train_step(ctx, lr=cosine_schedule(
             job.get("lr", 3e-4), 1, job["steps"]))
         opt = bundle.opt_init(model)
+        tw = lap("init", tw)
         losses, gnorms, ms, coll = [], [], [], []
         for i in range(job["steps"]):
             batch = {k: torch.from_numpy(v).to(dev)
@@ -1937,7 +1973,14 @@ def sharded_job(job: dict) -> dict:
             st.reset()
             sync()
             t0 = time.perf_counter()
-            _, opt, m = step(model, opt, batch)
+            if job.get("count_flops") and i == 0:
+                from repro_torch.launch.opcost import OpCounter
+                counter = OpCounter()
+                with counter:
+                    _, opt, m = step(model, opt, batch)
+                out["step_flops"] = float(counter.flops)
+            else:
+                _, opt, m = step(model, opt, batch)
             sync()
             ms.append((time.perf_counter() - t0) * 1e3)
             coll.append(st.as_dict())
@@ -1946,34 +1989,48 @@ def sharded_job(job: dict) -> dict:
         out.update(losses=losses, grad_norms=gnorms, step_ms_all=ms,
                    step_ms=float(np.median(ms[1:] if len(ms) > 1 else ms)),
                    train_collectives=coll[-1])
+        tw = lap("train", tw)
         if job.get("keep_params"):
-            # each whole leaf's largest magnitude and every k-th element
-            # (at most 65,536 of them), of the updated parameters and of
-            # the step's clipped gradient (the first moment over 1 - b1
-            # after one step): enough to hold two worlds' steps against
-            # each other under AdamW's first-step rule without writing
-            # the model
+            # each leaf's largest magnitude (over the ranks) and every k-th
+            # element of this rank's block (at most 65,536 of them), of
+            # the updated parameters and of the step's clipped gradient
+            # (the first moment over 1 - b1 after one step): enough to
+            # hold two worlds' steps against each other under AdamW's
+            # first-step rule without gathering or writing the model
             out["params"] = {}
-            whole = {"param/": bundle.unshard(model),
-                     "grad/": pm.gather_tree(opt.m, model.specs, model.mesh)}
-            for pre, tree in whole.items():
+            for pre, tree in (("param/", model.tree), ("grad/", opt.m)):
                 for n, t in flatten_with_paths(tree):
                     flat = t.float().flatten()
                     if pre == "grad/":
                         flat = flat / (1 - 0.9)
+                    top = col.all_reduce_max(flat.abs().max(), mesh,
+                                             mesh.axis_names)
                     k = max(1, flat.numel() // 65536)
-                    out["params"][pre + n] = np.concatenate([
-                        [float(flat.abs().max())], flat[::k].cpu().numpy()])
+                    out["params"][f"{pre}{n}@{mesh.rank}"] = np.concatenate(
+                        [[float(top)], flat[::k].cpu().numpy()])
+            lap("params", tw)
         del model, opt
+    walls["job"] = time.perf_counter() - t_job
+    out["wall_s"] = walls
     if dev.type == "cuda":
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     return out
 
 
+def grows(cfg) -> bool:
+    """Whether a prefill cache needs room for decoded positions: a K/V
+    cache that is not windowed (a windowed one is a ring buffer; the
+    recurrent families' decode writes its state in place)."""
+    return cfg.family in ("dense", "moe", "vlm") and not cfg.attn_window
+
+
 def grow_sharded(bundle, ctx, cache, B, L, gen, dev):
     """A sharded prefill cache of length L as one of length L + gen, the
-    prefill's rows in place (through whole leaves): the decode's room."""
+    prefill's rows in place (through whole leaves): the decode's room
+    (the cache unchanged where it does not `grow`)."""
     from repro_torch.models import params as pm
+    if not grows(bundle.cfg):
+        return cache
     whole = pm.gather_tree(dict(cache), cache.specs, ctx.mesh)
     big = bundle.init_cache(batch=B, cache_len=L + gen, device=dev, ctx=ctx)
     full = {k: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, gen))
@@ -2019,7 +2076,8 @@ def sharded_rank_main(jobs_path: str) -> int:
 def run_world(name: str, spec: dict, nprocs: int = 4,
               timeout: float = 900) -> dict:
     """Spawn a world of `nprocs` ranks of this script on `spec`; returns
-    {job name: [each rank's result dict, rank 0's arrays]}."""
+    {job name: [each rank's result dict, rank 0's arrays and every
+    rank's parameter samples]}."""
     out = ROOT / "build" / "sharded" / name
     out.mkdir(parents=True, exist_ok=True)
     spec = dict(spec, out=str(out))
@@ -2044,8 +2102,14 @@ def run_world(name: str, spec: dict, nprocs: int = 4,
     for job in spec["jobs"]:
         ranks = [json.loads((out / f"{job['name']}.rank{r}.json").read_text())
                  for r in range(nprocs)]
-        arr = out / f"{job['name']}.rank0.npz"
-        arrays = dict(np.load(arr)) if arr.exists() else {}
+        # rank 0's arrays, and every rank's parameter samples
+        arrays = {}
+        for r in range(nprocs):
+            arr = out / f"{job['name']}.rank{r}.npz"
+            if arr.exists():
+                with np.load(arr) as z:
+                    arrays.update({k: z[k] for k in z.files
+                                   if r == 0 or "@" in k})
         res[job["name"]] = (ranks, arrays)
     res["_seconds"] = secs
     return res
@@ -2112,9 +2176,10 @@ def twin_params_err(got: dict, ref: dict, lr: float) -> dict:
 
 def world_summary(ranks: list) -> dict:
     """The per-rank numbers of a job: step ms, collective host seconds and
-    bytes, staged bytes, peak memory, each as a list by rank."""
+    bytes, peak memory, wall seconds by stage, each as a list by rank."""
     out = {}
-    for key in ("step_ms", "prefill_ms", "decode_ms", "peak_memory_bytes"):
+    for key in ("step_ms", "prefill_ms", "decode_ms", "peak_memory_bytes",
+                "wall_s"):
         if key in ranks[0]:
             out[key + "_by_rank"] = [r[key] for r in ranks]
     for key in ("train_collectives", "serve_collectives"):
@@ -2126,6 +2191,179 @@ def world_summary(ranks: list) -> dict:
             r["train_collectives"]["seconds"] * 1e3 / r["step_ms_all"][-1]
             for r in ranks]
     return out
+
+
+# phase 32b: the sharded MoE short path and the recurrent blocks split
+# over `model`, full width, depth cut for time: (arch, layers, batch, train
+# seq, prompt). The prompts run two SSM chunks. The train steps are
+# shorter: at full width the reference's chunk math (exp of the masked
+# upper triangle: 0 x inf in the backward, ROADMAP section 3) gives NaN
+# gradients on one device too, for zamba2 from 64 tokens a chunk (one
+# device on the CPU, seed 0: 32 finite, 64 NaN) and for the xLSTM at 128
+# (64 finite on the CPU; 256, two chunks of 128, NaN on the card).
+PARTITIONED = (("granite-moe-3b-a800m", 2, 4, 512, 512),
+               ("zamba2-7b", 6, 4, 32, 256),
+               ("xlstm-1.3b", 8, 4, 64, 256))
+PART_GEN = 2
+# the recurrent ones' 2-layer float32 twins (card vs CPU), 2 x 32 tokens,
+# a train step, a prefill and the decode: the group sizes that make 2
+# layers hold the blocks (zamba2: a mamba block, the shared attention
+# block and a tail block; xLSTM: an mLSTM and an sLSTM block). The short
+# MoE path has none here: its CPU twin was the phase's longest job (the
+# CPU world is the phases' long pole), and the CPU tests hold it against
+# the reference's sharded step.
+PART_TWIN = {"zamba2-7b": {"attn_every": 2},
+             "xlstm-1.3b": {"slstm_every": 2}}
+
+
+def partitioned_jobs() -> dict:
+    """Phase 32b's jobs and their one-device references (on the card,
+    before the worlds): for each of `PARTITIONED`, a prefill and
+    `PART_GEN` greedy tokens, then one train step, from the seed's
+    weights; the sharded job decodes teacher-forced on the reference's
+    tokens and counts its step's FLOPs."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.models.zoo import ModelBundle
+    from repro_torch.optim import cosine_schedule
+    cuda = torch.device("cuda")
+    t0 = time.perf_counter()
+    out = dict(single={}, card_jobs=[], cpu_jobs=[], cfgs={})
+    for arch, layers, B, L, PL in PARTITIONED:
+        cfg = dataclasses.replace(get_config(arch), layers=layers)
+        out["cfgs"][arch] = cfg
+        bundle = ModelBundle(cfg)
+        model = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+        toks = torch.from_numpy(SyntheticLMDataset(DataConfig(
+            vocab=cfg.vocab, seq_len=PL, global_batch=B,
+            seed=1)).global_batch_at(0)["tokens"]).to(cuda)
+        with torch.no_grad():
+            logits, cache = bundle.prefill(model, {"tokens": toks})
+            if grows(cfg):
+                cache = {k: torch.nn.functional.pad(
+                    t, (0, 0, 0, 0, 0, PART_GEN)) for k, t in cache.items()}
+            tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None].to(
+                torch.int32)
+            gen, lg = [tok[:, 0]], [logits.cpu()]
+            for i in range(PART_GEN):
+                logits, cache = bundle.decode(model, cache, tok, PL + i)
+                tok = torch.argmax(logits[:, :cfg.vocab], -1)[:, None].to(
+                    torch.int32)
+                gen.append(tok[:, 0])
+                lg.append(logits.cpu())
+        del cache
+        batch = {k: torch.from_numpy(v).to(cuda) for k, v in
+                 SyntheticLMDataset(DataConfig(
+                     vocab=cfg.vocab, seq_len=L, global_batch=B,
+                     seed=0)).global_batch_at(0).items()}
+        step = bundle.train_step(lr=cosine_schedule(3e-4, 1, 1))
+        _, _, m = step(model, bundle.opt_init(model), batch)
+        out["single"][arch] = dict(
+            tokens=torch.stack(gen, 1).cpu().tolist(),
+            logits=torch.stack(lg).numpy(), loss=float(m["loss"]),
+            grad_norm=float(m["grad_norm"]))
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        short = arch.split("-")[0]
+        out["card_jobs"].append(dict(
+            name=f"part_{short}", arch=arch, layers=layers, seed=0, B=B,
+            L=L, steps=1, count_flops=True,
+            prefill=dict(B=B, L=PL, gen=PART_GEN,
+                         force=out["single"][arch]["tokens"])))
+        if arch in PART_TWIN:
+            twin = dict(name=f"part_{short}_f32", arch=arch, layers=2,
+                        param_dtype="float32", seed=0, init_cpu=True, B=2,
+                        L=32, steps=1, lr=1e-2, keep_params=True,
+                        prefill=dict(B=2, L=32, gen=PART_GEN),
+                        **PART_TWIN[arch])
+            out["card_jobs"].append(twin)
+            out["cpu_jobs"].append(twin)
+    out["single_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def partitioned_dry_counts(part: dict) -> dict:
+    """The dry run's FLOPs of each partitioned job's train step on rank 0
+    of a dry 2 x 2 mesh (`launch/dryrun.py`, meta tensors)."""
+    from repro_torch.launch import dryrun
+    out = {}
+    for arch, _, B, L, _ in PARTITIONED:
+        t0 = time.perf_counter()
+        c = dryrun.count_cell(part["cfgs"][arch],
+                              dryrun.dry_mesh((2, 2), ("data", "model")),
+                              seq=L, batch=B, mode="train")
+        out[arch] = dict(flops=c["flops"], seconds=time.perf_counter() - t0)
+    return out
+
+
+def partitioned_checks(part: dict, card: dict, cpu: dict) -> dict:
+    """Phase 32b's verdict: each job's loss and gradient norm within 3e-2
+    of one device's (bfloat16) and its teacher-forced decode in greedy
+    agreement; each rank's counted FLOPs equal to the dry count within
+    1e-6 (the split happened); each float32 twin (`PART_TWIN`) within
+    1e-5 of the CPU's (loss, gradient norm, logits), its parameters under
+    AdamW's first-step rule, its tokens equal."""
+    info = dict(backend="gloo", mesh=[2, 2], gen=PART_GEN, jobs={},
+                single_seconds=part["single_seconds"],
+                world_seconds=part["world_seconds"])
+    for arch, layers, B, L, PL in PARTITIONED:
+        cfg = part["cfgs"][arch]
+        short = arch.split("-")[0]
+        single = part["single"][arch]
+        ranks, arrays = card[f"part_{short}"]
+        r0 = ranks[0]
+        e = abs(r0["losses"][0] - single["loss"]) / abs(single["loss"])
+        ge = abs(r0["grad_norms"][0] - single["grad_norm"]) \
+            / abs(single["grad_norm"])
+        dec = greedy_agreement(arrays["logits"], single["logits"], cfg.vocab)
+        dry = part["dry"][arch]["flops"]
+        flops = [r["step_flops"] for r in ranks]
+        ferr = max(abs(f - dry) / dry for f in flops)
+        if not (e <= 3e-2 and ge <= 3e-2) or not dec["ok"] or \
+                not all(math.isfinite(x) for x in r0["losses"]
+                        + r0["grad_norms"]) or not ferr <= 1e-6:
+            fail(f"sharded_partitioned_blocks {arch}: loss vs one device "
+                 f"{e}, gradient norm {ge}, decode {dec}, counted FLOPs "
+                 f"{flops} vs the dry count {dry}")
+        twin = None
+        if arch in PART_TWIN:
+            (cr, ca), (pr_, pa) = card[f"part_{short}_f32"], cpu[
+                f"part_{short}_f32"]
+            fe = dict(loss=abs(cr[0]["losses"][0] - pr_[0]["losses"][0])
+                      / abs(pr_[0]["losses"][0]),
+                      grad_norm=abs(cr[0]["grad_norms"][0]
+                                    - pr_[0]["grad_norms"][0])
+                      / abs(pr_[0]["grad_norms"][0]),
+                      logits=float(np.abs(ca["logits"] - pa["logits"]).max()
+                                   / np.abs(pa["logits"]).max()))
+            pe = twin_params_err(ca, pa, 1e-2)
+            if not all(v <= 1e-5 for v in fe.values()) or not pe["ok"] or \
+                    cr[0]["tokens"] != pr_[0]["tokens"]:
+                fail(f"sharded_partitioned_blocks {arch} 2-layer f32: card "
+                     f"vs CPU {fe}, parameters {pe}, tokens "
+                     f"{cr[0]['tokens']} vs {pr_[0]['tokens']}")
+            twin = dict(rel_err=fe, params=pe, batch=2, seq=32,
+                        overrides=PART_TWIN[arch],
+                        card_wall_s=cr[0]["wall_s"],
+                        cpu_wall_s=pr_[0]["wall_s"])
+        info["jobs"][arch] = dict(
+            layers=layers, batch=B, seq=L, prompt=PL, d_model=cfg.d_model,
+            loss=r0["losses"][0], single_device_loss=single["loss"],
+            loss_rel_err=e, grad_norm=r0["grad_norms"][0],
+            single_device_grad_norm=single["grad_norm"],
+            grad_norm_rel_err=ge, decode=dec,
+            step_flops_by_rank=flops, dry_flops=dry,
+            dry_seconds=part["dry"][arch]["seconds"],
+            flops_rel_err=ferr,
+            step_ms_note="the step ran under the op counter",
+            f32_2layer=twin,
+            **world_summary(ranks))
+    return info
+
 
 
 def sharding_phases(report: dict) -> dict:
@@ -2149,6 +2387,9 @@ def sharding_phases(report: dict) -> dict:
     cuda = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     DEPTH = 4
+    # phase 31's qwen2 depth: 2 layers keep the script inside its time
+    # limit with phase 32b's jobs in phase 32's worlds
+    QWEN_DEPTH = 2
     sh = dict(card=report["environment"]["card"],
               note="four processes share one card; gloo goes through the "
                    "host: these times are not those of four cards")
@@ -2279,17 +2520,18 @@ def sharding_phases(report: dict) -> dict:
     torch.cuda.empty_cache()
 
     # ---- 31. a 2 x 2 gloo mesh of four processes on the one card -----------
-    # full width, depth cut to DEPTH layers: four processes share the card
-    # and gloo's host path, ~20 s a full-depth step on an H100 (8 layers:
-    # 6.3-11.2 s)
+    # full width, depth cut to QWEN_DEPTH layers: four processes share the
+    # card and gloo's host path, ~20 s a full-depth step on an H100 (8
+    # layers: 6.3-11.2 s; 4: 5.6-6.5 s)
     t0 = time.perf_counter()
-    cut = ModelBundle(dataclasses.replace(cfg, layers=DEPTH))
+    cut = ModelBundle(dataclasses.replace(cfg, layers=QWEN_DEPTH))
     single = run_single(lambda serve: cut.init(
         torch.Generator(device=cuda).manual_seed(0)), None, cut, gen=16)
     ref_logits = single.pop("logits")
     gc.collect()
     torch.cuda.empty_cache()
-    jobs = [dict(name=f"qwen2_{m}", arch=arch, layers=DEPTH, sp_mode=m,
+    jobs = [dict(name=f"qwen2_{m}", arch=arch, layers=QWEN_DEPTH,
+                 sp_mode=m,
                  seed=0, B=B, L=L, steps=steps,
                  prefill=dict(B=PB, L=PL, gen=16, force=single["tokens"]))
             for m in ("megatron", "weightgather")]
@@ -2322,8 +2564,6 @@ def sharding_phases(report: dict) -> dict:
         modes[m] = dict(loss_rel_err=e, grad_norm_rel_err=ge, decode=dec,
                         losses=r0["losses"], grad_norms=r0["grad_norms"],
                         step_ms=r0["step_ms"],
-                        staged_bytes=max(r["train_collectives"]
-                                         ["staged_bytes"] for r in ranks),
                         **world_summary(ranks))
     (cr, ca), (pr_, pa) = card["qwen2_2layer_f32"], cpu["qwen2_2layer_f32"]
     fe = dict(loss=abs(cr[0]["losses"][0] - pr_[0]["losses"][0])
@@ -2338,7 +2578,7 @@ def sharding_phases(report: dict) -> dict:
         fail(f"sharded_2x2_one_card 2-layer f32: card vs CPU {fe}, "
              f"parameters {pe}, tokens {cr[0]['tokens']} vs "
              f"{pr_[0]['tokens']}")
-    info = dict(backend="gloo", mesh=[2, 2], arch=arch, layers=DEPTH,
+    info = dict(backend="gloo", mesh=[2, 2], arch=arch, layers=QWEN_DEPTH,
                 batch=B, seq=L, steps=steps, prefill_batch=PB, prompt=PL,
                 gen=16, single_device=single, modes=modes,
                 f32_2layer=dict(rel_err=fe, params=pe, batch=2, seq=128),
@@ -2372,13 +2612,23 @@ def sharding_phases(report: dict) -> dict:
     gf32 = dict(name="granite_2layer_f32", arch=g_arch, layers=2,
                 param_dtype="float32", seed=0, init_cpu=True, B=8, L=520,
                 steps=1, lr=1e-2, keep_params=True)
-    gcard, gcpu = run_worlds(
-        ("sharded_granite_moe_2x2", dict(
-            backend="gloo", device="cuda", mesh=[2, 2], threads=1,
-            jobs=[dict(name="granite", arch=g_arch, layers=DEPTH, seed=0,
-                       B=GB, L=GL, steps=gsteps), gf32])),
-        ("sharded_granite_cpu", dict(backend="gloo", device="cpu",
-                                     mesh=[2, 2], threads=1, jobs=[gf32])))
+    # phase 32b's jobs ride in these worlds (no spawn of their own)
+    part = partitioned_jobs()
+    t_worlds = time.perf_counter()
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(1) as pool:
+        dry_fut = pool.submit(partitioned_dry_counts, part)
+        gcard, gcpu = run_worlds(
+            ("sharded_granite_moe_2x2", dict(
+                backend="gloo", device="cuda", mesh=[2, 2], threads=1,
+                jobs=[dict(name="granite", arch=g_arch, layers=DEPTH,
+                           seed=0, B=GB, L=GL, steps=gsteps), gf32]
+                + part["card_jobs"])),
+            ("sharded_granite_cpu", dict(backend="gloo", device="cpu",
+                                         mesh=[2, 2], threads=1,
+                                         jobs=[gf32] + part["cpu_jobs"])))
+        part["dry"] = dry_fut.result()
+    part["world_seconds"] = time.perf_counter() - t_worlds
     ranks, _ = gcard["granite"]
     r0 = ranks[0]
     e = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], glosses))
@@ -2414,6 +2664,11 @@ def sharding_phases(report: dict) -> dict:
                 **world_summary(ranks), seconds=time.perf_counter() - t0)
     phase("sharded_granite_moe_2x2", **info)
     sh["sharded_granite_moe_2x2"] = info
+
+    # ---- 32b. the partitioned blocks: MoE short path, Mamba2, xLSTM --------
+    info = partitioned_checks(part, gcard, gcpu)
+    phase("sharded_partitioned_blocks", **info)
+    sh["sharded_partitioned_blocks"] = info
 
     # ---- 33. the train CLI with --tp 2 on the 2 x 2 gloo mesh --------------
     # whisper-base at its full width and depth: the encoder-decoder family
@@ -2958,11 +3213,55 @@ def main() -> int:
             key = "float32" if f32 else "half"
             mm_err[key] = max(mm_err.get(key, 0.0), err)
             ncases["systolic_matmul"] += 1
-    try:
-        syk.systolic_matmul(x.to(torch.int32), w.to(torch.int32))
-        fail("systolic_matmul took int32 operands")
-    except TypeError:
-        pass
+    # integer and integer x float folds (the cast kernel): integers over
+    # their full range, sums wrapping modulo 2^bits of the promoted type;
+    # a float operand of small integers, so every partial sum is exact in
+    # float32 and the kernel's summation order gives the plain version's
+    # bits. Each bit for bit.
+    def ints(shape, dt, lo=None, hi=None):
+        info = torch.iinfo(dt)
+        return torch.randint(info.min if lo is None else lo,
+                             (info.max if hi is None else hi) + 1, shape,
+                             generator=g, device=dev,
+                             dtype=torch.int64).to(dt)
+    int_cases = 0
+    for T, R, C in ((197, 128, 128), (300, 32, 130), (65, 17, 1)):
+        for xd, wd in ((torch.int8, torch.int8), (torch.uint8, torch.uint8),
+                       (torch.int32, torch.int32), (torch.int8, torch.uint8),
+                       (torch.int16, torch.int32),
+                       (torch.int8, torch.float32),
+                       (torch.float32, torch.int8),
+                       (torch.uint8, torch.bfloat16)):
+            mixed = xd.is_floating_point or wd.is_floating_point
+            ops = [ints(shape, torch.int32, -8, 8).to(dt)
+                   if dt.is_floating_point else
+                   (ints(shape, dt, max(torch.iinfo(dt).min, -120),
+                         min(torch.iinfo(dt).max, 120)) if mixed
+                    else ints(shape, dt))
+                   for dt, shape in ((xd, (T, R)), (wd, (R, C)))]
+            got = syk.systolic_matmul(*ops)
+            torch.cuda.synchronize()
+            want = sref.systolic_matmul_reference(*ops)
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                fail(f"systolic_matmul {T}x{R}x{C} {xd}x{wd}: differs from "
+                     f"the plain version ({got.dtype})")
+            int_cases += 1
+            ncases["systolic_matmul"] += 1
+    # an overflowing int8 fold: 100 x 3 over 64 rows is 19,200, 0 mod 256
+    wrap = syk.systolic_matmul(
+        torch.full((2, 64), 100, dtype=torch.int8, device=dev),
+        torch.full((64, 3), 3, dtype=torch.int8, device=dev))
+    torch.cuda.synchronize()
+    if not torch.equal(wrap.cpu(), torch.zeros((2, 3), dtype=torch.int8)):
+        fail(f"systolic_matmul int8 overflow: {wrap.cpu().tolist()}, not 0")
+    int_cases += 1
+    ncases["systolic_matmul"] += 1
+    for bad in (torch.int64, torch.float64, torch.bool):
+        try:
+            syk.systolic_matmul(x.to(bad), w.to(bad))
+            fail(f"systolic_matmul took {bad} operands")
+        except TypeError:
+            pass
     for Ts, R, C, n_cycles in (([197], 128, 128, 451), ([1], 128, 128, 300),
                                ([16, 32, 64, 100, 0], 8, 8, 78),
                                ([], 8, 8, 10),
@@ -2998,14 +3297,29 @@ def main() -> int:
                                  (65, 512, 16, 4, torch.bfloat16),
                                  (130, 64, 8, 4, torch.float32),
                                  (99, 64, 2, 1, torch.float32),
-                                 (50, 96, 8, 4, torch.float32)):
+                                 (50, 96, 8, 4, torch.float32),
+                                 (768, 3072, 4, 0, torch.int8),
+                                 (77, 96, 8, 0, torch.uint8),
+                                 (300, 256, 4, 0, torch.int32),
+                                 (65, 512, 16, 4, torch.int32),
+                                 (130, 64, 8, 3, torch.int16)):
         buf = torch.randn(rows * K + 1, generator=g, device=dev)
         buf = torch.where(torch.rand(rows * K + 1, generator=g, device=dev)
-                          < 0.5, buf, 0.0).to(dt)
+                          < 0.5, buf, 0.0)
+        if dt.is_floating_point:
+            buf = buf.to(dt)
+        else:
+            # integers over their full range; the most negative value
+            # (the sign bit alone) is nonzero
+            info = torch.iinfo(dt)
+            buf = torch.where(buf != 0, ints(buf.shape, dt), 0).to(dt)
+            buf[K + 1: K + 1 + K // 2] = info.min if rows else 0
         if rows:
-            buf[:K] = 1.0                       # blocks with more than keep
-            buf[K + 1: K + 1 + K // 2] = -0.0   # negative zeros are zeros
-        bits = torch.int32 if dt == torch.float32 else torch.int16
+            buf[:K] = 1                         # blocks with more than keep
+            if dt.is_floating_point:
+                buf[K + 1: K + 1 + K // 2] = -0.0   # negative zeros: zeros
+        bits = {4: torch.int32, 2: torch.int16, 1: torch.int8}[
+            buf.element_size()]
         for view in (False, True):
             w = (buf[1:] if view else buf[:-1]).view(rows, K)
             path = ek.path_for(w, m, keep or max(1, m // 2))
@@ -3027,9 +3341,11 @@ def main() -> int:
             ell_paths[path] += 1
             ncases["ellpack_pack"] += 1
     phase("fold_ellpack_kernels_vs_plain", cases=ncases,
-          ellpack_paths=ell_paths, matmul_max_abs=mm_err)
+          ellpack_paths=ell_paths, matmul_max_abs=mm_err,
+          matmul_integer_cases_bit_equal=int_cases)
     report["fold_ellpack_kernels_vs_plain"] = dict(
-        cases=ncases, ellpack_paths=ell_paths, matmul_max_abs=mm_err)
+        cases=ncases, ellpack_paths=ell_paths, matmul_max_abs=mm_err,
+        matmul_integer_cases_bit_equal=int_cases)
 
     # ---- 4. the named studies -------------------------------------------------
     named = {}
@@ -3605,6 +3921,32 @@ def main() -> int:
                               bound_by="bytes" if b_ms >= o_ms
                               else "operations"))
     mm["fold_shapes"] = mm_shapes
+    # the integer fold (the cast kernel, int32 sums narrowed) at the qkv
+    # fold's shape, int8 x int8 over the whole range (sums wrap), beside
+    # its bound and torch's int8 product (`torch._int_mm`, int32 out,
+    # narrowed: the one integer matmul torch runs on the card)
+    gi = torch.Generator(device=dev).manual_seed(3)
+    xi = torch.randint(-128, 128, (T0, A), generator=gi, device=dev,
+                       dtype=torch.int8)
+    wi = torch.randint(-128, 128, (A, A), generator=gi, device=dev,
+                       dtype=torch.int8)
+    got_i = syk.systolic_matmul(xi, wi)
+    if not torch.equal(got_i, sref.systolic_matmul_reference(xi, wi)):
+        fail(f"int8 fold {T0}x{A}x{A}: kernel differs from plain")
+    try:
+        lib_i = timed_graph(lambda: torch._int_mm(xi, wi).to(torch.int8))
+        lib_note = None
+    except RuntimeError as e:
+        lib_i, lib_note = None, str(e).splitlines()[0][:200]
+    ki = [timed_graph(lambda: syk.systolic_matmul(xi, wi)) for _ in "ab"]
+    b_ms = (T0 * A + A * A + T0 * A) / HBM_BYTES_PER_S * 1e3
+    o_ms = 2 * T0 * A * A / INT8_OPS_PER_S * 1e3
+    mm["int8_fold"] = dict(
+        shape=[T0, A, A], ms_runs=ki, ms=min(ki), library_ms=lib_i,
+        library_note=lib_note, plain_ms=timed_graph(
+            lambda: sref.systolic_matmul_reference(xi, wi)),
+        bound_ms=max(b_ms, o_ms),
+        bound_by="bytes" if b_ms >= o_ms else "operations")
     mm_ok, mm_abs = within(syk.systolic_matmul(x0, w0),
                            sref.systolic_matmul_reference(x0, w0), 1e-5,
                            1e-4)

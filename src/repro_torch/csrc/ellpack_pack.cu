@@ -6,10 +6,13 @@
 // consecutive elements of a row, the nonzeros move to the front in their
 // order, at most `keep` of them (a block with more keeps its first `keep`),
 // each with its position in the block; the remaining slots hold 0 and -1.
-// An element is zero when its bits other than the sign are 0 (so -0.0 is
-// zero). Values are copied as bits, never multiplied, so they are
-// bit-exact, and the kernel sees only element sizes: float32 (4 bytes),
-// bfloat16 and float16 (2 bytes; their zeros share the one bit pattern).
+// A float element is zero when its bits other than the sign are 0 (so -0.0
+// is zero); an integer element when all its bits are (the sign bit alone
+// is the most negative value). Values are copied as bits, never
+// multiplied, so they are bit-exact, and the kernel sees only element
+// sizes and that one flag: float32 and int32 (4 bytes), bfloat16, float16
+// and int16 (2 bytes; the floats' zeros share the one bit pattern), int8
+// and uint8 (1 byte).
 // The TPU kernel selects through a one-hot contraction (`einsum` of the 0/1
 // selection with the block); for finite inputs that gives the same values,
 // but a NaN or +-Inf in a block spreads NaN into every slot of that block
@@ -37,9 +40,11 @@
 //    byte store. Consecutive lanes own consecutive blocks, so the stores of
 //    a warp are contiguous too.
 //  - `ellpack_scalar<U>`, the scalar path for everything else (a view whose
-//    base is not aligned, keep = 3 or 6, m without a vector width): one
-//    thread per (row, block), grid-stride, element loads, a running count,
-//    a store per kept slot.
+//    base is not aligned, keep = 3 or 6, m without a vector width, 1-byte
+//    elements): one thread per (row, block), grid-stride, element loads, a
+//    running count, a store per kept slot.
+// Each instance has a float and an integer form (`INT`), which differ only
+// in the zero test.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -52,9 +57,12 @@ constexpr int kThreads = 256;
 constexpr long long kMaxVecBlocks = 132 * 16;
 constexpr long long kMaxScalarBlocks = 132 * 32;
 
-template <int EB>
+// the element's bits that make it nonzero: all of an integer's, a float's
+// but the sign
+template <int EB, bool INT>
 __device__ __forceinline__ bool nonzero_bits(unsigned v) {
-  return (v & (EB == 4 ? 0x7FFFFFFFu : 0x7FFFu)) != 0u;
+  if constexpr (INT) return v != 0u;
+  else return (v & (EB == 4 ? 0x7FFFFFFFu : 0x7FFFu)) != 0u;
 }
 
 // one element's bits, zero-extended, from the block's 32-bit words
@@ -115,7 +123,7 @@ __device__ __forceinline__ void store_indices(int* p, const int* s) {
   }
 }
 
-template <int EB, int M, int KEEP>
+template <int EB, bool INT, int M, int KEEP>
 __global__ void __launch_bounds__(kThreads)
 ellpack_vec(const unsigned char* __restrict__ w,
             unsigned char* __restrict__ vals, int* __restrict__ idx,
@@ -143,7 +151,7 @@ ellpack_vec(const unsigned char* __restrict__ w,
 #pragma unroll
       for (int q = 0; q < M; ++q) {
         e[q] = element<EB>(wd[k], q);
-        mask |= (unsigned)nonzero_bits<EB>(e[q]) << q;
+        mask |= (unsigned)nonzero_bits<EB, INT>(e[q]) << q;
       }
       unsigned sv[KEEP];
       int si[KEEP];
@@ -163,7 +171,7 @@ ellpack_vec(const unsigned char* __restrict__ w,
   }
 }
 
-template <typename U>
+template <typename U, bool INT>
 __global__ void __launch_bounds__(kThreads)
 ellpack_scalar(const U* __restrict__ w, U* __restrict__ vals,
                int* __restrict__ idx, long long nblocks, int m, int keep) {
@@ -176,7 +184,7 @@ ellpack_scalar(const U* __restrict__ w, U* __restrict__ vals,
     int rank = 0;
     for (int p = 0; p < m; ++p) {
       const U v = src[p];
-      if (nonzero_bits<sizeof(U)>(v)) {
+      if (nonzero_bits<sizeof(U), INT>(v)) {
         if (rank < keep) {
           vdst[rank] = v;
           idst[rank] = p;
@@ -191,7 +199,7 @@ ellpack_scalar(const U* __restrict__ w, U* __restrict__ vals,
   }
 }
 
-template <int EB, int M, int KEEP>
+template <int EB, bool INT, int M, int KEEP>
 int launch_vec(const void* w, void* vals, int* idx, long long nblocks,
                cudaStream_t stream) {
   constexpr int BYTES = EB * M;
@@ -199,7 +207,7 @@ int launch_vec(const void* w, void* vals, int* idx, long long nblocks,
       (long long)kThreads * (BYTES >= 64 ? 1 : BYTES >= 32 ? 2 : 4);
   long long blocks = (nblocks + per_cta - 1) / per_cta;
   if (blocks > kMaxVecBlocks) blocks = kMaxVecBlocks;
-  ellpack_vec<EB, M, KEEP><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  ellpack_vec<EB, INT, M, KEEP><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const unsigned char*>(w), static_cast<unsigned char*>(vals),
       idx, nblocks);
   return (int)cudaGetLastError();
@@ -207,74 +215,101 @@ int launch_vec(const void* w, void* vals, int* idx, long long nblocks,
 
 using VecLaunch = int (*)(const void*, void*, int*, long long, cudaStream_t);
 
-template <int EB, int M>
+template <int EB, bool INT, int M>
 VecLaunch vec_keep(int keep) {
   switch (keep) {
-    case 1: return launch_vec<EB, M, 1>;
-    case 2: return launch_vec<EB, M, 2>;
-    case 4: return launch_vec<EB, M, 4>;
+    case 1: return launch_vec<EB, INT, M, 1>;
+    case 2: return launch_vec<EB, INT, M, 2>;
+    case 4: return launch_vec<EB, INT, M, 4>;
+  }
+  return nullptr;
+}
+
+template <bool INT>
+VecLaunch vec_instance(int m, int keep, int elem_bytes) {
+  if (elem_bytes == 4) {
+    switch (m) {
+      case 2: return vec_keep<4, INT, 2>(keep);
+      case 4: return vec_keep<4, INT, 4>(keep);
+      case 8: return vec_keep<4, INT, 8>(keep);
+      case 16: return vec_keep<4, INT, 16>(keep);
+    }
+  } else if (elem_bytes == 2) {
+    switch (m) {
+      case 4: return vec_keep<2, INT, 4>(keep);
+      case 8: return vec_keep<2, INT, 8>(keep);
+      case 16: return vec_keep<2, INT, 16>(keep);
+    }
   }
   return nullptr;
 }
 
 // the vector instance for (elem_bytes, m, keep) when w's base is aligned to
 // its load width (8 bytes for an 8-byte block, else 16); null otherwise
-VecLaunch vec_path(const void* w, int m, int keep, int elem_bytes) {
-  VecLaunch f = nullptr;
-  if (elem_bytes == 4) {
-    switch (m) {
-      case 2: f = vec_keep<4, 2>(keep); break;
-      case 4: f = vec_keep<4, 4>(keep); break;
-      case 8: f = vec_keep<4, 8>(keep); break;
-      case 16: f = vec_keep<4, 16>(keep); break;
-    }
-  } else if (elem_bytes == 2) {
-    switch (m) {
-      case 4: f = vec_keep<2, 4>(keep); break;
-      case 8: f = vec_keep<2, 8>(keep); break;
-      case 16: f = vec_keep<2, 16>(keep); break;
-    }
-  }
+VecLaunch vec_path(const void* w, int m, int keep, int elem_bytes,
+                   bool is_int) {
+  VecLaunch f = is_int ? vec_instance<true>(m, keep, elem_bytes)
+                       : vec_instance<false>(m, keep, elem_bytes);
   const uintptr_t align = elem_bytes * m == 8 ? 8 : 16;
   return reinterpret_cast<uintptr_t>(w) % align == 0 ? f : nullptr;
 }
 
-template <typename U>
+template <typename U, bool INT>
 int launch_scalar(const void* w, void* vals, int* idx, long long nblocks,
                   int m, int keep, cudaStream_t stream) {
   long long blocks = (nblocks + kThreads - 1) / kThreads;
   if (blocks > kMaxScalarBlocks) blocks = kMaxScalarBlocks;
-  ellpack_scalar<U><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  ellpack_scalar<U, INT><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const U*>(w), static_cast<U*>(vals), idx, nblocks, m, keep);
   return (int)cudaGetLastError();
+}
+
+template <bool INT>
+int launch_scalar_bytes(const void* w, void* vals, int* idx,
+                        long long nblocks, int m, int keep, int elem_bytes,
+                        cudaStream_t s) {
+  switch (elem_bytes) {
+    case 4: return launch_scalar<uint32_t, INT>(w, vals, idx, nblocks, m,
+                                                keep, s);
+    case 2: return launch_scalar<uint16_t, INT>(w, vals, idx, nblocks, m,
+                                                keep, s);
+    case 1:
+      if constexpr (INT)
+        return launch_scalar<uint8_t, INT>(w, vals, idx, nblocks, m, keep,
+                                           s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // 1 when ellpack_pack_launch takes the vector path for this w, m, keep and
-// element size, 0 when it takes the scalar path.
+// element size, 0 when it takes the scalar path (the same for a float and
+// an integer type of one size).
 extern "C" int ellpack_path_for(const void* w, int m, int keep,
                                 int elem_bytes) {
-  return vec_path(w, m, keep, elem_bytes) != nullptr;
+  return vec_path(w, m, keep, elem_bytes, false) != nullptr;
 }
 
-// w: (nblocks * m,) elements of `elem_bytes` bytes (4: float32; 2: bfloat16
-// or float16), i.e. (rows, K) with nblocks = rows * K / m; vals: (nblocks,
-// keep) elements of the same size; idx: (nblocks, keep) int32; all
-// contiguous, vals and idx aligned to their per-block stores (as a fresh
-// allocation is). Takes the vector path where `ellpack_path_for` says so,
-// else the scalar path. Launches on `stream` and returns the CUDA error of
-// the launch (0 = none; cudaErrorInvalidValue for another element size).
+// w: (nblocks * m,) elements of `elem_bytes` bytes, i.e. (rows, K) with
+// nblocks = rows * K / m: with is_int = 0 float32 (4), bfloat16 or float16
+// (2); with is_int = 1 int32 (4), int16 (2), int8 or uint8 (1). vals:
+// (nblocks, keep) elements of the same size; idx: (nblocks, keep) int32;
+// all contiguous, vals and idx aligned to their per-block stores (as a
+// fresh allocation is). Takes the vector path where `ellpack_path_for`
+// says so, else the scalar path. Launches on `stream` and returns the CUDA
+// error of the launch (0 = none; cudaErrorInvalidValue for another element
+// size).
 extern "C" int ellpack_pack_launch(const void* w, void* vals, int* idx,
                                    long long nblocks, int m, int keep,
-                                   int elem_bytes, void* stream) {
+                                   int elem_bytes, int is_int,
+                                   void* stream) {
   if (nblocks <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (VecLaunch f = vec_path(w, m, keep, elem_bytes))
+  if (VecLaunch f = vec_path(w, m, keep, elem_bytes, is_int != 0))
     return f(w, vals, idx, nblocks, s);
-  if (elem_bytes == 4)
-    return launch_scalar<uint32_t>(w, vals, idx, nblocks, m, keep, s);
-  if (elem_bytes == 2)
-    return launch_scalar<uint16_t>(w, vals, idx, nblocks, m, keep, s);
-  return (int)cudaErrorInvalidValue;
+  return is_int ? launch_scalar_bytes<true>(w, vals, idx, nblocks, m, keep,
+                                            elem_bytes, s)
+                : launch_scalar_bytes<false>(w, vals, idx, nblocks, m, keep,
+                                             elem_bytes, s);
 }

@@ -4,7 +4,7 @@
 // Replaces the Pallas kernel `repro.kernels.systolic.systolic.systolic_matmul`
 // (body `_matmul_kernel`): x (T, R) is the streamed operand, w (R, C) the
 // stationary one, O (T, C) in the promoted dtype of the two. Inputs are
-// float32, bfloat16 or float16 in any mix.
+// float32, bfloat16, float16, int8, uint8, int16 or int32 in any mix.
 //
 // What bounds it on this card: latency. A fold of the vit_base path
 // (197 x 128 x 128) reads 0.26 MB and does 6.5 MFLOP, about 0.1 us at the
@@ -31,10 +31,22 @@
 // to O's dtype, at the store: TF32 tensor cores would keep about three
 // decimal digits, outside the float32 contract of the fold plane, and at
 // these sizes buy nothing.
+//
+// A pair with an integer operand takes `matmul_cast_kernel` instead, a
+// plain 16 x 16 tiled kernel (one output a thread, 16-deep shared-memory
+// stages): each operand element is first cast to O's dtype, as the
+// reference's `jnp.dot` promotes it (an int32 to bfloat16 rounds), then
+// summed in ascending k, in float32 with FMAs for a float O, and in
+// 32-bit unsigned arithmetic for an integer O, narrowed at the store. The
+// integer sums wrap modulo 2^32 and the narrowing keeps the low bits, so
+// an integer O is the exact sum modulo 2^bits: the reference's int8 x int8
+// wraps in int8 the same way (two's-complement arithmetic is a ring).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -44,7 +56,8 @@ constexpr int kBK = 128;     // reduction depth per stage
 constexpr int kThreads = kBM * (kBN / 4);   // one row x 4 columns each
 
 // dtype codes of the C entry point (the wrapper's `_DTYPE_CODE`)
-constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
+constexpr int kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3, kU8 = 4, kI16 = 5,
+              kI32 = 6;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -247,13 +260,116 @@ int launch(const void* x, const void* w, void* out, int T, int R, int C,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+constexpr bool kIsFloat = std::is_same_v<T, float> ||
+                          std::is_same_v<T, __nv_bfloat16> ||
+                          std::is_same_v<T, __half>;
+
+// promote_types of two integer types (jnp's and torch's lattice): the
+// wider, int16 for int8 with uint8
+template <typename A, typename B>
+using IntPromoted = std::conditional_t<
+    std::is_same_v<A, B>, A,
+    std::conditional_t<
+        std::is_same_v<A, int32_t> || std::is_same_v<B, int32_t>, int32_t,
+        int16_t>>;
+
+// promote_types of a pair with an integer operand: the float operand's
+// type, or the integers' promotion
+template <typename A, typename B>
+using CastPromoted = std::conditional_t<
+    kIsFloat<A>, A, std::conditional_t<kIsFloat<B>, B, IntPromoted<A, B>>>;
+
+// one operand element cast to O's dtype (rounding to nearest even), then
+// to the accumulator: float32 for a float O, uint32 (two's complement)
+// for an integer O
+template <typename TO, typename T>
+__device__ __forceinline__ auto cast_acc(T v) {
+  if constexpr (kIsFloat<TO>) {
+    if constexpr (std::is_same_v<T, TO>) {
+      return to_f32(v);
+    } else if constexpr (std::is_same_v<TO, float>) {
+      return __int2float_rn((int)v);
+    } else if constexpr (std::is_same_v<TO, __nv_bfloat16>) {
+      return __bfloat162float(__int2bfloat16_rn((int)v));
+    } else {
+      return __half2float(__int2half_rn((int)v));
+    }
+  } else {
+    return (uint32_t)(int32_t)(TO)v;
+  }
+}
+
+constexpr int kCT = 16;       // O tile edge and stage depth of the cast path
+
+template <typename TX, typename TW, typename TO>
+__global__ void __launch_bounds__(kCT * kCT)
+matmul_cast_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                   TO* __restrict__ out, int T, int R, int C,
+                   int col_tiles) {
+  using TA = std::conditional_t<kIsFloat<TO>, float, uint32_t>;
+  __shared__ TA xs[kCT][kCT + 1];
+  __shared__ TA ws[kCT][kCT + 1];
+  const long long row0 = (long long)(blockIdx.x / col_tiles) * kCT;
+  const long long col0 = (long long)(blockIdx.x % col_tiles) * kCT;
+  const int ty = threadIdx.x / kCT, tx = threadIdx.x % kCT;
+  const long long r = row0 + ty, c = col0 + tx;
+  TA acc = 0;
+  for (int k0 = 0; k0 < R; k0 += kCT) {
+    const int kx = k0 + tx, kw = k0 + ty;
+    xs[ty][tx] = (r < T && kx < R) ? cast_acc<TO>(x[r * R + kx]) : TA(0);
+    ws[ty][tx] = (kw < R && c < C) ? cast_acc<TO>(w[(long long)kw * C + c])
+                                   : TA(0);
+    __syncthreads();
+    const int kmax = min(kCT, R - k0);
+    for (int k = 0; k < kmax; ++k) {
+      if constexpr (kIsFloat<TO>) acc = fmaf(xs[ty][k], ws[k][tx], acc);
+      else acc += xs[ty][k] * ws[k][tx];
+    }
+    __syncthreads();
+  }
+  if (r >= T || c >= C) return;
+  if constexpr (kIsFloat<TO>) out[r * C + c] = from_f32<TO>(acc);
+  else out[r * C + c] = (TO)acc;
+}
+
+template <typename TX, typename TW>
+int launch_cast(const void* x, const void* w, void* out, int T, int R,
+                int C, cudaStream_t stream) {
+  using TO = CastPromoted<TX, TW>;
+  const long long col_tiles = ((long long)C + kCT - 1) / kCT;
+  const long long tiles = ((long long)T + kCT - 1) / kCT * col_tiles;
+  if (T < 1 || C < 1 || R < 0 || tiles > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  matmul_cast_kernel<TX, TW, TO><<<(unsigned)tiles, kCT * kCT, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TW*>(w),
+      static_cast<TO*>(out), T, R, C, (int)col_tiles);
+  return (int)cudaGetLastError();
+}
+
+// the float pairs take the tiled kernel, every pair with an integer the
+// cast kernel
+template <typename TX, typename TW>
+int launch_pair(const void* x, const void* w, void* out, int T, int R,
+                int C, cudaStream_t stream) {
+  if constexpr (kIsFloat<TX> && kIsFloat<TW>)
+    return launch<TX, TW>(x, w, out, T, R, C, stream);
+  else
+    return launch_cast<TX, TW>(x, w, out, T, R, C, stream);
+}
+
 template <typename TX>
 int launch_w(const void* x, const void* w, void* out, int T, int R, int C,
              int w_dtype, cudaStream_t stream) {
   switch (w_dtype) {
-    case kF32: return launch<TX, float>(x, w, out, T, R, C, stream);
-    case kBF16: return launch<TX, __nv_bfloat16>(x, w, out, T, R, C, stream);
-    case kF16: return launch<TX, __half>(x, w, out, T, R, C, stream);
+    case kF32: return launch_pair<TX, float>(x, w, out, T, R, C, stream);
+    case kBF16:
+      return launch_pair<TX, __nv_bfloat16>(x, w, out, T, R, C, stream);
+    case kF16: return launch_pair<TX, __half>(x, w, out, T, R, C, stream);
+    case kI8: return launch_pair<TX, int8_t>(x, w, out, T, R, C, stream);
+    case kU8: return launch_pair<TX, uint8_t>(x, w, out, T, R, C, stream);
+    case kI16: return launch_pair<TX, int16_t>(x, w, out, T, R, C, stream);
+    case kI32: return launch_pair<TX, int32_t>(x, w, out, T, R, C, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -261,10 +377,11 @@ int launch_w(const void* x, const void* w, void* out, int T, int R, int C,
 }  // namespace
 
 // x: (T, R), w: (R, C), out: (T, C) in promote_types(x, w), all row-major
-// and contiguous; dtype codes 0 = float32, 1 = bfloat16, 2 = float16. T
-// and C must be >= 1 and ceil(T / 16) * ceil(C / 16) below 2^31; any
-// alignment is taken. Launches on `stream` and returns the CUDA error of
-// the launch (0 = none).
+// and contiguous; dtype codes 0 = float32, 1 = bfloat16, 2 = float16,
+// 3 = int8, 4 = uint8, 5 = int16, 6 = int32. T and C must be >= 1 and
+// ceil(T / 16) * ceil(C / 16) below 2^31; any alignment is taken.
+// Launches on `stream` and returns the CUDA error of the launch (0 =
+// none).
 extern "C" int systolic_matmul_launch(const void* x, const void* w, void* out,
                                       int T, int R, int C, int x_dtype,
                                       int w_dtype, void* stream) {
@@ -274,12 +391,17 @@ extern "C" int systolic_matmul_launch(const void* x, const void* w, void* out,
     case kBF16:
       return launch_w<__nv_bfloat16>(x, w, out, T, R, C, w_dtype, s);
     case kF16: return launch_w<__half>(x, w, out, T, R, C, w_dtype, s);
+    case kI8: return launch_w<int8_t>(x, w, out, T, R, C, w_dtype, s);
+    case kU8: return launch_w<uint8_t>(x, w, out, T, R, C, w_dtype, s);
+    case kI16: return launch_w<int16_t>(x, w, out, T, R, C, w_dtype, s);
+    case kI32: return launch_w<int32_t>(x, w, out, T, R, C, w_dtype, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// Blocks of the kernel's grid for a (T, C) output, as the launch counts
-// them.
+// Blocks of the tiled kernel's grid for a (T, C) output, as the launch
+// counts them (a pair of float operands; the cast kernel's tiles are the
+// same 16 x 16).
 extern "C" long long systolic_matmul_blocks(int T, int C) {
   return grid_blocks(T, C);
 }

@@ -17,11 +17,9 @@ share of its gradient on each process; the shares add up wherever they
 meet a collective or, for a parameter, in the step's gradient all-reduce
 over the axes the parameter is not sharded on (`models/zoo.py`).
 
-Backends: NCCL takes CUDA tensors, gloo CPU tensors. On a mesh built with
-gloo, a CUDA tensor goes to the host for every collective gloo does not
-take on CUDA tensors (`GLOO_CUDA_NATIVE`) and back; this is decided by the
-mesh's backend, never as a retry, and the bytes are counted
-(`CollectiveStats.staged_bytes`). A collective that fails raises.
+Backends: NCCL and gloo both take CUDA and CPU tensors here. An
+all-to-all runs as `all_to_all_single` on every backend (gloo has no
+list-form all-to-all). A collective that fails raises.
 
 A dry mesh (`Mesh(sizes, names, rank=0, backend="dry")`, the dry run's
 `launch/dryrun.py`) stands for one process of a mesh that does not
@@ -38,11 +36,6 @@ import torch
 import torch.distributed as dist
 
 from .sharding import Mesh
-
-# the collectives gloo runs on CUDA tensors itself (probed on an H100 with
-# torch 2.11: all-to-all raises "Backend gloo does not support alltoall");
-# every other one is staged through the host
-GLOO_CUDA_NATIVE = frozenset({"all_reduce", "all_gather", "reduce_scatter"})
 
 # the backend name of a mesh with no processes behind it (the dry run's)
 DRY = "dry"
@@ -68,21 +61,20 @@ def ring_traffic(name: str, g: int) -> float:
 @dataclasses.dataclass
 class CollectiveStats:
     """Per-process counts of one mesh's collectives: calls, seconds spent
-    inside them, bytes sent in, and bytes staged through the host. On a
-    gloo mesh the device is synchronized before and after a collective on
-    a CUDA tensor (gloo makes the host wait for the tensor anyway), so
-    `seconds` holds the collectives alone, not the device work queued
-    before them; on NCCL it is the host's time to enqueue them.
+    inside them and bytes sent in. On a gloo mesh the device is
+    synchronized before and after a collective on a CUDA tensor (gloo
+    makes the host wait for the tensor anyway), so `seconds` holds the
+    collectives alone, not the device work queued before them; on NCCL
+    it is the host's time to enqueue them.
     `kinds` splits the calls and bytes by collective and adds each one's
     ring traffic (`ring_traffic`: the bytes this process sends)."""
     calls: int = 0
     seconds: float = 0.0
     bytes: int = 0
-    staged_bytes: int = 0
     kinds: dict = dataclasses.field(default_factory=dict)
 
     def reset(self) -> None:
-        self.calls, self.seconds, self.bytes, self.staged_bytes = 0, 0.0, 0, 0
+        self.calls, self.seconds, self.bytes = 0, 0.0, 0
         self.kinds = {}
 
     def count(self, name: str, nbytes: int, g: int) -> None:
@@ -103,9 +95,8 @@ def stats(mesh: Mesh) -> CollectiveStats:
 
 
 def _run(mesh: Mesh, name: str, axes, x: torch.Tensor, fn, shape):
-    """fn(x) on the host when the mesh's backend does not take `x` where
-    it lies; on a dry mesh an empty meta tensor of the result's `shape`.
-    Counts the call."""
+    """fn(x), or on a dry mesh an empty meta tensor of the result's
+    `shape`. Counts the call."""
     st = stats(mesh)
     nbytes = x.numel() * x.element_size()
     if mesh.backend == DRY:
@@ -118,12 +109,7 @@ def _run(mesh: Mesh, name: str, axes, x: torch.Tensor, fn, shape):
         if sync:
             torch.cuda.synchronize(x.device)
         t0 = time.perf_counter()
-        if sync and name not in GLOO_CUDA_NATIVE:
-            y = fn(x.cpu())
-            st.staged_bytes += nbytes + y.numel() * y.element_size()
-            y = y.to(x.device)
-        else:
-            y = fn(x)
+        y = fn(x)
         if sync:
             torch.cuda.synchronize(x.device)
         st.seconds += time.perf_counter() - t0
@@ -186,10 +172,12 @@ def _raw_all_to_all(mesh, axes, x, split_dim, cat_dim):
                          f"split over {n} processes")
 
     def fn(t):
-        ins = [c.contiguous() for c in t.chunk(n, split_dim)]
-        outs = [torch.empty_like(c) for c in ins]
-        dist.all_to_all(outs, ins, group=mesh.group(axes))
-        return torch.cat(outs, cat_dim)
+        # all_to_all_single sends block j of dim 0 to process j
+        ins = t.movedim(split_dim, 0).contiguous()
+        out = torch.empty_like(ins)
+        dist.all_to_all_single(out, ins, group=mesh.group(axes))
+        return torch.cat([b.movedim(0, split_dim) for b in out.chunk(n, 0)],
+                         cat_dim)
     shape = list(x.shape)
     shape[split_dim] //= n
     shape[cat_dim] *= n

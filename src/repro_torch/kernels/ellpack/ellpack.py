@@ -27,7 +27,7 @@ LAUNCHES = 0
 
 _LIB = CudaLibrary("ellpack_pack.cu", "ellpack_pack_launch",
                    [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 # ptxas report (registers, shared memory, spills) of the last build
 BUILD_LOG = ""
 
@@ -52,8 +52,9 @@ def build():
 
 
 def ellpack_pack(w: torch.Tensor, *, m: int, keep: int = 0):
-    """w (rows, K) on a CUDA device, float32, bfloat16 or float16, K % m
-    == 0 -> (vals (rows, K//m, keep) in w's dtype, idx (rows, K//m, keep)
+    """w (rows, K) on a CUDA device, K % m == 0, float32, bfloat16,
+    float16, int8, uint8, int16 or int32 -> (vals (rows, K//m, keep) in
+    w's dtype, idx (rows, K//m, keep)
     int32): each m-block's first `keep` nonzeros in order, with their
     intra-block positions; 0 and -1 fill the rest. `keep` defaults to
     max(1, m // 2). Inputs must be finite (see `ref.py`)."""
@@ -77,7 +78,8 @@ def ellpack_pack(w: torch.Tensor, *, m: int, keep: int = 0):
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(w.data_ptr(), vals.data_ptr(), idx.data_ptr(), nblocks,
-                     m, keep, w.element_size(), stream)
+                     m, keep, w.element_size(),
+                     int(not w.dtype.is_floating_point), stream)
     if err != 0:
         raise RuntimeError(f"ELLPACK kernel launch failed: CUDA error {err} "
                            f"(rows={rows}, K={K}, m={m}, keep={keep}, "

@@ -7,7 +7,9 @@
   `ops.py` runs for CPU tensors: each nonzero's rank is the count of
   nonzeros before it in its block (a cumulative sum), and slot j gathers
   the element of rank j.
-Both copy values. The plain version equals the CUDA kernel bit for bit;
+Both copy values, floats and integers alike (an integer's zero is 0,
+its most negative value is not zero). The plain version equals the CUDA
+kernel bit for bit;
 the reference equals it by value (a padding slot there may keep one of
 the block's -0.0 zeros where the kernel writes +0.0). The Pallas kernel
 selects through a one-hot contraction instead, which agrees on finite
@@ -18,17 +20,17 @@ from __future__ import annotations
 import torch
 
 from ...core.sparsity import pack_ellpack_block
+from .._dtypes import DTYPES, refusal
 
 # the input dtypes the packer takes (the CUDA kernel's too)
-PACK_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+PACK_DTYPES = DTYPES
 
 
 def check_pack_input(w: torch.Tensor, m: int) -> None:
-    """TypeError for a dtype the packer does not take; ValueError unless w
-    is (rows, K) with K a multiple of m."""
+    """TypeError for a dtype the packer does not take, saying why;
+    ValueError unless w is (rows, K) with K a multiple of m."""
     if w.dtype not in PACK_DTYPES:
-        raise TypeError(f"w must be float32, bfloat16 or float16, "
-                        f"got {w.dtype}")
+        raise TypeError(f"w is {w.dtype}: {refusal(w.dtype)}")
     if w.dim() != 2:
         raise ValueError(f"w must be (rows, K), got {tuple(w.shape)}")
     if m < 1 or w.shape[1] % m:

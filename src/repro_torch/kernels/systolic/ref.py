@@ -21,31 +21,49 @@ from typing import Tuple
 
 import torch
 
-# the input dtypes the fold plane takes (the CUDA kernel's too)
-MATMUL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+from .._dtypes import DTYPES, refusal
+
+# the input dtypes the fold plane takes (the CUDA kernel's too), in any
+# mix
+MATMUL_DTYPES = DTYPES
 
 
 def check_matmul_dtypes(x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
-    """The output dtype, promote_types(x, w); TypeError for an input dtype
-    the fold plane does not take (integers among them: their promoted
-    type would be an integer accumulator, a semantics left unported)."""
+    """The output dtype, promote_types(x, w) (equal to jnp.promote_types
+    on every accepted pair); TypeError, saying why, for an input dtype the
+    fold plane does not take."""
     for t, name in ((x, "x"), (w, "w")):
         if t.dtype not in MATMUL_DTYPES:
-            raise TypeError(f"{name} must be float32, bfloat16 or float16, "
-                            f"got {t.dtype}")
+            raise TypeError(f"{name} is {t.dtype}: {refusal(t.dtype)}")
     return torch.promote_types(x.dtype, w.dtype)
 
 
 def systolic_matmul_reference(x: torch.Tensor, w: torch.Tensor
                               ) -> torch.Tensor:
-    """O = x @ w for x (T, R), w (R, C): float32 accumulation, rounded once
-    to promote_types(x, w)."""
+    """O = x @ w for x (T, R), w (R, C) in out = promote_types(x, w), each
+    operand first cast to out (as the reference's `jnp.dot` promotes).
+    A float out: float32 accumulation, rounded once to out. An integer
+    out: exact sums, narrowed to out at the end, which is the reference's
+    arithmetic modulo 2^bits (an int8 product of 100 x 3 over 64 rows is
+    19,200 mod 256 = 0)."""
     out_dtype = check_matmul_dtypes(x, w)
     if x.shape[1] != w.shape[0]:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not "
                          f"chain")
-    return torch.matmul(x.to(torch.float32),
-                        w.to(torch.float32)).to(out_dtype)
+    if out_dtype.is_floating_point:
+        return torch.matmul(x.to(out_dtype).to(torch.float32),
+                            w.to(out_dtype).to(torch.float32)).to(out_dtype)
+    # modulo 2^32 in int64, 16 rows at a time: a product of two int32
+    # values is exact in int64 and its low 32 bits are all an int32 (or
+    # narrower) out keeps; torch has no integer matmul on the card
+    low = 0xFFFFFFFF
+    xl, wl = x.to(out_dtype).long(), w.to(out_dtype).long()
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.int64,
+                      device=x.device)
+    for k in range(0, x.shape[1], 16):
+        prod = (xl[:, k:k + 16, None] * wl[None, k:k + 16, :]) & low
+        acc = (acc + prod.sum(1)) & low
+    return acc.to(out_dtype)
 
 
 def systolic_ws_reference(x: torch.Tensor, w: torch.Tensor

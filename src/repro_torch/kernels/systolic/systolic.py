@@ -3,8 +3,9 @@ their wrappers.
 
 - `systolic_matmul` replaces the Pallas kernel
   `repro.kernels.systolic.systolic.systolic_matmul`: one fold's functional
-  output O = x @ w, float32 accumulation, one rounding to the promoted
-  dtype (`csrc/systolic_matmul.cu`).
+  output O = x @ w in the promoted dtype: float32 accumulation and one
+  rounding for a float result, wrapping 32-bit sums narrowed for an
+  integer one (`csrc/systolic_matmul.cu`).
 - `wavefront_activity_batched` replaces
   `repro.kernels.systolic.systolic.wavefront_activity`, batched by
   construction: a (B,) int32 array of stream lengths -> (B, n_cycles)
@@ -33,7 +34,8 @@ MATMUL_LAUNCHES = 0
 WAVEFRONT_LAUNCHES = 0
 
 # dtype codes of the C entry points
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+               torch.int8: 3, torch.uint8: 4, torch.int16: 5, torch.int32: 6}
 
 _MATMUL = CudaLibrary("systolic_matmul.cu", "systolic_matmul_launch",
                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
@@ -84,8 +86,10 @@ def _check_cuda(x: torch.Tensor, name: str) -> None:
 
 
 def systolic_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (T, R), w (R, C) CUDA tensors of float32, bfloat16 or float16 ->
-    O = x @ w (T, C) in promote_types(x, w), accumulated in float32."""
+    """x (T, R), w (R, C) CUDA tensors of float32, bfloat16, float16,
+    int8, uint8, int16 or int32 in any mix -> O = x @ w (T, C) in
+    promote_types(x, w), each operand cast to it first: accumulated in
+    float32 for a float O, modulo 2^32 and narrowed for an integer O."""
     global MATMUL_LAUNCHES
     out_dtype = check_matmul_dtypes(x, w)
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:

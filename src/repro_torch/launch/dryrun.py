@@ -185,8 +185,11 @@ def count_cell(cfg, mesh, *, seq: int, batch: int, mode: str,
         raise ValueError(f"a dry step takes meta inputs only, not {off[0]}")
     # a decode step's position is a Python int here and a device int32 in
     # the reference's step: counted among the arguments as those 4 bytes
+    # where the step reads it. jax.jit drops an argument its step never
+    # uses (`keep_unused=False`), and the ssm family's decode (recurrent
+    # blocks only, no attention) never reads the position.
     pos = ((torch.empty((), dtype=torch.int32, device="meta"),)
-           if mode == "decode" else ())
+           if mode == "decode" and cfg.family != "ssm" else ())
     return count_step(step, args, ctx, data, mesh=mesh, also_held=pos)
 
 

@@ -1,6 +1,8 @@
 """Shared model pieces: norms, RoPE, activations, chunked cross-entropy."""
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -12,16 +14,41 @@ from ..dist import collectives as col
 F32 = torch.float32
 
 
+_REMAT = threading.local()
+
+
+@contextlib.contextmanager
+def _in_remat():
+    """Marks a remat's forward and its recompute (for `flat`)."""
+    depth = getattr(_REMAT, "depth", 0)
+    _REMAT.depth = depth + 1
+    try:
+        yield
+    finally:
+        _REMAT.depth = depth
+
+
+def flat(fn):
+    """Marks fn for `remat` to run plainly inside another remat (its
+    forward or its recompute), so the enclosing recompute keeps fn's
+    activations for the backward: fn's forward then runs twice in a
+    training step, not three times as nested checkpoints run it."""
+    fn.remat_flat = True
+    return fn
+
+
 def remat(fn, *args, **kwargs):
     """fn(*args, **kwargs) with its activations recomputed in the backward
     instead of kept, where the reference puts a `jax.checkpoint`; a plain
-    call when autograd is not recording (serving). Remat changes memory,
-    not numbers; the forward draws no random numbers, so no RNG state is
-    stashed."""
-    if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False, **kwargs)
-    return fn(*args, **kwargs)
+    call when autograd is not recording (serving), or for a `flat` fn
+    inside another remat. Remat changes memory, not numbers; the forward
+    draws no random numbers, so no RNG state is stashed."""
+    if not torch.is_grad_enabled() or (
+            getattr(fn, "remat_flat", False) and getattr(_REMAT, "depth", 0)):
+        return fn(*args, **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (_in_remat(), _in_remat()), **kwargs)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5):

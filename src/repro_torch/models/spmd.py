@@ -51,6 +51,18 @@ def param_tp_block(p, name: str, ctx: MeshCtx, dim: int) -> torch.Tensor:
     return w
 
 
+def tp_sections(w: torch.Tensor, parts: int, ctx: MeshCtx,
+                dim: int = -1) -> torch.Tensor:
+    """The model rank's block of each of `parts` equal sections of `w`
+    along `dim`, concatenated: a fused projection's ([gate | up], [z | x],
+    [q | k | v]) columns of the rank's heads or features."""
+    sec = w.shape[dim] // parts
+    n = sec // ctx.tp
+    lo = ctx.tp_rank * n
+    return torch.cat([w.narrow(dim, i * sec + lo, n) for i in range(parts)],
+                     dim)
+
+
 def seq_sharded(ctx: Optional[MeshCtx], L: int) -> bool:
     """Whether a sequence of global length L lives split over the model
     axis between blocks (the reference's `res_shard` condition)."""

@@ -6,9 +6,20 @@ O(1) state) and a single-token decode form carrying explicit recurrent
 state, as in the reference (`repro/models/ssm.py`), whose `lax.scan`s are
 Python loops here. Under autograd the Mamba2 and mLSTM chunks are
 recomputed in the backward, where the reference checkpoints its chunk
-bodies. As there, a sequence longer than a chunk must be a
-whole number of chunks, and `mamba2_forward` reads only the SSM part of a
+bodies; inside a recomputed block the Mamba2 chunk is not checkpointed
+again (`common.flat`), as XLA's compiled reference does not run it a
+third time. As there, a sequence longer than a chunk must be a whole
+number of chunks, and `mamba2_forward` reads only the SSM part of a
 given state (not its conv buffer).
+
+Under a mesh the blocks run on a model rank's heads (`transformer.py`,
+`_residual`): `cfg` then carries the rank's `d_inner` and head counts and
+`p` the rank's slices of the weights, and hooks stand in for the
+collectives: Mamba2's `norm` (its gate norm over the whole d_inner) and
+`gather` (its whole B and C from the ranks' blocks of columns), the
+mLSTM's `mix` (its whole x before the q/k/v and gate projections) and
+the sLSTM's `gather` (its whole h before each recurrent product). The last
+projection's output is then this rank's partial sum.
 """
 from __future__ import annotations
 
@@ -17,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import F32, remat, rms_norm
+from .common import F32, flat, remat, rms_norm
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -39,23 +50,29 @@ def _chunks(t: torch.Tensor, nc: int, chunk: int):
 # Mamba2 (SSD)
 # ---------------------------------------------------------------------------
 
-def _mamba_in(p, x, cfg):
+def _mamba_in(p, x, cfg, gather=None):
     di, N = cfg.d_inner, cfg.ssm_state
     zx = torch.matmul(x, p["in_proj"])
     z, xin = zx[..., :di], zx[..., di:]
     bc_dt = torch.matmul(x, p["bc_proj"])
+    if gather is not None:
+        bc_dt = gather(bc_dt)
     conv_in = torch.cat([xin, bc_dt[..., :2 * N]], -1)
     dt = F.softplus(torch.matmul(x, p["dt_proj"]).to(F32) + p["dt_bias"])
     A = -torch.exp(p["A_log"].to(F32))                        # (H,)
     return z, conv_in, dt, A
 
 
-def _mamba_out(p, y, z, x, cfg):
-    y = rms_norm(y * F.silu(z.to(F32)).to(x.dtype), p["gate_norm"],
-                 cfg.norm_eps)
+def _mamba_out(p, y, z, x, cfg, norm=rms_norm):
+    y = norm(y * F.silu(z.to(F32)).to(x.dtype), p["gate_norm"],
+             cfg.norm_eps)
     return torch.matmul(y, p["out_proj"])
 
 
+# flat: XLA's compiled reference runs the chunk's forward twice in a
+# training step (the forward and the backward's recompute), where nested
+# checkpoints would run it three times (`tests/test_torch_dryrun.py`)
+@flat
 def _mamba_chunk(S, xq, dq, bq, cq, A):
     """One SSD chunk: (B,Q,H,hd) (B,Q,H) (B,Q,N) (B,Q,N) and the carried
     state S -> (new S, the chunk's y)."""
@@ -78,13 +95,14 @@ def _mamba_chunk(S, xq, dq, bq, cq, A):
 
 
 def mamba2_forward(p, x, *, cfg, chunk: int = 128,
-                   state: Optional[Tuple] = None):
+                   state: Optional[Tuple] = None, norm=rms_norm,
+                   gather=None):
     """x: (B, L, d) -> (y, (S (B,H,hd,N), conv_buf (B,K-1,di+2N)))."""
     B, L, d = x.shape
     di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     hd = di // H
     chunk = max(1, min(chunk, L))
-    z, conv_in, dt, A = _mamba_in(p, x, cfg)
+    z, conv_in, dt, A = _mamba_in(p, x, cfg, gather)
     conv_out = causal_conv(conv_in, p["conv_w"])
     conv_out = F.silu(conv_out.to(F32)).to(x.dtype)
     xin = conv_out[..., :di]
@@ -104,18 +122,18 @@ def mamba2_forward(p, x, *, cfg, chunk: int = 128,
     y = y + p["D"][None, None, :, None].to(F32) \
         * xin.reshape(B, L, H, hd).to(F32)
     y = y.reshape(B, L, di).to(x.dtype)
-    out = _mamba_out(p, y, z, x, cfg)
+    out = _mamba_out(p, y, z, x, cfg, norm)
     K = p["conv_w"].shape[0]
     return out, (S, conv_in[:, -(K - 1):, :])
 
 
-def mamba2_decode(p, x, state, *, cfg):
+def mamba2_decode(p, x, state, *, cfg, norm=rms_norm, gather=None):
     """Single token: x (B, 1, d); state = (S, conv_buf)."""
     B = x.shape[0]
     di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     hd = di // H
     S, conv_buf = state
-    z, conv_in, dt, A = _mamba_in(p, x, cfg)          # conv_in: (B,1,ch)
+    z, conv_in, dt, A = _mamba_in(p, x, cfg, gather)  # conv_in: (B,1,ch)
     window = torch.cat([conv_buf, conv_in], dim=1)             # (B,K,ch)
     conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"])[:, None, :]
     conv_out = F.silu(conv_out.to(F32)).to(x.dtype)
@@ -129,18 +147,20 @@ def mamba2_decode(p, x, state, *, cfg):
     y = torch.einsum("bn,bhpn->bhp", Cm[:, 0], S) \
         + p["D"][None, :, None].to(F32) * xh
     y = y.reshape(B, 1, di).to(x.dtype)
-    return _mamba_out(p, y, z, x, cfg), (S, window[:, 1:])
+    return _mamba_out(p, y, z, x, cfg, norm), (S, window[:, 1:])
 
 
 # ---------------------------------------------------------------------------
 # mLSTM (matrix memory, chunkwise)
 # ---------------------------------------------------------------------------
 
-def _mlstm_in(p, x, cfg):
+def _mlstm_in(p, x, cfg, mix=None):
     B, L, _ = x.shape
     di, H = cfg.d_inner, cfg.heads
     up = torch.matmul(x, p["up_proj"])
     z, xin = up[..., :di], up[..., di:]
+    if mix is not None:
+        xin = mix(xin)
     qkv = torch.matmul(xin, p["w_qkv"])
     q, k, v = [t.reshape(B, L, H, di // H) for t in qkv.chunk(3, dim=-1)]
     gates = torch.matmul(xin, p["w_gates"]).to(F32)
@@ -180,13 +200,13 @@ def _mlstm_chunk(S, n, qc, kc, vc, lic, lfc, scale):
 
 
 def mlstm_forward(p, x, *, cfg, chunk: int = 128,
-                  state: Optional[Tuple] = None):
+                  state: Optional[Tuple] = None, mix=None):
     """x: (B, L, d) -> (y, (S, n)). Matrix state per head (hd x hd)."""
     B, L, d = x.shape
     di, H = cfg.d_inner, cfg.heads
     hd = di // H
     chunk = max(1, min(chunk, L))
-    z, q, k, v, gates = _mlstm_in(p, x, cfg)
+    z, q, k, v, gates = _mlstm_in(p, x, cfg, mix)
     logi = F.logsigmoid(gates[..., :H])                        # (B,L,H)
     logf = F.logsigmoid(gates[..., H:])
     scale = hd ** -0.5
@@ -205,12 +225,12 @@ def mlstm_forward(p, x, *, cfg, chunk: int = 128,
     return _mlstm_out(p, y, z, x), (S, n)
 
 
-def mlstm_decode(p, x, state, *, cfg):
+def mlstm_decode(p, x, state, *, cfg, mix=None):
     B = x.shape[0]
     di, H = cfg.d_inner, cfg.heads
     hd = di // H
     S, n = state
-    z, q, k, v, gates = _mlstm_in(p, x, cfg)
+    z, q, k, v, gates = _mlstm_in(p, x, cfg, mix)
     q, k, v = (t[:, 0].to(F32) for t in (q, k, v))             # (B,H,hd)
     gates = gates[:, 0]
     i = torch.exp(F.logsigmoid(gates[..., :H]))
@@ -230,10 +250,13 @@ def mlstm_decode(p, x, state, *, cfg):
 # sLSTM (scalar memory, scanned)
 # ---------------------------------------------------------------------------
 
-def slstm_forward(p, x, *, cfg, state: Optional[Tuple] = None):
+def slstm_forward(p, x, *, cfg, state: Optional[Tuple] = None,
+                  gather=None):
     """x: (B, L, d). Stabilized exponential gating; recurrent h feedback.
-    Returns (y, (h, c, n, m))."""
-    B, L, d = x.shape
+    Returns (y, (h, c, n, m)); the state has the width of `w_rec`'s four
+    gate blocks (d, or a model rank's d / tp under a mesh)."""
+    B, L, _ = x.shape
+    d = p["w_rec"].shape[1] // 4
     gx = torch.matmul(x, p["w_in"]).to(F32)                   # (B,L,4d)
     w_rec = p["w_rec"].to(F32)
     if state is None:
@@ -242,7 +265,8 @@ def slstm_forward(p, x, *, cfg, state: Optional[Tuple] = None):
     h, c, n, m = state
     hs = []
     for t in range(L):
-        g = gx[:, t] + torch.matmul(h, w_rec)
+        g = gx[:, t] + torch.matmul(h if gather is None else gather(h),
+                                    w_rec)
         ii, ff, zz, oo = g.chunk(4, dim=-1)
         m_new = torch.maximum(ff + m, ii)
         i_t = torch.exp(ii - m_new)
@@ -256,5 +280,5 @@ def slstm_forward(p, x, *, cfg, state: Optional[Tuple] = None):
     return torch.matmul(y, p["w_out"]), (h, c, n, m)
 
 
-def slstm_decode(p, x, state, *, cfg):
-    return slstm_forward(p, x, cfg=cfg, state=state)
+def slstm_decode(p, x, state, *, cfg, gather=None):
+    return slstm_forward(p, x, cfg=cfg, state=state, gather=gather)

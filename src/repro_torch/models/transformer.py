@@ -31,12 +31,13 @@ from torch import nn
 from ..dist import collectives as col
 from ..dist.sharding import PartitionSpec, entry_axes
 from .attention import attention, decode_attention
-from .common import chunked_cross_entropy, remat, rms_norm
+from .common import F32, chunked_cross_entropy, remat, rms_norm
 from .config import ModelConfig
 from .ffn import dense_ffn, moe_ffn
 from .params import ParamDef, Sharded, tree_leaves, tree_map
-from .spmd import (batch_sharded, loss_copies, param, res_gather, res_shard,
-                   rows_gather)
+from .spmd import (batch_sharded, loss_copies, param, param_tp_block,
+                   res_gather, res_shard, rows_gather, tp_combine,
+                   tp_sections)
 from .ssm import (mamba2_decode, mamba2_forward, mlstm_decode, mlstm_forward,
                   slstm_decode, slstm_forward)
 
@@ -255,34 +256,155 @@ def transformer_block_decode(pl, x, cache_l, cache_len, *, cfg, ctx=None,
     return x, dict(cache_l, k=kv[0], v=kv[1])
 
 
-def _residual(fwd, dec, pl, x, cfg, state, decode, ctx=None, seq_len=None):
-    """A recurrent block on the whole sequence: under a mesh its weights
-    are gathered whole and every model rank runs it on its batch rows
-    (compute replicated over `model`)."""
+def _residual(fwd, dec, split, pl, x, cfg, state, decode, ctx=None,
+              seq_len=None, state_out=True):
+    """A recurrent block on the whole sequence, and its new state (None
+    when `state_out` is false: a training stack drops it).
+
+    Under a mesh, `split(pl, cfg, ctx)` is the block's model-rank plan
+    (`_mamba_split`, `_mlstm_split`, `_slstm_split`), the reference's
+    specs as XLA partitions them: the `tp`-column projections run on the
+    rank's blocks, the `tp`-row projection gives this rank's partial sum,
+    and the partial outputs are summed over `model` (reduce-scattered to
+    the rank's rows where the sequence is sharded). The states a block
+    takes and returns are whole (the cache's layouts): the plan cuts the
+    rank's part out and gathers the new one. A block whose heads (d for
+    the sLSTM) `tp` does not divide has no plan: its weights are gathered
+    whole and every model rank runs it on its batch rows (compute
+    replicated over `model`)."""
     L = seq_len or x.shape[1]
     h = rows_gather(_norm(x, pl, "ln", cfg, ctx), ctx, L)
+    plan = split(pl, cfg, ctx) if ctx is not None and ctx.tp > 1 else None
+    if plan is not None:
+        pw, cfg_r, hooks, cut, join = plan
+        st = None if state is None else cut(state)
+        y, s = (dec(pw, h, st, cfg=cfg_r, **hooks) if decode
+                else fwd(pw, h, cfg=cfg_r, state=st, **hooks))
+        return (x + tp_combine(y, ctx, L),
+                join(s) if state_out else None)
     pw = pl if ctx is None else {k: param(pl, k, ctx) for k, _ in pl.items()}
     y, s = (dec(pw, h, state, cfg=cfg) if decode
             else fwd(pw, h, cfg=cfg, state=state))
-    return x + res_shard(y, ctx), s
+    return x + res_shard(y, ctx), (s if state_out else None)
+
+
+class _RankConfig:
+    """A config as a model rank's block body sees it: the rank's widths
+    and head counts (`d_inner` and `ssm_heads` are properties of
+    `ModelConfig`), everything else the model's."""
+
+    def __init__(self, cfg: ModelConfig, **widths):
+        self._cfg = cfg
+        self.__dict__.update(widths)
+
+    def __getattr__(self, name):
+        return getattr(self._cfg, name)
+
+
+def _tp_gather(ctx, dim):
+    return lambda t: col.all_gather(t, ctx.mesh, ctx.tp_axis, dim)
+
+
+def _tp_rms_norm(ctx, width: int):
+    """`rms_norm` over a last axis of `width` split over `model`: the sum of
+    squares all-reduced."""
+    def norm(y, gamma, eps):
+        yf = y.to(F32)
+        ss = col.all_reduce(torch.sum(yf * yf, dim=-1, keepdim=True),
+                            ctx.mesh, ctx.tp_axis)
+        return (yf * torch.rsqrt(ss / width + eps)).to(y.dtype) * gamma
+    return norm
+
+
+def _mamba_split(pl, cfg, ctx):
+    """Mamba2 on the rank's heads: its blocks of both halves of `in_proj`
+    ([z | x]), of `dt_proj` and the per-head vectors, its x channels of
+    the causal conv (B and C whole: the ranks' column blocks of the
+    replicated `bc_proj`, gathered), the gate norm over the whole d_inner,
+    `out_proj`'s stored rows."""
+    H, di, tp = cfg.ssm_heads, cfg.d_inner, ctx.tp
+    if H % tp or (2 * cfg.ssm_state) % tp:
+        return None
+    dr, r = di // tp, ctx.tp_rank
+    w = functools.partial(param, pl, ctx=ctx)
+    conv = w("conv_w")
+    pw = {"in_proj": tp_sections(w("in_proj"), 2, ctx),
+          **{k: tp_sections(w(k), 1, ctx) for k in (
+              "bc_proj", "dt_proj", "dt_bias", "A_log", "D", "gate_norm")},
+          "conv_w": torch.cat([conv[:, r * dr:(r + 1) * dr], conv[:, di:]],
+                              -1),
+          "out_proj": param_tp_block(pl, "out_proj", ctx, 0)}
+    cfg_r = _RankConfig(cfg, d_inner=dr, ssm_heads=H // tp)
+
+    def cut(state):
+        S, conv_buf = state
+        return (tp_sections(S, 1, ctx, 1),
+                torch.cat([conv_buf[..., r * dr:(r + 1) * dr],
+                           conv_buf[..., di:]], -1))
+
+    def join(state):
+        S, conv_buf = state
+        return (col.all_gather(S, ctx.mesh, ctx.tp_axis, 1),
+                torch.cat([col.all_gather(conv_buf[..., :dr], ctx.mesh,
+                                          ctx.tp_axis, -1),
+                           conv_buf[..., dr:]], -1))
+    return (pw, cfg_r, {"norm": _tp_rms_norm(ctx, di),
+                        "gather": _tp_gather(ctx, -1)}, cut, join)
+
+
+def _mlstm_split(pl, cfg, ctx):
+    """mLSTM on the rank's heads: its blocks of both halves of `up_proj`
+    ([z | x]), the whole x gathered for its blocks of q, k and v
+    (`w_qkv`) and of the two gates (`w_gates`), `down_proj`'s stored
+    rows."""
+    H, di, tp = cfg.heads, cfg.d_inner, ctx.tp
+    if H % tp:
+        return None
+    w = functools.partial(param, pl, ctx=ctx)
+    pw = {"up_proj": tp_sections(w("up_proj"), 2, ctx),
+          "w_qkv": tp_sections(w("w_qkv"), 3, ctx),
+          "w_gates": tp_sections(w("w_gates"), 2, ctx),
+          "down_proj": param_tp_block(pl, "down_proj", ctx, 0)}
+    cfg_r = _RankConfig(cfg, d_inner=di // tp, heads=H // tp)
+    cut = lambda state: tuple(tp_sections(t, 1, ctx, 1) for t in state)
+    join = lambda state: tuple(col.all_gather(t, ctx.mesh, ctx.tp_axis, 1)
+                               for t in state)
+    return pw, cfg_r, {"mix": _tp_gather(ctx, -1)}, cut, join
+
+
+def _slstm_split(pl, cfg, ctx):
+    """sLSTM on the rank's block of d: its block of each gate of `w_in`
+    and `w_rec` (the whole h gathered before every recurrent product, as
+    XLA partitions the scan), `w_out`'s rows of that block."""
+    d, tp = cfg.d_model, ctx.tp
+    if d % tp:
+        return None
+    w = functools.partial(param, pl, ctx=ctx)
+    pw = {"w_in": tp_sections(w("w_in"), 4, ctx),
+          "w_rec": tp_sections(w("w_rec"), 4, ctx),
+          "w_out": tp_sections(w("w_out"), 1, ctx, 0)}
+    cut = lambda state: tuple(tp_sections(t, 1, ctx) for t in state)
+    join = lambda state: tuple(col.all_gather(t, ctx.mesh, ctx.tp_axis, -1)
+                               for t in state)
+    return pw, cfg, {"gather": _tp_gather(ctx, -1)}, cut, join
 
 
 def mamba_block(pl, x, *, cfg, ctx=None, state=None, decode=False,
-                seq_len=None):
-    return _residual(mamba2_forward, mamba2_decode, pl, x, cfg, state, decode,
-                     ctx, seq_len)
+                seq_len=None, state_out=True):
+    return _residual(mamba2_forward, mamba2_decode, _mamba_split, pl, x, cfg,
+                     state, decode, ctx, seq_len, state_out)
 
 
 def mlstm_block(pl, x, *, cfg, ctx=None, state=None, decode=False,
-                seq_len=None):
-    return _residual(mlstm_forward, mlstm_decode, pl, x, cfg, state, decode,
-                     ctx, seq_len)
+                seq_len=None, state_out=True):
+    return _residual(mlstm_forward, mlstm_decode, _mlstm_split, pl, x, cfg,
+                     state, decode, ctx, seq_len, state_out)
 
 
 def slstm_block(pl, x, *, cfg, ctx=None, state=None, decode=False,
-                seq_len=None):
-    return _residual(slstm_forward, slstm_decode, pl, x, cfg, state, decode,
-                     ctx, seq_len)
+                seq_len=None, state_out=True):
+    return _residual(slstm_forward, slstm_decode, _slstm_split, pl, x, cfg,
+                     state, decode, ctx, seq_len, state_out)
 
 
 # --------------------------------------------------------------------------
@@ -327,21 +449,27 @@ class TransformerBlock(Params):
 
 
 class MambaBlock(Params):
-    def forward(self, x, *, ctx=None, state=None, decode=False, seq_len=None):
+    def forward(self, x, *, ctx=None, state=None, decode=False, seq_len=None,
+                state_out=True):
         return mamba_block(self, x, cfg=self.cfg, ctx=ctx, state=state,
-                           decode=decode, seq_len=seq_len)
+                           decode=decode, seq_len=seq_len,
+                           state_out=state_out)
 
 
 class MLSTMBlock(Params):
-    def forward(self, x, *, ctx=None, state=None, decode=False, seq_len=None):
+    def forward(self, x, *, ctx=None, state=None, decode=False, seq_len=None,
+                state_out=True):
         return mlstm_block(self, x, cfg=self.cfg, ctx=ctx, state=state,
-                           decode=decode, seq_len=seq_len)
+                           decode=decode, seq_len=seq_len,
+                           state_out=state_out)
 
 
 class SLSTMBlock(Params):
-    def forward(self, x, *, ctx=None, state=None, decode=False, seq_len=None):
+    def forward(self, x, *, ctx=None, state=None, decode=False, seq_len=None,
+                state_out=True):
         return slstm_block(self, x, cfg=self.cfg, ctx=ctx, state=state,
-                           decode=decode, seq_len=seq_len)
+                           decode=decode, seq_len=seq_len,
+                           state_out=state_out)
 
 
 def unstack(tree: PyTree) -> list:
@@ -473,9 +601,9 @@ def decoder_stack(blocks, x, *, ctx=None, causal=True, cross=None):
 
 def _group(x, blocks, last, ctx=None, seq_len=None):
     """A hybrid or ssm group: its blocks, then `last` (zamba2's shared
-    attention block, xLSTM's sLSTM block)."""
+    attention block, xLSTM's sLSTM block); the blocks' states dropped."""
     for blk in blocks:
-        x, _ = blk(x, ctx=ctx, seq_len=seq_len)
+        x, _ = blk(x, ctx=ctx, seq_len=seq_len, state_out=False)
     x, _ = last(x, ctx=ctx, seq_len=seq_len)
     return x
 
@@ -489,7 +617,7 @@ def hybrid_stack(model: LanguageModel, x, ctx=None):
     for group in model.mamba_groups:
         x = remat(_group, x, group, shared, ctx, L)
     for blk in model.mamba_tail:
-        x, _ = remat(blk, x, ctx=ctx, seq_len=L)
+        x, _ = remat(blk, x, ctx=ctx, seq_len=L, state_out=False)
     return rows_gather(x, ctx, L)
 
 
@@ -497,7 +625,8 @@ def xlstm_stack(model: LanguageModel, x, ctx=None):
     L = x.shape[1]
     x = res_shard(x, ctx)
     for group, sblk in zip(model.mlstm_groups, model.slstm_blocks):
-        x = remat(_group, x, group, sblk, ctx, L)
+        x = remat(_group, x, group,
+                  functools.partial(sblk, state_out=False), ctx, L)
     return rows_gather(x, ctx, L)
 
 

@@ -393,12 +393,76 @@ def test_systolic_matmul_kernel_takes_misaligned_operands(dev, dt, offset):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+def _int_operand(shape, dt, g, dev, lo=None, hi=None):
+    info = torch.iinfo(dt)
+    return torch.randint(info.min if lo is None else lo,
+                         (info.max if hi is None else hi) + 1, shape,
+                         generator=g, device=dev, dtype=torch.int64).to(dt)
+
+
+_INT_PAIRS = [("int8", "int8"), ("uint8", "uint8"), ("int16", "int16"),
+              ("int32", "int32"), ("int8", "uint8"), ("uint8", "int16"),
+              ("int8", "int32"), ("int16", "int32"), ("int8", "float32"),
+              ("float32", "int8"), ("uint8", "bfloat16"),
+              ("int16", "float16"), ("int32", "float32")]
+
+
+@pytest.mark.parametrize("T,R,C", [(197, 128, 128), (1, 3, 1), (65, 17, 130),
+                                   (300, 300, 33), (0, 8, 8)])
+@pytest.mark.parametrize("xd,wd", _INT_PAIRS,
+                         ids=["-".join(p) for p in _INT_PAIRS])
+def test_systolic_matmul_kernel_takes_integers(dev, T, R, C, xd, wd):
+    """The cast kernel: integer pairs over their full range (sums wrapping
+    modulo 2^bits of the promoted type) and integer x float pairs whose
+    float operand holds small integers (every partial sum exact in
+    float32, so any summation order gives the same bits): equal to the
+    plain version bit for bit."""
+    from repro_torch.kernels.systolic import systolic as sk
+    from repro_torch.kernels.systolic.ref import systolic_matmul_reference
+    g = torch.Generator(device=dev).manual_seed(T + R + C)
+    ops = []
+    for dt, shape in ((getattr(torch, xd), (T, R)),
+                      (getattr(torch, wd), (R, C))):
+        if dt.is_floating_point:
+            ops.append(_int_operand(shape, torch.int32, g, dev, -8, 8)
+                       .to(dt))
+        elif xd.startswith(("float", "bfloat")) or wd.startswith(
+                ("float", "bfloat")):
+            ops.append(_int_operand(shape, dt, g, dev,
+                                    max(torch.iinfo(dt).min, -120),
+                                    min(torch.iinfo(dt).max, 120)))
+        else:
+            ops.append(_int_operand(shape, dt, g, dev))
+    before = sk.MATMUL_LAUNCHES
+    got = sk.systolic_matmul(*ops)
+    torch.cuda.synchronize()
+    assert sk.MATMUL_LAUNCHES == before + (1 if T else 0)
+    want = systolic_matmul_reference(*ops)
+    assert got.dtype == want.dtype == torch.promote_types(*(o.dtype
+                                                          for o in ops))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dt,want", [("int8", 0), ("int32", 19200)])
+def test_systolic_matmul_kernel_wraps_int8(dev, dt, want):
+    """100 x 3 over 64 rows is 19,200: int8 keeps it modulo 256, as the
+    reference does."""
+    from repro_torch.kernels.systolic import systolic as sk
+    dtype = getattr(torch, dt)
+    got = sk.systolic_matmul(torch.full((2, 64), 100, dtype=dtype,
+                                        device=dev),
+                             torch.full((64, 3), 3, dtype=dtype, device=dev))
+    assert torch.equal(got.cpu(), torch.full((2, 3), want, dtype=dtype))
+
+
 def test_systolic_kernels_refuse_what_they_do_not_take(dev):
     from repro_torch.kernels.ellpack import ellpack as ek
     from repro_torch.kernels.systolic import systolic as sk
-    xi = torch.ones((4, 4), dtype=torch.int32, device=dev)
-    with pytest.raises(TypeError):
+    xi = torch.ones((4, 4), dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError, match="64-bit"):
         sk.systolic_matmul(xi, xi)
+    with pytest.raises(TypeError, match="bool"):
+        sk.systolic_matmul(xi.bool(), xi.int())
     with pytest.raises(ValueError, match="CUDA tensor"):
         sk.systolic_matmul(torch.ones(4, 4), torch.ones(4, 4))
     with pytest.raises(TypeError):
@@ -407,8 +471,8 @@ def test_systolic_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="CUDA tensor"):
         sk.wavefront_activity_batched(torch.ones(3, dtype=torch.int32),
                                       R=4, C=4, n_cycles=10)
-    with pytest.raises(TypeError):
-        ek.ellpack_pack(xi, m=4)
+    with pytest.raises(TypeError, match="64-bit"):
+        ek.ellpack_pack(xi.double(), m=4)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ek.ellpack_pack(torch.ones(4, 8), m=4)
 
@@ -522,7 +586,12 @@ _ELLPACK_PATHS = [(torch.float32, 4, 2, "vector"),
                   (torch.float16, 8, 1, "vector"),
                   (torch.float32, 4, 3, "scalar"),
                   (torch.bfloat16, 8, 6, "scalar"),
-                  (torch.float32, 6, 3, "scalar")]
+                  (torch.float32, 6, 3, "scalar"),
+                  (torch.int32, 4, 2, "vector"),
+                  (torch.int16, 8, 4, "vector"),
+                  (torch.int32, 8, 3, "scalar"),
+                  (torch.int8, 8, 2, "scalar"),
+                  (torch.uint8, 4, 2, "scalar")]
 
 
 @pytest.mark.parametrize("dt,m,keep,path", _ELLPACK_PATHS,
@@ -539,13 +608,14 @@ def test_ellpack_kernel_paths_match_plain_version(dev, dt, m, keep, path):
     rows, K = 777, 24 * m
     buf = torch.randn(rows * K + 1, generator=g, device=dev)
     buf = torch.where(torch.rand(rows * K + 1, generator=g, device=dev)
-                      < 0.5, buf, 0.0).to(dt)
+                      < 0.5, buf, 0.0)
+    buf = buf.to(dt) if dt.is_floating_point else (buf * 40).to(dt)
     aligned = buf[:-1].view(rows, K)
-    aligned[0] = 1.0
-    aligned[1] = 0.0
-    aligned[2, ::2] = -0.0
+    aligned[0] = 1
+    aligned[1] = 0
+    aligned[2, ::2] = -0.0 if dt.is_floating_point else torch.iinfo(dt).min
     offset = buf[1:].view(rows, K)
-    bits = torch.int32 if dt == torch.float32 else torch.int16
+    bits = {4: torch.int32, 2: torch.int16, 1: torch.int8}[buf.element_size()]
     for w, want_path in ((aligned, path), (offset, "scalar")):
         assert ek.path_for(w, m, keep) == want_path
         got = ek.ellpack_pack(w, m=m, keep=keep)

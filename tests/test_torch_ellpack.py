@@ -126,8 +126,35 @@ def test_negative_zero_is_zero_and_bad_inputs_raise():
     np.testing.assert_array_equal(got[1].numpy(), [[[1, 3], [3, -1]]])
     with pytest.raises(ValueError, match="multiple of m"):
         tell.pack_ellpack(torch.zeros((2, 10)), m=4)
-    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
-        tell.pack_ellpack(torch.zeros((2, 8), dtype=torch.int32), m=4)
+    with pytest.raises(TypeError, match="64-bit"):
+        tell.pack_ellpack(torch.zeros((2, 8), dtype=torch.float64), m=4)
+    with pytest.raises(TypeError, match="bool"):
+        tell.pack_ellpack(torch.zeros((2, 8), dtype=torch.bool), m=4)
+    with pytest.raises(TypeError, match="complex"):
+        tell.pack_ellpack(torch.zeros((2, 8), dtype=torch.complex64), m=4)
+
+
+@pytest.mark.parametrize("dt", ["int8", "uint8", "int16", "int32"])
+@pytest.mark.parametrize("m,keep", [(4, 2), (8, 4), (8, 3)])
+def test_pack_integers_matches_pallas_kernel(dt, m, keep):
+    """Integer matrices, full range, the most negative value among them
+    (the sign bit alone: nonzero), blocks fuller than keep and empty ones:
+    values (in w's dtype) and indices equal to the Pallas kernel's in
+    interpret mode and to the sort-based reference's."""
+    rng = np.random.default_rng(m * 10 + keep + len(dt))
+    info = np.iinfo(dt)
+    rows, K = 24, 12 * m
+    w = rng.integers(info.min, int(info.max) + 1, (rows, K)).astype(dt)
+    w[rng.random((rows, K)) < 0.5] = 0
+    w[0, ::3] = info.min
+    w[1] = 0
+    want = rell.ellpack_pack(jnp.asarray(w), m=m, keep=keep, interpret=True)
+    tw = torch.from_numpy(w)
+    got = tell.pack_ellpack(tw, m=m, keep=keep)
+    assert got[0].dtype == tw.dtype and str(want[0].dtype) == dt
+    _equal(got, want)
+    ref = tell.ellpack_pack_reference(tw, m=m, keep=keep)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 @pytest.mark.parametrize("rows,K,m", [(16, 32, 4), (9, 50, 4), (12, 64, 8),

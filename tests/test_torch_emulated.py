@@ -215,7 +215,13 @@ ELLPACK_CASES = [
     (torch.bfloat16, 16, 2, "vector"),
     (torch.float32, 4, 3, "scalar"), (torch.float16, 8, 6, "scalar"),
     (torch.float32, 3, 1, "scalar"), (torch.bfloat16, 6, 3, "scalar"),
-    (torch.float32, 8, 8, "scalar"), (torch.bfloat16, 2, 1, "scalar")]
+    (torch.float32, 8, 8, "scalar"), (torch.bfloat16, 2, 1, "scalar"),
+    # integers: the vector instances' integer forms, and 1-byte elements
+    # (the scalar path only)
+    (torch.int32, 4, 2, "vector"), (torch.int32, 16, 4, "vector"),
+    (torch.int16, 8, 4, "vector"), (torch.int16, 4, 1, "vector"),
+    (torch.int32, 4, 3, "scalar"), (torch.int8, 8, 2, "scalar"),
+    (torch.uint8, 4, 2, "scalar"), (torch.int8, 16, 4, "scalar")]
 
 
 @pytest.mark.parametrize("dt,m,keep,path", ELLPACK_CASES,
@@ -225,7 +231,8 @@ def test_ellpack_kernel_matches_plain(emulated, dt, m, keep, path):
     """The path the C entry picks for an aligned w (`path`) and the scalar
     path it picks for a view one element into its buffer: values and
     indices equal the plain version's; full blocks (more than keep
-    nonzeros), empty blocks and negative zeros among them."""
+    nonzeros), empty blocks and negative zeros among them (for an integer
+    type, its most negative value: the sign bit alone, nonzero)."""
     lib = emulated("ellpack_pack")
     fn = lib.ellpack_pack_launch
     fn.argtypes = ek._LIB.argtypes
@@ -238,23 +245,27 @@ def test_ellpack_kernel_matches_plain(emulated, dt, m, keep, path):
     buf = torch.from_numpy(rng.standard_normal(rows * K + 1)
                            .astype(np.float32))
     buf[torch.from_numpy(rng.random(rows * K + 1) < 0.5)] = 0.0
-    buf = buf.to(dt)
+    if dt.is_floating_point:
+        buf = buf.to(dt)
+    else:
+        buf = (buf * 40).to(dt)
     aligned = buf[:-1].view(rows, K)
-    aligned[0] = 1.0                               # every block full
-    aligned[1] = 0.0                               # every block empty
-    aligned[2, ::2] = -0.0                         # negative zeros
+    aligned[0] = 1                                 # every block full
+    aligned[1] = 0                                 # every block empty
+    aligned[2, ::2] = (-0.0 if dt.is_floating_point
+                       else torch.iinfo(dt).min)  # negative zeros
     offset = buf[1:].view(rows, K)
     runs = [(aligned, path), (offset, "scalar")]
     for w, want_path in runs:
         vector = path_for(w.data_ptr(), m, keep, w.element_size())
         assert vector == (want_path == "vector"), want_path
-        vals = torch.full((rows, K // m, keep), 7.0, dtype=dt)
+        vals = torch.full((rows, K // m, keep), 7, dtype=dt)
         idx = torch.full((rows, K // m, keep), -9, dtype=torch.int32)
         assert fn(w.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                  rows * (K // m), m, keep, w.element_size(), None) == 0
+                  rows * (K // m), m, keep, w.element_size(),
+                  int(not dt.is_floating_point), None) == 0
         pv, pi = ellpack_pack_plain(w, m=m, keep=keep)
         assert torch.equal(idx, pi), want_path
-        assert torch.equal(vals.view(torch.int16 if dt != torch.float32
-                                     else torch.int32),
-                           pv.view(torch.int16 if dt != torch.float32
-                                   else torch.int32)), path
+        bits = {4: torch.int32, 2: torch.int16, 1: torch.int8}[
+            w.element_size()]
+        assert torch.equal(vals.view(bits), pv.view(bits)), path

@@ -109,11 +109,95 @@ def test_systolic_matmul_promotes_like_the_reference(xd, wd):
 
 
 def test_integer_operands_are_refused():
+    """64-bit integers (and float64) are refused, saying why: JAX's default
+    config makes them 32-bit, so the reference has no such path; bool and
+    complex are refused too. int8 .. int32 are taken (below)."""
     x = torch.ones((4, 4), dtype=torch.int8)
-    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
-        tsys.fold_output(x, x)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError, match="64-bit"):
+        tsys.fold_output(x.to(torch.int64), x)
+    with pytest.raises(TypeError, match="64-bit"):
         tsys.simulate_fold(x.to(torch.float64), x.to(torch.float64))
+    with pytest.raises(TypeError, match="bool"):
+        tsys.fold_output(x, x.to(torch.bool))
+    with pytest.raises(TypeError, match="complex"):
+        tsys.fold_output(x.to(torch.complex64), x.to(torch.complex64))
+
+
+ACCEPTED = ["float32", "bfloat16", "float16", "int8", "uint8", "int16",
+            "int32"]
+
+
+def test_promotion_equals_the_reference_on_every_accepted_pair():
+    for a in ACCEPTED:
+        for b in ACCEPTED:
+            got = tsys.ref.check_matmul_dtypes(
+                torch.empty(0, dtype=getattr(torch, a)),
+                torch.empty(0, dtype=getattr(torch, b)))
+            want = jnp.promote_types(getattr(jnp, a), getattr(jnp, b))
+            assert str(got).split(".")[-1] == str(want), (a, b)
+
+
+def _ints(rng, shape, dt):
+    info = np.iinfo(dt)
+    return rng.integers(info.min, int(info.max) + 1, shape).astype(dt)
+
+
+# integer pairs, and integer x float pairs (the float operand has one
+# +-1 a row of x or a column of w, so each output is one product and exact
+# in any summation order: the casts of the integers to the float type,
+# which round, are what is held)
+INT_PAIRS = [("int8", "int8"), ("uint8", "uint8"), ("int16", "int16"),
+             ("int32", "int32"), ("int8", "uint8"), ("uint8", "int16"),
+             ("int8", "int32"), ("int16", "int32"), ("uint8", "int32"),
+             ("int8", "float32"), ("float32", "int8"), ("int32", "float32"),
+             ("uint8", "bfloat16"), ("int16", "bfloat16"),
+             ("int16", "float16"), ("bfloat16", "int32"),
+             ("float16", "uint8")]
+
+
+@pytest.mark.parametrize("xd,wd", INT_PAIRS, ids=["-".join(p)
+                                                  for p in INT_PAIRS])
+def test_integer_matmul_matches_the_reference_exactly(xd, wd):
+    """Integer and integer x float folds against the Pallas kernel in
+    interpret mode, bit for bit, full-range integers (the integer sums
+    wrap modulo 2^bits of the promoted type on both sides)."""
+    rng = np.random.default_rng(len(xd) * 31 + len(wd))
+    T, R, C = 37, 24, 20
+    ops = []
+    for dt, shape in ((xd, (T, R)), (wd, (R, C))):
+        if dt.startswith(("int", "uint")):
+            ops.append(_ints(rng, shape, np.dtype(dt)))
+        elif shape == (T, R):       # one nonzero a row of x
+            one = np.zeros(shape, np.float32)
+            one[np.arange(T), rng.integers(0, R, T)] = 1.0
+            ops.append(one * rng.choice([-1.0, 1.0], shape))
+        else:                       # one nonzero a column of w
+            one = np.zeros(shape, np.float32)
+            one[rng.integers(0, R, C), np.arange(C)] = 1.0
+            ops.append(one * rng.choice([-1.0, 1.0], shape))
+    jx = jnp.asarray(ops[0]).astype(getattr(jnp, xd))
+    jw = jnp.asarray(ops[1]).astype(getattr(jnp, wd))
+    tx = torch.from_numpy(ops[0]).to(getattr(torch, xd))
+    tw = torch.from_numpy(ops[1]).to(getattr(torch, wd))
+    want = rsys.systolic_matmul(jx, jw, interpret=True)
+    got = tsys.fold_output(tx, tw)
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    if got.is_floating_point():
+        np.testing.assert_array_equal(_f32(got), _f32(want))
+    else:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dt,want", [("int8", 0), ("int32", 19200)])
+def test_integer_matmul_wraps_as_the_reference(dt, want):
+    """100 x 3 summed over 64 rows: 19,200, which int8 keeps modulo 256."""
+    jx = jnp.full((2, 64), 100, getattr(jnp, dt))
+    jw = jnp.full((64, 3), 3, getattr(jnp, dt))
+    ref = np.asarray(rsys.systolic_matmul(jx, jw, interpret=True))
+    got = tsys.fold_output(torch.full((2, 64), 100, dtype=getattr(torch, dt)),
+                           torch.full((64, 3), 3, dtype=getattr(torch, dt)))
+    np.testing.assert_array_equal(ref, np.full((2, 3), want))
+    np.testing.assert_array_equal(got.numpy(), ref)
 
 
 @pytest.mark.parametrize("Ts,R,C,n_cycles", [

@@ -154,6 +154,10 @@ def test_collectives_adjoints_and_melt_batch(runs):
     u = runs[0]["units"]
     assert float(u["ag_adjoint"]) == 0.0
     assert list(u["a2a_shape"]) == [1, 16]
+    # rank 0 holds row 0 of every process's block, in block order
+    np.testing.assert_array_equal(
+        u["a2a_value"], np.arange(4.)[None].repeat(4, 0).ravel()[None]
+        + np.repeat(100. * np.arange(4), 4)[None])
     assert bool(u["a2a_roundtrip"]) and bool(u["a2a_grad"])
     np.testing.assert_array_equal(u["melt_rows"], [0, 1])
     assert bool(u["melt_none"])

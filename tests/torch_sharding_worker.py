@@ -89,7 +89,6 @@ def run_case(case, mesh, out_dir):
         out["tokens"] = np.stack(toks)
     st = col.stats(mesh)
     out["collective_calls"] = st.calls
-    out["staged_bytes"] = st.staged_bytes
     if mesh.rank == 0:
         np.savez(os.path.join(out_dir, case["name"] + ".npz"), **out)
 
@@ -177,6 +176,7 @@ def run_units(case, out_dir):
     z = torch.arange(16.).reshape(4, 4) + 100 * mesh.rank
     t = col.all_to_all(z.requires_grad_(True), mesh, ("data", "model"), 0, 1)
     out["a2a_shape"] = np.array(t.shape)
+    out["a2a_value"] = t.detach().numpy()
     back = col.all_to_all(t, mesh, ("data", "model"), 1, 0)
     out["a2a_roundtrip"] = bool(torch.equal(back, z))
     (t * 2).sum().backward()
