@@ -1,42 +1,18 @@
 """Design-space exploration on the PyTorch port's Study API (the twin of
 `examples/dse_sweep.py`): a designs x workload cross-product run as
-batched sweeps on the card, reduced to a columnar frame. `--shard` splits
-the study's cells over this host's cards, one thread a card, and puts
-the frame together as a farm client does.
+batched sweeps on the card, reduced to a columnar frame. `--shard` runs
+the study over a mesh of this host's cards (`Study.run(mesh=...)`): each
+batched group's designs split into one block a card.
 
     PYTHONPATH=src python examples/torch_dse_sweep.py --arch qwen2-1.5b
     PYTHONPATH=src python examples/torch_dse_sweep.py --device cpu
 """
 import argparse
-from concurrent.futures import ThreadPoolExecutor
-
-import torch
 
 from repro_torch.api import Study, preset_grid
 from repro_torch.configs import get_config
 from repro_torch.core.workloads import lm_ops, total_macs
-
-
-def run_sharded(study: Study, device: str):
-    """The study's cells split over this host's cards (the CPU is one
-    shard), each shard's cells run through `_execute_cells` on its card,
-    the frame assembled from the shards' results."""
-    dev = torch.device(device)
-    devices = ([torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-               if dev.type == "cuda" else [dev])
-    plan = study.plan()
-    cells = list(range(len(plan.cells)))
-    parts = [cells[i::len(devices)] for i in range(len(devices))]
-    with ThreadPoolExecutor(len(devices)) as pool:
-        futs = [pool.submit(study._execute_cells, plan, part,
-                            cache_dir=study._cache_dir, device=d)
-                for part, d in zip(parts, devices) if part]
-        done = [f.result() for f in futs]
-    results = {k: v for r, _, _ in done for k, v in r.items()}
-    return study.assemble_frame(
-        results, executed_cells=sum(e for _, e, _ in done),
-        cache_hits=sum(h for _, _, h in done), plan=plan, device=devices[0])
+from repro_torch.launch.mesh import make_device_mesh
 
 
 def main():
@@ -47,7 +23,8 @@ def main():
     ap.add_argument("--fidelity", nargs="+", default=["fast"],
                     help="one or more of fast/trace — extra frame rows per level")
     ap.add_argument("--shard", action="store_true",
-                    help="split the study's cells over this host's cards")
+                    help="shard the design axis over this host's cards (on "
+                         "--device cpu, a mesh of the one CPU)")
     ap.add_argument("--cache", help="on-disk cell cache directory")
     ap.add_argument("--device", default="cuda",
                     help="where the sweeps run (default cuda; cpu runs the "
@@ -66,8 +43,11 @@ def main():
              .fidelity(*args.fidelity))
     if args.cache:
         study.cache(args.cache)
-    res = (run_sharded(study, args.device) if args.shard
-           else study.run(device=args.device))
+    mesh = None
+    if args.shard:
+        mesh = (make_device_mesh() if args.device.startswith("cuda")
+                else make_device_mesh([args.device]))
+    res = study.run(device=args.device, mesh=mesh)
 
     print(res.summary())
     for obj in ("latency", "energy", "edp"):

@@ -7,7 +7,15 @@
 
 A `Simulator` binds (config, fidelity, ERT, device) once; `run`/`run_op`
 go through the per-op stage pipeline (`core/stages.py`), `sweep` through
-a one-workload `api.study.Study`.
+a one-workload `api.study.Study`, optionally sharded over a mesh of this
+process's devices (`launch/mesh.py::make_device_mesh`): each group's
+designs are cut into one contiguous block a device, and every device
+runs its block, kernels and all. The sweep is bound by the host's
+dispatch, which every block repeats: on four H100s the feature sweep's
+mesh run took 4.5x one card's wall (PERF.md). One process a card, each
+on its own share of the cells (a farm worker with `--device cuda:i`
+each), is the fast layout for a host of several cards; the mesh exists
+for parity with the reference's `sweep(mesh=)`.
 
 A sweep stacks per-design config scalars into float32 columns with a
 leading design axis and runs the traced stage math on all designs and ops
@@ -29,6 +37,7 @@ all-reduce makespan.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -118,9 +127,9 @@ class Simulator:
 
     device: where request streams and kernel inputs live, CUDA unless the
     caller asks for the CPU (`device="cpu"` runs each kernel's plain
-    version); without a card the default raises. The reference's
-    `sweep(mesh=)`, a JAX sharding argument, has no single-card
-    counterpart and is not taken.
+    version); without a card the default raises. `sweep(mesh=)` runs the
+    batched groups over a mesh of devices instead; the session's device
+    must then be one of them.
     """
 
     def __init__(self, config: ConfigLike = "paper-32", *,
@@ -198,12 +207,14 @@ class Simulator:
 
     # ---- batched sweep -------------------------------------------------------
     def sweep(self, configs: Sequence[ConfigLike], workload: WorkloadLike,
-              *, force_fallback: bool = False) -> SweepResult:
+              *, mesh=None, force_fallback: bool = False) -> SweepResult:
         """Simulate `workload` on every config through a one-workload
         `api.study.Study` on this session's device: one batched call per
         static flavor group at 'fast' and 'trace'; 'cycle' runs through
-        the per-op engine. force_fallback: run every cell through the
-        per-op engine (the differential-parity reference)."""
+        the per-op engine. mesh: shard each group's design axis over a
+        mesh of devices (`launch/mesh.py::make_device_mesh`), the grid
+        padded to a multiple of mesh.size. force_fallback: run every cell
+        through the per-op engine (the differential-parity reference)."""
         from .study import Study
         cfgs = [as_config(c) for c in configs]
         if not cfgs:
@@ -221,7 +232,7 @@ class Simulator:
                           trace_spec=self.trace_spec,
                           core_index=self.core_index,
                           force_fallback=force_fallback)
-                 .run(device=self.device))
+                 .run(device=self.device, mesh=mesh))
         return SweepResult(
             configs=cfgs,
             batched=bool(np.all(frame["batched"] > 0)),
@@ -404,15 +415,17 @@ def _gemm_arrays(ops: Sequence[Op], device):
 
 def decoded_streams(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
                     dataflow: str, word_bytes: int, dram: DramConfig, spec,
-                    device, core_index: int = 0):
+                    device, core_index: int = 0,
+                    fl: Optional[_Flavor] = None):
     """Generate and decode the demand streams of every unique stream
     design x gemm op, driven by each op's effective compute window and
     its sparsity-shrunk DRAM traffic: returns (t, flat_bank, ch, row,
     is_write, valid) of shape (streams, ops, cap), the (streams, ops)
-    compression `scale` and the design -> stream map `smap`."""
+    compression `scale` and the design -> stream map `smap`. `fl`: the
+    flavor of the whole group when `cfgs` is one block of it."""
     from ..core.dram import decode_requests
     from ..trace.generator import gemm_request_stream
-    fl = _flavor(cfgs, ops, core_index)
+    fl = fl or _flavor(cfgs, ops, core_index)
     sidx, smap = _stream_dedup(cfgs)
     d = _columns([cfgs[i] for i in sidx], fl, device, core_index)
     g = _gemm_arrays(ops, device)
@@ -431,12 +444,13 @@ def decoded_streams(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
 
 
 def _trace_stalls(cfgs, ops, dataflow, word_bytes, dram, spec, engine,
-                  device, core_index: int = 0):
+                  device, core_index: int = 0, fl: Optional[_Flavor] = None):
     """(designs, ops) cycle-accurate stalls: one batched replay of every
     unique stream, scaled and gathered back per design."""
     from ..core.dram import replay_requests
     streams, scale, smap = decoded_streams(cfgs, ops, dataflow, word_bytes,
-                                           dram, spec, device, core_index)
+                                           dram, spec, device, core_index,
+                                           fl)
     stall = replay_requests(*streams, dram, spec.gran_bytes,
                             engine=engine).stall_cycles
     return (stall * scale)[smap]
@@ -549,7 +563,7 @@ def _sweep_batched(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
                    dram: Optional[DramConfig] = None, spec=None,
                    engine: Optional[str] = None,
                    device: Union[str, torch.device] = "cuda",
-                   core_index: int = 0) -> Dict[str, np.ndarray]:
+                   core_index: int = 0, mesh=None) -> Dict[str, np.ndarray]:
     """Simulate `ops` on every design of one static group (shared dataflow,
     word size, core grid, layout flavor and sparse representation, and
     DramConfig at trace fidelity); returns float64 numpy columns, one value
@@ -557,12 +571,52 @@ def _sweep_batched(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
     core a heterogeneous mesh is analysed through: the array geometry R, C
     and the layout row bound are that core's (the SIMD lanes and latency
     stay core 0's, as in the reference).
+
+    mesh: a mesh of devices (`launch/mesh.py::make_device_mesh`) to run
+    on instead of `device`. The designs are padded to a multiple of
+    mesh.size with copies of the last one and cut into contiguous blocks,
+    one a device; each device runs its block (at trace fidelity, the
+    streams its designs reference, its replay and conflict kernels), and
+    the columns come back in design order, the pad dropped. The blocks
+    are enqueued from this thread one after another and read back at the
+    end, so a card runs its block while the host enqueues the next: the
+    sweep is host-bound, and a host thread a card took 17x one card's
+    wall on four H100s.
+    The group's flavor (sparsity, layout row bound) is the whole group's
+    in every block, and a design's values do not depend on which others
+    share its block.
     """
     for c in cfgs:
         if (c.dataflow, c.memory.word_bytes) != (dataflow, word_bytes):
             raise ValueError("sweep group mixes dataflows or word sizes")
     fl = _flavor(cfgs, ops, core_index)
-    device = torch.device(device)
+    kw = dict(dram=dram, spec=spec, engine=engine, core_index=core_index)
+    if mesh is None:
+        return _to_host(_sweep_block(cfgs, ops, dataflow, word_bytes, ert,
+                                     fl, device=torch.device(device), **kw))
+    devices = mesh.devices      # checked by the caller (`_mesh_device`)
+    n = len(cfgs)
+    padded = list(cfgs) + [cfgs[-1]] * ((-n) % len(devices))
+    per = len(padded) // len(devices)
+    blocks = [padded[i * per:(i + 1) * per] for i in range(len(devices))]
+
+    parts = []
+    for block, dev in zip(blocks, devices):
+        with torch.cuda.device(dev) if dev.type == "cuda" \
+                else contextlib.nullcontext():
+            parts.append(_sweep_block(block, ops, dataflow, word_bytes, ert,
+                                      fl, device=dev, **kw))
+    parts = [_to_host(p) for p in parts]
+    return {k: np.concatenate([p[k] for p in parts])[:n] for k in parts[0]}
+
+
+def _sweep_block(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
+                 dataflow: str, word_bytes: int, ert: ERT, fl: _Flavor, *,
+                 dram: Optional[DramConfig], spec, engine: Optional[str],
+                 device: torch.device, core_index: int
+                 ) -> Dict[str, torch.Tensor]:
+    """`_sweep_batched` of one block of a group of flavor `fl` on
+    `device`: its columns as tensors there, not waited for."""
     d = _columns(cfgs, fl, device, core_index)
     g = _gemm_arrays(ops, device)
     stall = None
@@ -570,7 +624,10 @@ def _sweep_batched(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
         from ..trace.generator import DEFAULT_SPEC
         stall = _trace_stalls(cfgs, ops, dataflow, word_bytes, dram,
                               spec or DEFAULT_SPEC, engine, device,
-                              core_index)
-    res = _design_metrics(d, g, dataflow, word_bytes, ert, fl, stall)
+                              core_index, fl)
+    return _design_metrics(d, g, dataflow, word_bytes, ert, fl, stall)
+
+
+def _to_host(res: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy().astype(np.float64)
             for k, v in res.items()}

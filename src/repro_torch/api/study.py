@@ -17,7 +17,9 @@ fidelity, the core grid, the layout config when the layout stage is on,
 the sparse representation and the NoC topology of a NoC pod) and runs
 each group as one batched `_sweep_batched` call; at trace fidelity that
 is one replay-kernel launch per group, and with the layout stage on one
-bank-conflict-kernel launch per group. Every `cycle` cell, every cell of
+bank-conflict-kernel launch per group (`run(mesh=)`: per group and
+device of a device mesh, each device running its block of the group's
+designs). Every `cycle` cell, every cell of
 a `force_fallback` study (the per-op oracle the parity tests hold the
 batched sweep against) and every cell of a custom evaluator runs on its
 own through the per-op engine (`core.engine.simulate_network`: one
@@ -70,6 +72,28 @@ METRIC_COLUMNS = ("total_cycles", "compute_cycles", "stall_cycles",
 
 _METRIC_ALIASES = {"latency": "total_cycles", "cycles": "total_cycles",
                    "energy": "energy_pj"}
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """The device a run's per-op cells and labels take: `device` resolved
+    (CUDA by default), or with a device mesh its first device, and a
+    named device must then be one of the mesh's (a bare "cuda" is the
+    current card)."""
+    if mesh is None:
+        return resolve_device(device)
+    if mesh.devices is None:
+        raise ValueError("a study shards over a mesh of devices "
+                         "(launch/mesh.py::make_device_mesh), not a process "
+                         "world")
+    if device is None:
+        return mesh.devices[0]
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in mesh.devices:
+        raise ValueError(f"device {dev} is not one of the mesh's "
+                         f"{[str(d) for d in mesh.devices]}")
+    return dev
 
 
 def _flag_non_finite(metrics: Dict[str, float]) -> None:
@@ -819,16 +843,22 @@ class Study:
              "metrics": metrics},
             site="cache.store", indent=None)
 
-    def run(self, *, device=None, cache: Optional[str] = None
+    def run(self, *, device=None, mesh=None, cache: Optional[str] = None
             ) -> StudyResult:
         """Execute the plan on `device` (CUDA by default; pass "cpu" for the
-        plain PyTorch version) and return the columnar frame. cache:
-        overrides the builder's cache directory for this run only."""
-        device = resolve_device(device)
+        plain PyTorch version) and return the columnar frame.
+
+        mesh: shard each batched group's design axis over a mesh of this
+        process's devices (`launch/mesh.py::make_device_mesh`; see
+        `Simulator.sweep`); the per-op cells run on `device`, which is
+        then the mesh's first device unless named (and must be one of
+        the mesh's). cache: overrides the builder's cache directory for
+        this run only."""
+        device = _mesh_device(mesh, device)
         cache_dir = cache if cache is not None else self._cache_dir
         plan = self.plan()
         results, executed, hits = self._execute_cells(
-            plan, cache_dir=cache_dir, device=device)
+            plan, cache_dir=cache_dir, device=device, mesh=mesh)
         return self._frame(plan.cells,
                            [results[i] for i in range(len(plan.cells))],
                            executed, hits, device)
@@ -862,10 +892,12 @@ class Study:
 
     def _execute_cells(self, plan: StudyPlan,
                        indices: Optional[Sequence[int]] = None, *,
-                       cache_dir: Optional[str] = None, device=None
+                       cache_dir: Optional[str] = None, device=None,
+                       mesh=None
                        ) -> Tuple[Dict[int, Dict[str, float]], int, int]:
         """Execute a subset of the plan's cells (default: all of them) on
-        `device` (CUDA unless the caller asks for the CPU).
+        `device` (CUDA unless the caller asks for the CPU), the batched
+        groups over `mesh` when one is given (as `run` takes them).
 
         Returns ({cell_index: metrics}, executed_cells, cache_hits): the
         unit of work of a farm worker, one shard's cell indices against a
@@ -881,7 +913,7 @@ class Study:
         killed run resumes from its last completed cell); failed cells
         are never cached.
         """
-        device = resolve_device(device)
+        device = _mesh_device(mesh, device)
         if indices is None:
             sel = set(range(len(plan.cells)))
         else:
@@ -925,7 +957,7 @@ class Study:
                     self._workloads[grp.workload], grp.dataflow,
                     grp.word_bytes, self._ert, dram=grp.dram,
                     spec=self._spec_for(grp.fidelity), engine=self._engine,
-                    device=device, core_index=self._core_index)
+                    device=device, core_index=self._core_index, mesh=mesh)
                 vals["edp"] = _edp(vals["energy_pj"], vals["total_cycles"])
             except ValueError:
                 raise    # invalid configuration: loud, never a failed cell

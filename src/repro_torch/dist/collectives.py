@@ -65,13 +65,16 @@ class CollectiveStats:
     synchronized before and after a collective on a CUDA tensor (gloo
     makes the host wait for the tensor anyway), so `seconds` holds the
     collectives alone, not the device work queued before them; on NCCL
-    it is the host's time to enqueue them.
+    it is the host's time to enqueue them, unless `sync` is set: then the
+    device is synchronized around every collective on a CUDA tensor on
+    any backend, and `seconds` is the collectives' own time there too.
     `kinds` splits the calls and bytes by collective and adds each one's
     ring traffic (`ring_traffic`: the bytes this process sends)."""
     calls: int = 0
     seconds: float = 0.0
     bytes: int = 0
     kinds: dict = dataclasses.field(default_factory=dict)
+    sync: bool = False
 
     def reset(self) -> None:
         self.calls, self.seconds, self.bytes = 0, 0.0, 0
@@ -105,7 +108,7 @@ def _run(mesh: Mesh, name: str, axes, x: torch.Tensor, fn, shape):
                              f"on {x.device}")
         y = torch.empty(shape, dtype=x.dtype, device="meta")
     else:
-        sync = mesh.backend == "gloo" and x.is_cuda
+        sync = (mesh.backend == "gloo" or st.sync) and x.is_cuda
         if sync:
             torch.cuda.synchronize(x.device)
         t0 = time.perf_counter()

@@ -19,6 +19,11 @@ process's coordinates. Processes are laid out row-major over the axes
 dimension sharded over ("pod", "data") is cut into pod x data contiguous
 blocks, the pod index major. An unbound mesh has no processes and serves
 spec arithmetic alone (the 16 x 16 and 2 x 16 x 16 production meshes).
+
+A mesh may instead name devices of this one process (`devices`, row-major
+over the axes; `launch/mesh.py::make_device_mesh`): the reference's
+`jax.make_mesh((len(jax.devices()),), ("data",))`, over which a batched
+design sweep splits its designs, one block a device.
 """
 from __future__ import annotations
 
@@ -56,11 +61,14 @@ class Mesh:
 
     shape: {axis name: size} in axis order (the reference reads
     `mesh.shape[name]`). `rank` is this process's rank in the world and
-    `backend` the world's backend, both None for an unbound mesh."""
+    `backend` the world's backend, both None for an unbound mesh.
+    `devices`: for a mesh of this process's devices, one `torch.device`
+    per mesh position in row-major order (None otherwise)."""
 
     def __init__(self, sizes: Tuple[int, ...], axis_names: Tuple[str, ...],
                  *, rank: Optional[int] = None, backend: Optional[str] = None,
-                 groups: Optional[Dict[Tuple[str, ...], object]] = None):
+                 groups: Optional[Dict[Tuple[str, ...], object]] = None,
+                 devices: Optional[Tuple[object, ...]] = None):
         if len(sizes) != len(axis_names):
             raise ValueError(f"{len(sizes)} sizes for axes {axis_names}")
         self.axis_names = tuple(axis_names)
@@ -68,6 +76,10 @@ class Mesh:
         self.rank = rank
         self.backend = backend
         self._groups = groups or {}
+        self.devices = None if devices is None else tuple(devices)
+        if self.devices is not None and len(self.devices) != self.size:
+            raise ValueError(f"{len(self.devices)} devices for a mesh of "
+                             f"{self.size}")
 
     @property
     def size(self) -> int:
@@ -118,6 +130,9 @@ class Mesh:
         return self._groups[axes]
 
     def __repr__(self) -> str:
+        if self.devices is not None:
+            return (f"Mesh({self.shape}, devices "
+                    f"{[str(d) for d in self.devices]})")
         kind = (f"bound rank {self.rank}, {self.backend}" if self.bound
                 else "unbound")
         return f"Mesh({self.shape}, {kind})"

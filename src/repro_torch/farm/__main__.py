@@ -7,6 +7,12 @@ versions).
     PYTHONPATH=src python -m repro_torch.farm serve  --root farm &
     PYTHONPATH=src python -m repro_torch.farm worker --root farm \
         --device cuda:0 &
+    # or one worker over every card of the host, each batched group's
+    # designs split over the cards (slower: every block repeats the
+    # group's host-bound dispatch; 4.5x one card's wall on four H100s,
+    # PERF.md; one worker a card is the fast layout, and the mesh is
+    # the reference's `worker --mesh`):
+    PYTHONPATH=src python -m repro_torch.farm worker --root farm --mesh &
     PYTHONPATH=src python -m repro_torch.farm submit \
         studies.edp_array_size --root farm --smoke --wait --csv FRAME.csv
 
@@ -72,9 +78,12 @@ def _cmd_serve(args) -> int:
 
 def _cmd_worker(args) -> int:
     worker = Worker(args.root, args.id, device=args.device,
+                    use_mesh=args.mesh,
                     cache=None if args.no_cache else "auto")
+    where = (f"a mesh {worker.mesh_shape} of {worker.device.type}"
+             if args.mesh else str(worker.device))
     print(f"farm worker {worker.worker_id} serving "
-          f"root={worker.dirs.root} on {worker.device}", flush=True)
+          f"root={worker.dirs.root} on {where}", flush=True)
     if args.once:
         worker.step()
     else:
@@ -360,6 +369,10 @@ def _main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--idle-exit", type=float, default=None,
                    help="exit after this many idle seconds")
     device(p)
+    p.add_argument("--mesh", action="store_true",
+                   help="shard batched groups over a mesh of this "
+                        "process's devices (every card; the one CPU with "
+                        "--device cpu)")
     p.add_argument("--no-cache", action="store_true",
                    help="skip the shared dedup cache (bench cold runs)")
     p.add_argument("--once", action="store_true")

@@ -2,7 +2,12 @@
 
 A worker owns a process and one device (`device=`: CUDA unless it is
 asked for the CPU; a machine with four cards runs four workers, each with
-`--device cuda:i`) and loops:
+`--device cuda:i`, the fast layout), or with `use_mesh=True` a mesh of
+this process's devices shaped by `dist.plan_elastic_remesh` (every card
+by default, one worker for the host: batched groups shard their design
+axis over it, as the reference's mesh worker does; each block repeats
+the group's host-bound dispatch, so it is slower than a worker a card),
+and loops:
 
     claim shard -> rebuild study (cached per study id) -> execute the
     shard's cells through `Study._execute_cells` -> write the shard
@@ -33,10 +38,11 @@ from __future__ import annotations
 import os
 import time
 import uuid
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
-from ..api.study import Study, StudyPlan
+from ..api.study import Study, StudyPlan, _mesh_device
 from ..core.replay import resolve_device
+from ..dist import ElasticPlan, plan_elastic_remesh
 from ..faults import fs as _fs
 from .queue import SHARDS_TOPIC, FarmDirs, FileSpool, read_json, \
     write_json_atomic
@@ -46,15 +52,26 @@ __all__ = ["Worker"]
 
 class Worker:
     def __init__(self, root: str, worker_id: Optional[str] = None, *,
-                 cache: Optional[str] = "auto", device=None):
+                 cache: Optional[str] = "auto", device=None,
+                 use_mesh: bool = False,
+                 mesh_devices: Optional[Sequence] = None):
         """cache: "auto" = the farm root's shared dedup cache; a path =
         use that directory; None = no caching (every cell executes —
         used by throughput benchmarks to measure cold cost). device: where
         this worker's cells run (CUDA by default, raising without a card;
         "cpu" runs the kernels' plain versions). The cell hash carries the
         device type, so CPU and CUDA workers never serve each other's
-        cells."""
-        self.device = resolve_device(device)
+        cells. use_mesh: shard batched groups over a mesh of
+        `mesh_devices` (by default every card of the process, or the one
+        CPU), its shape planned by `plan_elastic_remesh`; `device` must
+        be one of them and defaults to the first."""
+        self._mesh = None
+        self._mesh_plan: Optional[ElasticPlan] = None
+        if use_mesh:
+            self._build_mesh(device, mesh_devices)
+            self.device = _mesh_device(self._mesh, device)
+        else:
+            self.device = resolve_device(device)
         self.dirs = FarmDirs(root)
         self.spool = FileSpool(root)
         self.worker_id = worker_id or \
@@ -65,6 +82,25 @@ class Worker:
         self.cells_done = 0
         self.cache_hits = 0
         self._studies: Dict[str, Tuple[Study, StudyPlan]] = {}
+
+    def _build_mesh(self, device, devices: Optional[Sequence]) -> None:
+        """Shape a data mesh over this process's devices via the elastic
+        planner (batched groups shard their design axis over it)."""
+        from ..launch.mesh import make_device_mesh
+        if devices is None and resolve_device(device).type == "cpu":
+            devices = ["cpu"]
+        devices = make_device_mesh(devices).devices   # None: every card
+        n = len(devices)
+        self._mesh_plan = plan_elastic_remesh(n, global_batch=n)
+        self._mesh = make_device_mesh(devices,
+                                      shape=self._mesh_plan.mesh_shape,
+                                      axis_names=self._mesh_plan.mesh_axes)
+
+    @property
+    def mesh_shape(self) -> Optional[list]:
+        """The mesh's shape as the heartbeat and results write it."""
+        return (list(self._mesh_plan.mesh_shape) if self._mesh_plan
+                else None)
 
     # ---- the work loop -------------------------------------------------------
     def step(self) -> bool:
@@ -86,13 +122,13 @@ class Worker:
             study, plan = self._study(sid)
             results, executed, hits = study._execute_cells(
                 plan, p["cells"], cache_dir=self.cache_dir,
-                device=self.device)
+                device=self.device, mesh=self._mesh)
             out = {"study_id": sid, "shard": shard,
                    "worker": self.worker_id,
                    "cells": {str(i): m for i, m in results.items()},
                    "executed_cells": executed, "cache_hits": hits,
                    "seconds": time.perf_counter() - t0,
-                   "mesh": None, "device": self.device.type}
+                   "mesh": self.mesh_shape, "device": self.device.type}
             self.cells_done += len(results)
             self.cache_hits += hits
         except Exception as e:  # noqa: BLE001 — report, don't poison-loop
@@ -156,7 +192,7 @@ class Worker:
                 "cells_done": self.cells_done,
                 "cache_hits": self.cache_hits,
                 "current_shard": current,
-                "mesh": None, "device": self.device.type},
+                "mesh": self.mesh_shape, "device": self.device.type},
                 site="worker.heartbeat")
         except OSError:
             pass

@@ -8,12 +8,14 @@ them in registers and count the distinct pairs per bank by scans; longer
 rows go to a shared-memory instance (see the note at the top of
 `csrc/conflict_slowdown.cu`). `conflict_slowdown` builds the kernel on
 first use (`kernels._build`), checks its inputs and launches it on the
-current CUDA stream; every launch adds one to `LAUNCHES`. It launches or
-raises: there is no fallback. The plain PyTorch version is `ref.py`, and
+current CUDA stream; every launch adds one to `LAUNCHES` and to its
+card's entry of `LAUNCHES_BY_CARD`. It launches or raises: there is no
+fallback. The plain PyTorch version is `ref.py`, and
 `ops.py` picks between the two by device.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -21,8 +23,10 @@ import torch
 from .._build import CudaLibrary
 
 # Kernel launches since the last reset (the sweep and `chip_smoke.py` read
-# it to show the main path went through the kernel).
+# it to show the main path went through the kernel), in all and by card
+# index.
 LAUNCHES = 0
+LAUNCHES_BY_CARD: collections.Counter = collections.Counter()
 
 # the shared-memory instance keeps 3 int32 per id for each of its 4 warps,
 # at most the 227 KB a block may use
@@ -107,4 +111,5 @@ def conflict_slowdown(line: torch.Tensor, bank: torch.Tensor, *,
         raise RuntimeError(f"conflict kernel launch failed: CUDA error {err} "
                            f"(rows={rows}, k={k})")
     LAUNCHES += 1
+    LAUNCHES_BY_CARD[line.device.index] += 1
     return out

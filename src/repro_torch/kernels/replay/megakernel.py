@@ -12,8 +12,8 @@ architectural state inside the warp (see the note at the top of
 - `launch_cuda` builds the kernel on first use (nvcc, `sm_90a`, into
   `build/kernels/` of the checkout), binds its plain C entry point with
   ctypes, checks its inputs and launches it on the current CUDA stream;
-  every launch adds one to `LAUNCHES`. It launches or raises: there is no
-  fallback.
+  every launch adds one to `LAUNCHES` and to its card's entry of
+  `LAUNCHES_BY_CARD`. It launches or raises: there is no fallback.
 - `run_plain` is the same function in plain PyTorch (`chunkmath`), driven
   by a Python loop over chunks with the streams as a leading batch axis.
 
@@ -27,6 +27,7 @@ instance. `MAX_CORES` and `MAX_QUEUE_GROUPS` are the kernel's limits.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional
 
@@ -37,8 +38,10 @@ from .._build import CudaLibrary
 from . import chunkmath as cm
 
 # Kernel launches since the last reset (the sweep and `chip_smoke.py` read
-# it to show the main path went through the kernel).
+# it to show the main path went through the kernel), in all and by card
+# index.
 LAUNCHES = 0
+LAUNCHES_BY_CARD: collections.Counter = collections.Counter()
 
 # The kernel's limits (`kMaxCores`, `kMaxGroups` in the .cu): cores per
 # merged stream and queue groups per direction.
@@ -155,6 +158,7 @@ def launch_cuda(ins, *, cfg: DramConfig, busy: float, C: int,
                            f"n_qg={n_qg}, "
                            f"queues={cfg.read_queue}/{cfg.write_queue})")
     LAUNCHES += 1
+    LAUNCHES_BY_CARD[t.device.index] += 1
     return done, shift, cnt
 
 

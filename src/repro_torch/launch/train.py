@@ -97,7 +97,7 @@ def main(argv=None) -> int:
         # a long timeout: rank 0 alone writes the checkpoints while the
         # others wait at a barrier
         mesh = make_host_mesh(tp=args.tp, backend=backend, timeout_s=1800,
-                              **world)
+                              device=device, **world)
         ctx = make_mesh_ctx(mesh) if mesh.size > 1 else None
         rank = mesh.rank
         if rank == 0:

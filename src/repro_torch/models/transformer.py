@@ -54,7 +54,7 @@ def _stack(defs: PyTree, n: int) -> PyTree:
     if isinstance(defs, dict):
         return {k: _stack(v, n) for k, v in defs.items()}
     return ParamDef((n,) + defs.shape, (None,) + defs.logical, defs.init,
-                    defs.scale, defs.dtype)
+                    defs.scale, defs.dtype, defs.stacked + 1)
 
 
 # --------------------------------------------------------------------------

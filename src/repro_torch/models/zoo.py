@@ -45,14 +45,25 @@ class ModelBundle:
 
     # ---- parameters --------------------------------------------------------
     def init(self, generator: torch.Generator, ctx: Optional[MeshCtx] = None,
-             *, serve: bool = False) -> LanguageModel:
-        """Random weights drawn from `generator`, on its device. With
-        `ctx`, every process draws the whole tree from its own generator
-        (seed them alike) and keeps its blocks."""
-        tree = pm.init_params(self.defs, generator)
+             *, serve=False, device=None):
+        """Random weights drawn from `generator` (`params.init_params`),
+        on `device` (default the generator's). With `ctx`, each process
+        (its generator seeded as every other's) draws only what its
+        blocks cut by `param_shardings(ctx, serve=serve)` take, one layer
+        at most at a time: its blocks are those of the one-device draw
+        from the same seed, and no process holds a whole leaf. `serve` a
+        tuple of flags, e.g. (True, False): one draw cut into a model for
+        each, returned as a tuple."""
         if ctx is None:
-            return LanguageModel(self.cfg, tree)
-        return self.shard(tree, ctx, serve=serve)
+            return LanguageModel(self.cfg, pm.init_params(
+                self.defs, generator, device=device))
+        flags = serve if isinstance(serve, tuple) else (serve,)
+        specs = [self.param_specs(ctx, serve=f) for f in flags]
+        trees = pm.init_params(self.defs, generator, specs=specs,
+                               mesh=ctx.mesh, device=device)
+        models = tuple(LanguageModel(self.cfg, t, specs=sp, mesh=ctx.mesh)
+                       for t, sp in zip(trees, specs))
+        return models if isinstance(serve, tuple) else models[0]
 
     def shard(self, model, ctx: MeshCtx, *, serve: bool = False
               ) -> LanguageModel:
@@ -88,8 +99,7 @@ class ModelBundle:
                 else:
                     logical = tuple(None if a == "fsdp" else a
                                     for a in d.logical)
-                out[k] = pm.ParamDef(d.shape, logical, d.init, d.scale,
-                                     d.dtype)
+                out[k] = dataclasses.replace(d, logical=logical)
             return out
         return remap(self.defs)
 

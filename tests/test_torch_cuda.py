@@ -1009,3 +1009,102 @@ def test_sharded_world_of_one_on_the_card_equals_one_device(dev, tmp_path):
     for (n, a), (_, b) in zip(flatten_with_paths(p1), flatten_with_paths(p2)):
         assert a.device.type == "cuda" and torch.equal(a, b), n
     assert torch.equal(l1, l2) and torch.equal(n1, n2)
+
+
+# ---- several cards: the kernels off card 0, the sweep over a device mesh --
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs at least 2 CUDA devices")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.parametrize("kernel", ["replay", "conflict", "matmul",
+                                    "wavefront", "ellpack"])
+def test_kernel_on_the_last_card_matches_plain_version(cards, kernel):
+    """Each kernel launched on the last card while card 0 is the current
+    device: the wrapper makes the tensors' card current for the launch
+    (and the kernels' shared-memory attribute is set there), the result
+    lies on that card and equals the plain version's."""
+    from repro_torch.kernels.conflict import conflict as ck
+    from repro_torch.kernels.conflict import conflict_slowdown_reference
+    from repro_torch.kernels.ellpack import ellpack as ek
+    from repro_torch.kernels.ellpack.ref import ellpack_pack_plain
+    from repro_torch.kernels.systolic import systolic as sk
+    from repro_torch.kernels.systolic.ref import (systolic_matmul_reference,
+                                                  wavefront_activity_plain)
+    last = cards[-1]
+    torch.cuda.set_device(cards[0])
+    g = torch.Generator(device=last).manual_seed(3)
+    if kernel == "replay":
+        cfg = DramConfig()
+        t, addr, w, v = _streams(5, 512, last, batch=(4,))
+        fb, ch, row = decode_requests(addr, cfg)
+        # a chunk of 128 takes the shared-memory instance
+        ins = mk.prepare(t, fb, ch, row, w, v, 128)
+        kw = dict(cfg=cfg, busy=64 / 19.2, C=128, max_passes=None, tol=0.25)
+        before = mk.LAUNCHES_BY_CARD[last.index]
+        got = mk.launch_cuda(ins, **kw)
+        assert mk.LAUNCHES_BY_CARD[last.index] == before + 1
+        want = mk.run_plain(ins, **kw)[:3]
+        assert torch.equal(got[2], want[2])
+        for a, b in zip(got[:2], want[:2]):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=5e-2)
+    elif kernel == "conflict":
+        # k = 2,048: the shared-memory instance, past the 48 KB a block
+        # takes without the attribute
+        line = torch.randint(0, 11, (64, 2048), generator=g, device=last,
+                             dtype=torch.int32)
+        bank = torch.randint(-2, 34, (64, 2048), generator=g, device=last,
+                             dtype=torch.int32)
+        before = ck.LAUNCHES_BY_CARD[last.index]
+        got = ck.conflict_slowdown(line, bank, num_banks=32, ports=2)
+        assert ck.LAUNCHES_BY_CARD[last.index] == before + 1
+        want = conflict_slowdown_reference(line, bank, num_banks=32, ports=2)
+        got = (got,)
+        want = (want,)
+    elif kernel == "matmul":
+        x = torch.randn((197, 128), generator=g, device=last)
+        w = torch.randn((128, 128), generator=g, device=last)
+        got = sk.systolic_matmul(x, w)
+        torch.testing.assert_close(got, systolic_matmul_reference(x, w),
+                                   rtol=1e-5, atol=1e-4)
+        got = want = (got,)
+    elif kernel == "wavefront":
+        ts = torch.tensor([1, 197, 300], dtype=torch.int32, device=last)
+        got = (sk.wavefront_activity_batched(ts, R=128, C=128,
+                                             n_cycles=700),)
+        want = (wavefront_activity_plain(ts, R=128, C=128, n_cycles=700),)
+    else:
+        w = torch.randn((768, 3072), generator=g, device=last)
+        got = ek.ellpack_pack(w, m=4, keep=2)
+        want = ellpack_pack_plain(w, m=4, keep=2)
+    torch.cuda.synchronize(last)
+    for a, b in zip(got, want):
+        assert a.device == last
+        if kernel != "replay":
+            assert torch.equal(a, b)
+
+
+def test_mesh_sweep_over_all_cards_equals_one_card(cards):
+    """The study over a mesh of every card: one block of each group's
+    designs a card (padded with copies of the last design), every card
+    launching the replay and the conflict kernel, the frame one card's
+    bit for bit."""
+    from repro_torch.kernels.conflict import conflict as ck
+    from repro_torch.launch.mesh import make_device_mesh
+    one = _farm_kernel_study().run(device=cards[0])
+    mk.LAUNCHES_BY_CARD.clear()
+    ck.LAUNCHES_BY_CARD.clear()
+    mesh = make_device_mesh()
+    assert mesh.devices == tuple(cards)
+    res = _farm_kernel_study().run(mesh=mesh)
+    assert res.meta["engine"] == "cuda"
+    assert res.equals(one)
+    for c in cards:
+        assert mk.LAUNCHES_BY_CARD[c.index] >= 1, dict(mk.LAUNCHES_BY_CARD)
+        assert ck.LAUNCHES_BY_CARD[c.index] >= 1, dict(ck.LAUNCHES_BY_CARD)
+    with pytest.raises(ValueError, match="not one of the mesh's"):
+        _farm_kernel_study().run(mesh=make_device_mesh([str(cards[-1])]),
+                                 device=cards[0])
