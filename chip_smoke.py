@@ -4,10 +4,29 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 (or
 another sm_90a card) and the CUDA toolkit. Phases, each reported on its
-own line; any failure exits non-zero before the final result line:
+own line; any failure exits non-zero before the final result line.
+
+Every comparison of a card result with the same run on the card
+machine's CPU in phases 4-6, 11-14, 17, 18 and 26 takes that CPU run from
+a twin (`TwinPool`): spawned processes that see no CUDA device, pinned to
+the cores the main process leaves (all but the first quarter of the
+host's, at least two; on eight cores, six processes of one intra-op
+thread). They start right after phase 1, beside phase 2's nvcc runs,
+with every twin submitted at once: a study as one job a batch group
+(`submit_study`), in the order the phases join them. Phases 5 and 6 keep
+their card frames, and `full_sweep_vs_cpu` and `feature_sweep_vs_cpu`,
+after phase 29, hold them against the CPU's (their twins' trace groups
+take up to a core-minute each, and would hold phase 5 up). Each such
+phase reports `cpu_run_s` (the twin's seconds, its jobs' summed) and
+`cpu_wait_s` (what the main process waited for it). A twin that raises,
+is not done 900 s after it was submitted, or whose process dies stops
+the pool and fails the run. The pool is closed before phase 30, whose
+gloo worlds take the cores. Every phase line carries `at_s`, the
+script's seconds so far.
 
   1. environment: Python, torch and CUDA versions, the card's name and
-     power limit (nvidia-smi);
+     power limit (nvidia-smi), the host's usable cores and the twins'
+     cores, processes and threads;
   2. build: the replay megakernel, the bank-conflict kernel, the fold
      matmul, the wavefront kernel and the ELLPACK packer compiled from
      `src/repro_torch/csrc`, all five nvcc runs started together;
@@ -36,12 +55,13 @@ own line; any failure exits non-zero before the final result line:
      n_cycles % 4 != 0, T = 60,000, ragged tiles, mixed dtypes;
   4. the paper's named studies on the card (`edp_array_size`,
      `dataflow_dram_flip`, `sparse_speedup`): every claim holds, the
-     frames agree with the same studies run on the CPU, the replay engine
-     is "cuda" and the kernel launched;
+     frames agree with the same studies run on the CPU (their twins), the
+     replay engine is "cuda" and the kernel launched;
   5. the first slice's path: the dense sweep, 72 designs x {resnet18,
      vit_base} x {fast, trace}, once with the replay launch count reset
      just before it (one launch per trace group); its whole frame against
-     the same sweep on the CPU, per column; the wall time per fidelity
+     the same sweep on the CPU, per column, after phase 29
+     (`full_sweep_vs_cpu`); the wall time per fidelity
      (three runs each), a profiled trace sweep, and the replay kernel
      against its plain version on the vit_base trace group's launch
      (1,776 streams);
@@ -53,9 +73,9 @@ own line; any failure exits non-zero before the final result line:
      reset just before it (one conflict launch per layout-on group, one
      replay launch per trace group); layout-on rows never faster than
      their layout-off twins; the whole frame against the same sweep on
-     the CPU (its batch groups split over four processes and put
-     together as a farm client does), per column; the wall time per
-     fidelity (three runs each),
+     the CPU (its twin's batch groups put together as a farm client
+     does), per column, after phase 29 (`feature_sweep_vs_cpu`); the wall
+     time per fidelity (three runs each),
      profiled fast and trace sweeps (the conflict kernel's device time
      among them), and the conflict kernel against its plain version,
      timed, on the largest layout group's launch; then each conflict
@@ -262,14 +282,25 @@ own line; any failure exits non-zero before the final result line:
      each cell's host seconds;
   36. `run_cell(..., sim_accel="paper-128")` on the card against the
      CPU, within 1e-3;
-  37. a `{"workload_plane": {...}}` line (the numbers of 21-24), a
+  37-40. the thirteenth slice's path, when four or more cards are
+     visible (`four_card_phases`): the feature sweep over a mesh of the
+     four cards against one card, `farm worker --mesh`, mixtral-8x7b on
+     NCCL worlds of one process a card (32 layers on 2 x 2: a prefill
+     counted against the dry run, 32 greedy tokens; 1 and 8 layers in
+     float32 and bfloat16 on 2 x 2 and 1 x 4, and 2 layers trained 2
+     steps on 2 x 2, each against one card), and the train CLI at `--tp
+     2` on NCCL; with fewer cards none of them runs;
+  41. a `{"workload_plane": {...}}` line (the numbers of 21-24), a
      `{"training": {...}}` line (25-29), a `{"sharding": {...}}` line
-     (30-33), a `{"dryrun": {...}}` line (34-36), a `{"kernels": [...]}`
-     line (all five kernels), the nvidia-smi line, and last `{"ok": true,
+     (30-33), a `{"dryrun": {...}}` line (34-36), a `{"four_cards":
+     {...}}` line (37-40, or `"run": false`), a `{"kernels": [...]}` line
+     (all five kernels), the nvidia-smi line, and last `{"ok": true,
      "device": {...}}`.
 
-`python3 chip_smoke.py --sharded-rank JOBS.json` is one rank of phase
-31-32b's worlds (started by the script itself).
+`python3 chip_smoke.py --four-cards` runs phases 1 and 37-40 alone, on a
+machine of four or more cards. `python3 chip_smoke.py --sharded-rank
+JOBS.json` is one rank of phase 31-32b's worlds (started by the script
+itself).
 
 Writes the measurements to chiprun_out/chip_smoke.json as well.
 """
@@ -284,6 +315,7 @@ import time
 import numpy as np
 import torch
 
+T0 = time.perf_counter()
 ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the float32 rate
 # outside the tensor cores; the replay kernel does float32 compare-selects.
@@ -305,6 +337,8 @@ def fail(msg: str):
 
 
 def phase(name: str, **kv):
+    """One phase's line, with `at_s`: the script's seconds so far."""
+    kv["at_s"] = time.perf_counter() - T0
     print(f"phase {name}: " + json.dumps(kv, default=str), flush=True)
 
 
@@ -364,40 +398,331 @@ def feature_sweep_study(wl=None):
     return base, feat, study
 
 
-def feature_cpu_cells(shard: int, n: int, threads: int) -> dict:
-    """Shard `shard` of n of the feature sweep's cells, run on the CPU in
-    this process (one of `cpu_feature_frame`'s): whole batch groups, every
-    n-th of them ordered by fidelity (so each shard gets its share of the
-    costly trace groups), and the fallback cells on shard 0."""
-    sys.path.insert(0, str(ROOT / "src"))
+def feature_study():
+    """The feature sweep's study alone (a twin's builder)."""
+    return feature_sweep_study()[2]
+
+
+def dense_grid():
+    """Phase 5's 72 designs: 4 arrays x 6 SRAM sizes x 3 dataflows."""
+    import repro_torch as rt
+    return rt.preset_grid(array=[16, 32, 64, 128],
+                          sram_mb=[0.25, 0.5, 1, 2, 4, 8],
+                          dataflow=["ws", "os", "is"])
+
+
+def dense_sweep_study(wl=None):
+    """Phase 5's dense sweep over resnet18 and vit_base (`wl`, built here
+    when None) at fast and trace."""
+    import repro_torch as rt
+    from repro_torch.core.workloads import resnet18, vit_base
+    if wl is None:
+        wl = {"resnet18": resnet18(), "vit_base": vit_base()}
+    return rt.Study("full_sweep").designs(dense_grid()).workloads(wl) \
+        .fidelity("fast", "trace")
+
+
+def pod_designs():
+    """Phase 12's fast pod sweep: the mesh grid (`with_pod` remeshes onto
+    the default mesh, so the grid takes no topology axis), a torus pod of
+    each size and one 256-core ring, up to 4,096 cores."""
+    import repro_torch as rt
+    pods = rt.preset_grid("pod-mesh", pods=[256, 1024, 4096],
+                          link_bw=[4.0, 32.0, 256.0], channels=[1, 8])
+    pods += [rt.get_preset("pod-mesh", cores=p, topology="torus")
+             for p in (256, 1024, 4096)]
+    pods.append(rt.get_preset("pod-mesh", cores=256, topology="ring"))
+    return pods
+
+
+def pod_sweep_fast_study():
+    """Phase 12's pod sweep of `pod_designs` on vit_base at fast."""
+    import repro_torch as rt
+    from repro_torch.core.workloads import vit_base
+    return rt.Study("pod_sweep_fast").designs(pod_designs()) \
+        .workloads({"vit_base": vit_base()}).fidelity("fast")
+
+
+def pod_sweep_trace_study():
+    """Phase 12's trace pod sweep: routed hops into the trace generator on
+    resnet18, each pod's group one replay launch."""
+    import repro_torch as rt
+    from repro_torch.core.workloads import resnet18
+    return rt.Study("pod_sweep_trace").designs(rt.preset_grid(
+        "pod-mesh", pods=[16, 64, 256], link_bw=[4.0, 256.0])) \
+        .workloads({"resnet18": resnet18()}).fidelity("trace")
+
+
+def cycle_study():
+    """Phase 17's Study: `dataflow_dram_flip`'s two designs on the six
+    resnet18 layers at fast, cycle and trace."""
+    import repro_torch as rt
+    from repro_torch.core.workloads import resnet18_six_layers
+    flip = rt.studies.dataflow_dram_flip()
+    return (rt.Study("cycle_study").designs(dict(flip._designs))
+            .workloads({"resnet18-6": resnet18_six_layers()})
+            .fidelity("fast", "cycle", "trace"))
+
+
+# ---------------------------------------------------------------------------
+# CPU twins: the runs on the card machine's CPU that card results are held
+# against, in background processes started after phase 1
+# ---------------------------------------------------------------------------
+
+# a twin job not done this long after it was submitted fails the run
+TWIN_LIMIT_S = 900.0
+
+
+def twin_cores(cores) -> list:
+    """The twins' share of the usable `cores`: all but the first quarter
+    of them (at least two cores), which the main process keeps."""
+    return list(cores[max(2, len(cores) // 4):] or cores)
+
+
+def _twin_worker(tasks, done, cores, threads):
+    """A twin process: no CUDA device visible, pinned to `cores`, `threads`
+    intra-op threads; runs (name, fn, args) jobs from `tasks` until None,
+    putting (name, ok, result or traceback, seconds) on `done`."""
+    import traceback
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    os.sched_setaffinity(0, cores)
     torch.set_num_threads(threads)
-    _, _, study = feature_sweep_study()
-    plan = study.plan()
-    order = sorted(range(len(plan.groups)),
-                   key=lambda g: plan.groups[g].fidelity)
-    cells = [c for g in order[shard::n] for c in plan.groups[g].cells]
-    if shard == 0:
-        cells += list(plan.fallback)
-    res, _, _ = study._execute_cells(plan, cells, device="cpu")
+    while True:
+        job = tasks.get()
+        if job is None:
+            return
+        name, fn, args = job
+        t0 = time.perf_counter()
+        try:
+            if torch.cuda.is_available():
+                raise RuntimeError("a twin process sees a CUDA device")
+            out = (True, fn(*args))
+        except Exception:  # noqa: BLE001 -- reported to the joining call
+            out = (False, traceback.format_exc())
+        done.put((name, *out, time.perf_counter() - t0))
+
+
+class TwinPool:
+    """Spawned processes that run CPU twins beside the card phases: jobs
+    start in the order they are submitted, and `join` waits for one. A job
+    that raises, is not done within `limit_s` of its submission, or whose
+    process dies, stops every process of the pool and fails the run
+    (`fail`). `close` stops them; the pool is a context manager."""
+
+    def __init__(self, cores, workers: int, threads: int,
+                 limit_s: float = TWIN_LIMIT_S):
+        import multiprocessing
+        ctx = multiprocessing.get_context("spawn")
+        self.limit_s = limit_s
+        self._tasks, self._done = ctx.SimpleQueue(), ctx.Queue()
+        self._deadline, self._results = {}, {}
+        self.procs = [ctx.Process(target=_twin_worker, daemon=True,
+                                  args=(self._tasks, self._done,
+                                        list(cores), threads))
+                      for _ in range(workers)]
+        for p in self.procs:
+            p.start()
+
+    def submit(self, name: str, fn, *args):
+        """Queue `fn(*args)` (both picklable) as job `name`."""
+        self._deadline[name] = time.perf_counter() + self.limit_s
+        self._tasks.put((name, fn, args))
+
+    def jobs(self, prefix: str) -> list:
+        """The names of the submitted jobs that start with `prefix`."""
+        return [n for n in self._deadline if n.startswith(prefix)]
+
+    def join(self, name: str) -> tuple:
+        """(job `name`'s result, its seconds in the twin process, the
+        seconds this call waited for it)."""
+        import queue
+        t0 = time.perf_counter()
+        while name not in self._results:
+            try:
+                got = self._done.get(timeout=1.0)
+                self._results[got[0]] = got[1:]
+                continue
+            except queue.Empty:
+                pass
+            dead = [p.pid for p in self.procs if p.exitcode is not None]
+            if dead or time.perf_counter() > self._deadline[name]:
+                self.close()
+                fail(f"twin {name}: " + (f"process {dead} died" if dead else
+                                         f"not done within {self.limit_s} s"))
+        ok, value, run_s = self._results.pop(name)
+        if not ok:
+            self.close()
+            fail(f"twin {name} raised:\n{value}")
+        return value, run_s, time.perf_counter() - t0
+
+    def close(self):
+        """Stop every process of the pool (a job still running is lost)."""
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        self._done.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def twin_cells(builder, cells) -> dict:
+    """Cells of the study `builder()` makes, on the CPU in a twin process,
+    through `Study._execute_cells` as a farm worker runs a shard."""
+    study = builder()
+    res, _, _ = study._execute_cells(study.plan(), cells, device="cpu")
     return res
 
 
-def cpu_feature_frame(study, n: int = 4, threads: int = 2):
-    """The feature sweep's whole frame on the CPU, its cells split over n
-    spawned processes and put together by `Study.assemble_frame` (a farm
-    client's path: with every cell present, a local run's frame). One
-    process took 150-221 s of the script's time limit."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-    with ProcessPoolExecutor(
-            n, mp_context=multiprocessing.get_context("spawn")) as pool:
-        parts = list(pool.map(feature_cpu_cells, range(n), [n] * n,
-                              [threads] * n))
-    results = {}
-    for part in parts:
-        results.update(part)
-    return study.assemble_frame(results, executed_cells=len(results),
-                                plan=study.plan(), device="cpu")
+def submit_study(pool: TwinPool, name: str, builder):
+    """The CPU run of the study `builder()` makes, as twin jobs: one a
+    batch group, the costliest first (trace before cycle and fast, then
+    the workload with the most multiply-accumulates, then layout on),
+    and one for its per-op cells."""
+    study = builder()
+    plan = study.plan()
+
+    def cost(g):
+        macs = sum(o.M * o.N * o.K * o.count
+                   for o in study._workloads[g.workload] if o.kind == "gemm")
+        layout = plan.cells[g.cells[0]].config.layout.enabled
+        return (g.fidelity == "trace", g.fidelity == "cycle", macs, layout)
+
+    for i in sorted(range(len(plan.groups)), key=lambda i: cost(
+            plan.groups[i]), reverse=True):
+        pool.submit(f"{name}/group{i}", twin_cells, builder,
+                    plan.groups[i].cells)
+    if plan.fallback:
+        pool.submit(f"{name}/per_op", twin_cells, builder, plan.fallback)
+
+
+def join_frame(pool: TwinPool, name: str, study) -> tuple:
+    """The CPU frame of `submit_study(pool, name, ...)`, put together by
+    `Study.assemble_frame` (a farm client's path: with every cell present,
+    a local run's frame), and {cpu_run_s: its jobs' seconds, summed;
+    cpu_wait_s: the seconds this call waited; cpu_job_s: each job's}."""
+    results, job_s, wait_s = {}, {}, 0.0
+    for job in pool.jobs(name + "/"):
+        res, job_s[job[len(name) + 1:]], wait = pool.join(job)
+        results.update(res)
+        wait_s += wait
+    frame = study.assemble_frame(results, executed_cells=len(results),
+                                 plan=study.plan(), device="cpu")
+    return frame, dict(cpu_run_s=sum(job_s.values()), cpu_wait_s=wait_s,
+                       cpu_job_s=job_s)
+
+
+def network_cpu(preset: str, fidelity: str, workload: str, layout: bool):
+    """`Simulator(preset, fidelity=...)` over a workload of
+    `core.workloads` by name, with the layout stage on or off, on the CPU
+    (phases 13-14's twins)."""
+    import repro_torch as rt
+    from repro_torch.core import workloads
+    from repro_torch.core.accelerator import LayoutConfig
+    sim = rt.Simulator(preset, fidelity=fidelity, device="cpu")
+    if layout:
+        sim = sim.with_(layout=LayoutConfig(enabled=True))
+    return sim.run(getattr(workloads, workload)())
+
+
+def search_smoke_meta() -> dict:
+    """The smoke `search_edp` on the CPU: its frame's meta (the search log
+    phase 18 compares round by round)."""
+    import repro_torch as rt
+    return rt.studies.search_edp(smoke=True).run(device="cpu").meta
+
+
+def qwen2_f32_inputs():
+    """Phase 26's inputs: qwen2-1.5b at full width, 2 layers, float32,
+    seed 0's weights drawn on the CPU, and a batch of 2 x 128 tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import params as pm
+    from repro_torch.models.zoo import ModelBundle
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), layers=2,
+                              param_dtype="float32")
+    tree = pm.init_params(ModelBundle(cfg).defs,
+                          torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128))),
+             "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128)))}
+    return cfg, tree, batch
+
+
+def tree_digest(tree) -> str:
+    """The SHA-256 of a parameter tree's leaves' bytes, in order: which
+    weights, to the bit."""
+    import hashlib
+
+    from repro_torch.models.params import tree_leaves
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(t.detach().contiguous().view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def one_step(cfg, tree, batch, lr, dev) -> dict:
+    """One train step on `dev` from (a copy of) the weights `tree`:
+    the loss, gradient norm, updated parameters and moments."""
+    from repro_torch.models import params as pm
+    from repro_torch.models.transformer import LanguageModel
+    from repro_torch.models.zoo import ModelBundle, params_tree
+    model = LanguageModel(cfg, pm.tree_map(
+        lambda t: t.to(dev, copy=True), tree))
+    bundle = ModelBundle(cfg)
+    b = {k: v.to(dev) for k, v in batch.items()}
+    ts = time.perf_counter()
+    _, opt, m = bundle.train_step(lr=lr)(model, bundle.opt_init(model), b)
+    loss = m["loss"].cpu()
+    return dict(loss=loss, grad_norm=m["grad_norm"],
+                params=params_tree(model), m=opt.m, v=opt.v,
+                seconds=time.perf_counter() - ts)
+
+
+def train_f32_cpu(path: str) -> str:
+    """Phase 26's CPU step, written to `path` (torch.save: a few GB, more
+    than a pipe should carry) with the weights' `tree_digest`."""
+    from repro_torch.models import params as pm
+    cfg, tree, batch = qwen2_f32_inputs()
+    out = one_step(cfg, tree, batch, 1e-2, torch.device("cpu"))
+    out["params"] = pm.tree_map(lambda t: t.detach(), out["params"])
+    out["weights"] = tree_digest(tree)
+    torch.save(out, path)
+    return path
+
+
+def submit_twins(pool: TwinPool, build) -> None:
+    """Every CPU twin of the one-card phases, in the order the script
+    joins them: the two sweeps' (their groups take a core-minute each at
+    most, joined before phase 30) after the rest."""
+    import functools
+
+    from repro_torch.api.study import get_study
+    for name in ("edp_array_size", "dataflow_dram_flip", "sparse_speedup"):
+        submit_study(pool, f"study_{name}", functools.partial(get_study,
+                                                              name))
+    submit_study(pool, "multicore_contention",
+                 functools.partial(get_study, "multicore_contention"))
+    submit_study(pool, "nop_bound", functools.partial(get_study,
+                                                      "nop_bound"))
+    submit_study(pool, "pod_sweep_fast", pod_sweep_fast_study)
+    submit_study(pool, "pod_sweep_trace", pod_sweep_trace_study)
+    for fid in ("fast", "cycle", "trace"):
+        pool.submit(f"perop_vit_base_{fid}", network_cpu, "paper-128", fid,
+                    "vit_base", False)
+    pool.submit("perop_layout_resnet18", network_cpu, "paper-32", "trace",
+                "resnet18", True)
+    submit_study(pool, "cycle_study", cycle_study)
+    pool.submit("search_edp_smoke", search_smoke_meta)
+    pool.submit("train_qwen2_2layer_f32", train_f32_cpu,
+                str(build / "train_qwen2_2layer_f32.pt"))
+    submit_study(pool, "full_sweep", dense_sweep_study)
+    submit_study(pool, "feature_sweep", feature_study)
 
 
 def timed_cuda(fn, reps: int) -> float:
@@ -561,10 +886,11 @@ def replay_shape_info(mk, ins, kw) -> dict:
                 bound_by="bytes" if bms >= oms else "operations")
 
 
-def perop_phases(report: dict) -> dict:
+def perop_phases(report: dict, twins: TwinPool) -> dict:
     """The sixth slice's path: the per-op engine (`Simulator`, `cycle`
-    fidelity, `force_fallback`) on the card. Returns the launches of its
-    counted runs and the two kernels' times at the per-op shapes."""
+    fidelity, `force_fallback`) on the card, its CPU runs from `twins`.
+    Returns the launches of its counted runs and the two kernels' times
+    at the per-op shapes."""
     import tempfile
 
     import repro_torch as rt
@@ -575,8 +901,8 @@ def perop_phases(report: dict) -> dict:
     from repro_torch.core.dram import (linear_trace, simulate_dram,
                                        tile_prefetch_trace)
     from repro_torch.core.engine import simulate_network
-    from repro_torch.core.workloads import (resnet18, resnet18_six_layers,
-                                            vit_base, vit_base_linear)
+    from repro_torch.core.workloads import (resnet18, vit_base,
+                                            vit_base_linear)
     from repro_torch.kernels.conflict import conflict as ck
     from repro_torch.kernels.conflict.ref import conflict_slowdown_reference
     from repro_torch.kernels.replay import megakernel as mk
@@ -659,9 +985,7 @@ def perop_phases(report: dict) -> dict:
             t0 = time.perf_counter()
             sim.run(ops)
             walls.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        cpu = rt.Simulator("paper-128", fidelity=fid, device="cpu").run(ops)
-        cpu_s = time.perf_counter() - t0
+        cpu, cpu_s, wait_s = twins.join(f"perop_vit_base_{fid}")
         worst = report_vs_cpu(f"perop_vit_base {fid}", rep, cpu)
         prof = profile_run(lambda: sim.run(ops), kernels=("replay",))
         info[fid] = dict(
@@ -670,7 +994,8 @@ def perop_phases(report: dict) -> dict:
             stall_cycles=rep.stall_cycles, energy_pj=rep.energy_pj,
             wall_s_runs=walls, wall_s_median=float(np.median(walls)),
             host_ms_per_op=float(np.median(walls)) * 1e3 / len(ops),
-            cpu_wall_s=cpu_s, ops_held_vs_cpu=len(cpu.ops),
+            cpu_run_s=cpu_s, cpu_wait_s=wait_s,
+            ops_held_vs_cpu=len(cpu.ops),
             max_rel_vs_cpu=worst,
             requests_per_op=[o.dram_stats and int(
                 o.dram_stats["row_hits"] + o.dram_stats["row_misses"]
@@ -710,15 +1035,13 @@ def perop_phases(report: dict) -> dict:
              f"launches, expected {r18_gemm} each")
     out["replay"] += rl
     out["conflict"] += cl
-    t0 = time.perf_counter()
-    lcpu = rt.Simulator("paper-32", fidelity="trace", device="cpu").with_(
-        layout=LayoutConfig(enabled=True)).run(r18)
-    lcpu_s = time.perf_counter() - t0
+    lcpu, lcpu_s, lwait_s = twins.join("perop_layout_resnet18")
     lworst = report_vs_cpu("perop_layout_resnet18", rep, lcpu)
     if rep.layout_extra_cycles <= 0.0:
         fail("perop_layout_resnet18: no layout cycles")
     linfo = dict(ops=len(r18), replay_launches=rl, conflict_launches=cl,
-                 engine=rep.engine, wall_s=wall, cpu_wall_s=lcpu_s,
+                 engine=rep.engine, wall_s=wall, cpu_run_s=lcpu_s,
+                 cpu_wait_s=lwait_s,
                  layout_extra_cycles=rep.layout_extra_cycles,
                  layout_share=rep.layout_extra_cycles / rep.total_cycles,
                  total_cycles=rep.total_cycles, max_rel_vs_cpu=lworst)
@@ -862,10 +1185,7 @@ def perop_phases(report: dict) -> dict:
     report["force_fallback_parity"] = pinfo
 
     # ---- 17. a cycle-fidelity Study, its CPU twin and its cache -------------
-    flip = rt.studies.dataflow_dram_flip()
-    cstudy = (rt.Study("cycle_study").designs(dict(flip._designs))
-              .workloads({"resnet18-6": resnet18_six_layers()})
-              .fidelity("fast", "cycle", "trace"))
+    cstudy = cycle_study()
     mk.LAUNCHES = ck.LAUNCHES = 0
     t0 = time.perf_counter()
     cres = cstudy.run()
@@ -875,9 +1195,7 @@ def perop_phases(report: dict) -> dict:
     if c_launches != 2 * 6 + 2:       # 6 gemm ops per cycle cell, 2 groups
         fail(f"cycle_study: {c_launches} replay launches, expected 14")
     check_frame("cycle_study", cres, 6)
-    t0 = time.perf_counter()
-    ccpu = cstudy.run(device="cpu")
-    ccpu_s = time.perf_counter() - t0
+    ccpu, tw = join_frame(twins, "cycle_study", cstudy)
     cerr = frame_rel_err(cres, ccpu)
     if max(cerr.values()) > RTOL:
         fail(f"cycle_study: card frame differs from the CPU's: {cerr}")
@@ -893,7 +1211,7 @@ def perop_phases(report: dict) -> dict:
              f"{again.cache_hits} hits / {again.executed_cells} executed, "
              f"equal {again.equals(cres)}")
     sinfo = dict(rows=len(cres), launches=c_launches, wall_s=cwall,
-                 cpu_wall_s=ccpu_s, engine=cres.meta["engine"],
+                 **tw, engine=cres.meta["engine"],
                  max_rel_vs_cpu=max(cerr.values()),
                  max_rel_vs_cpu_by_column=cerr,
                  cache_filled=fill.executed_cells,
@@ -914,10 +1232,10 @@ def search_rounds(log_json: str):
             for e in json.loads(log_json)["rounds"]]
 
 
-def orchestration_phases(report: dict) -> dict:
+def orchestration_phases(report: dict, twins: TwinPool) -> dict:
     """The seventh slice's path: the design-space search, the run-farm and
-    the chaos soak on the card. Returns the replay and conflict launches
-    of its counted runs."""
+    the chaos soak on the card (the smoke search's CPU run from `twins`).
+    Returns the replay and conflict launches of its counted runs."""
     import os
     import tempfile
 
@@ -1028,11 +1346,9 @@ def orchestration_phases(report: dict) -> dict:
     smoke_launches = dict(replay=mk.LAUNCHES, conflict=ck.LAUNCHES)
     out["replay"] += mk.LAUNCHES
     out["conflict"] += ck.LAUNCHES
-    t0 = time.perf_counter()
-    cpu = smoke.run(device="cpu")
-    cpu_s = time.perf_counter() - t0
+    cpu_meta, cpu_s, wait_s = twins.join("search_edp_smoke")
     ra, rb = (search_rounds(card.meta["search_log"]),
-              search_rounds(cpu.meta["search_log"]))
+              search_rounds(cpu_meta["search_log"]))
     if len(ra) != len(rb) or not all(card.check_claims().values()):
         fail(f"search_edp smoke: {len(ra)} rounds on the card, {len(rb)} "
              f"on the CPU; claims {card.check_claims()}")
@@ -1046,7 +1362,8 @@ def orchestration_phases(report: dict) -> dict:
                 worst = max(worst, abs(a[4][m] - v) / max(abs(v), 1e-30))
     if worst > RTOL:
         fail(f"search_edp smoke: best rows differ by {worst}")
-    minfo = dict(card_wall_s=card_s, cpu_wall_s=cpu_s, rounds=len(ra),
+    minfo = dict(card_wall_s=card_s, cpu_run_s=cpu_s, cpu_wait_s=wait_s,
+                 rounds=len(ra),
                  cohorts_and_parents_equal=True, best_max_rel_vs_cpu=worst,
                  launches=smoke_launches)
     phase("search_edp_smoke_vs_cpu", **minfo)
@@ -1549,9 +1866,9 @@ def step_errors(card: dict, cpu: dict, lr: float) -> dict:
     return dict(e, params=sure_err, params_eps_share=eps_err)
 
 
-def training_phases(report: dict) -> dict:
-    """The ninth slice's path: the training step on the card. Returns the
-    `training` line's numbers."""
+def training_phases(report: dict, twins: TwinPool) -> dict:
+    """The ninth slice's path: the training step on the card (phase 26's
+    CPU step from `twins`). Returns the `training` line's numbers."""
     import dataclasses
     import gc
     import shutil
@@ -1564,7 +1881,6 @@ def training_phases(report: dict) -> dict:
     from repro_torch.configs import get_config, list_archs
     from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
     from repro_torch.models import params as pm
-    from repro_torch.models.transformer import LanguageModel
     from repro_torch.models.zoo import ModelBundle, params_tree
     from repro_torch.optim import cosine_schedule
 
@@ -1720,46 +2036,27 @@ def training_phases(report: dict) -> dict:
     tr["train_qwen2_full"] = qinfo
 
     # ---- 26. full width, 2 layers, float32: the card against its CPU -------
-    def one_step_both(cfg, tree, batch, lr):
-        """One train step from the same weights on the card and the CPU;
-        returns each side's loss, grad norm, params and moments."""
-        out = {}
-        for dname, dev in (("cuda", cuda), ("cpu", cpu)):
-            model = LanguageModel(cfg, pm.tree_map(
-                lambda t: t.to(dev, copy=True), tree))
-            bundle = ModelBundle(cfg)
-            b = {k: v.to(dev) for k, v in batch.items()}
-            ts = time.perf_counter()
-            _, opt, m = bundle.train_step(lr=lr)(model, bundle.opt_init(model),
-                                                 b)
-            loss = m["loss"].cpu()
-            out[dname] = dict(loss=loss, grad_norm=m["grad_norm"],
-                              params=params_tree(model), m=opt.m, v=opt.v,
-                              seconds=time.perf_counter() - ts)
-        return out
-
     t0 = time.perf_counter()
-    cfg2 = dataclasses.replace(get_config(arch), layers=2,
-                               param_dtype="float32")
-    tree = pm.init_params(ModelBundle(cfg2).defs,
-                          torch.Generator().manual_seed(0))
-    rng = np.random.default_rng(0)
-    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg2.vocab, (2, 128))),
-             "labels": torch.from_numpy(rng.integers(0, cfg2.vocab, (2, 128)))}
-    both = one_step_both(cfg2, tree, batch, 1e-2)
-    e = step_errors(both["cuda"], both["cpu"], 1e-2)
+    cfg2, tree, batch = qwen2_f32_inputs()
+    on_card = one_step(cfg2, tree, batch, 1e-2, cuda)
+    path, cpu_s, wait_s = twins.join("train_qwen2_2layer_f32")
+    on_cpu = torch.load(path, mmap=True, weights_only=True)
+    os.unlink(path)
+    if on_cpu["weights"] != tree_digest(tree):
+        fail("train_qwen2_2layer_f32: the CPU twin drew other weights")
+    e = step_errors(on_card, on_cpu, 1e-2)
     eps_share = e.pop("params_eps_share")
     if not all_within(e) or not eps_share <= 1.0:
         fail(f"train_qwen2_2layer_f32: card vs CPU {e}, "
              f"eps share {eps_share}")
     finfo = dict(arch=arch, layers=2, dtype="float32", batch=2, seq=128,
                  lr=1e-2, tf32=False, rel_err=e, params_eps_share=eps_share,
-                 card_step_s=both["cuda"]["seconds"],
-                 cpu_step_s=both["cpu"]["seconds"],
-                 seconds=time.perf_counter() - t0)
+                 card_step_s=on_card["seconds"],
+                 cpu_step_s=on_cpu["seconds"], cpu_run_s=cpu_s,
+                 cpu_wait_s=wait_s, seconds=time.perf_counter() - t0)
     phase("train_qwen2_2layer_f32", **finfo)
     tr["train_qwen2_2layer_f32"] = finfo
-    del both, tree
+    del on_card, on_cpu, tree
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1783,7 +2080,8 @@ def training_phases(report: dict) -> dict:
             x["patches"] = torch.from_numpy(rng.standard_normal(
                 (2, c.frontend_tokens, c.d_model)).astype(np.float32))
         reset_launch_counts()
-        both = one_step_both(c, tree, x, 1e-2)
+        both = {d: one_step(c, tree, x, 1e-2, torch.device(d))
+                for d in ("cuda", "cpu")}
         no_launches(f"train_families {a}", launch_counts())
         e = step_errors(both["cuda"], both["cpu"], 1e-2)
         eps_share = e.pop("params_eps_share")
@@ -3483,6 +3781,32 @@ def main() -> int:
     # cuBLAS starts, before the first product
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+
+    # ---- 1. environment ----------------------------------------------------
+    card = card_line()
+    host = sorted(os.sched_getaffinity(0))
+    tcores = twin_cores(host)
+    workers = min(len(tcores), 8)
+    twins_at = dict(cores=tcores, workers=workers,
+                    threads=max(1, len(tcores) // workers))
+    env = dict(python=sys.version.split()[0], torch=torch.__version__,
+               cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+               capability=torch.cuda.get_device_capability(0),
+               device_count=torch.cuda.device_count(), card=card,
+               host_cores=len(host), twins=twins_at)
+    phase("environment", **env)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    # the CPU twins start now, beside the build's nvcc runs
+    with TwinPool(tcores, workers, twins_at["threads"]) as twins:
+        submit_twins(twins, build)
+        return card_phases(dict(environment=env), twins)
+
+
+def card_phases(report: dict, twins: TwinPool) -> int:
+    """Phases 2-40 on the card (`main`), each CPU comparison joining its
+    twin from `twins`; prints the result lines."""
     import repro_torch as rt
     from repro_torch.api import simulator as sim
     from repro_torch.api.study import studies
@@ -3498,17 +3822,7 @@ def main() -> int:
     from repro_torch.trace.generator import DEFAULT_SPEC
 
     dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    report = {}
-
-    # ---- 1. environment ----------------------------------------------------
-    card = card_line()
-    env = dict(python=sys.version.split()[0], torch=torch.__version__,
-               cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
-               capability=torch.cuda.get_device_capability(0),
-               device_count=torch.cuda.device_count(), card=card)
-    phase("environment", **env)
-    report["environment"] = env
+    card = report["environment"]["card"]
 
     # ---- 2. build: one nvcc per source, started together --------------------
     from concurrent.futures import ThreadPoolExecutor
@@ -3961,22 +4275,20 @@ def main() -> int:
                 fail(f"{name}: engine {res.meta.get('engine')!r}")
             if mk.LAUNCHES <= before:
                 fail(f"{name}: the replay kernel did not launch")
-        worst = max(frame_rel_err(res, study.run(device="cpu")).values())
+        cpu, tw = join_frame(twins, f"study_{name}", study)
+        worst = max(frame_rel_err(res, cpu).values())
         if worst > RTOL:
             fail(f"{name}: card frame differs from the CPU frame by {worst}")
         named[name] = dict(claims=claims, engine=res.meta.get("engine"),
                            launches=mk.LAUNCHES - before,
-                           max_rel_vs_cpu=worst)
+                           max_rel_vs_cpu=worst, **tw)
         phase(f"study {name}", **named[name])
     report["named_studies"] = named
 
     # ---- 5. the first slice's path: the dense sweep ---------------------------
-    grid = rt.preset_grid(array=[16, 32, 64, 128],
-                          sram_mb=[0.25, 0.5, 1, 2, 4, 8],
-                          dataflow=["ws", "os", "is"])
+    grid = dense_grid()
     wl = {"resnet18": resnet18(), "vit_base": vit_base()}
-    sweep = rt.Study("full_sweep").designs(grid).workloads(wl) \
-        .fidelity("fast", "trace")
+    sweep = dense_sweep_study(wl)
     trace_groups = sum(g.fidelity == "trace" for g in sweep.plan().groups)
     mk.LAUNCHES = 0                     # counts reset just before ...
     t0 = time.perf_counter()
@@ -3987,15 +4299,7 @@ def main() -> int:
         fail(f"the dense sweep launched the replay kernel {dense_launches} "
              f"times, expected one launch per trace group ({trace_groups})")
     check_frame("dense sweep", frame, 288)
-    t0 = time.perf_counter()
-    cpu_frame = sweep.run(device="cpu")
-    cpu_s = time.perf_counter() - t0
-    if cpu_frame.meta.get("engine") != "torch:plain":
-        fail(f"CPU sweep engine {cpu_frame.meta.get('engine')!r}")
-    col_err = frame_rel_err(frame, cpu_frame)
-    bad = {c: e for c, e in col_err.items() if not e <= RTOL}
-    if bad:
-        fail(f"dense sweep: card frame differs from the CPU frame: {bad}")
+    # the frame against the CPU's: `full_sweep_vs_cpu`, before phase 30
     runs = {"fast": [], "trace": []}
     for _ in range(3):                          # alternate the fidelities
         for fid in runs:
@@ -4006,8 +4310,6 @@ def main() -> int:
     sweep_info = dict(
         rows=len(frame), first_run_both_s=both_s,
         launches_per_sweep=dense_launches, trace_groups=trace_groups,
-        cpu_run_s=cpu_s, max_rel_vs_cpu=max(col_err.values()),
-        max_rel_vs_cpu_by_column=col_err,
         wall_s_runs=runs, wall_s_median=walls,
         designs_per_s={f: len(grid) / s for f, s in walls.items()})
     phase("full_sweep", **sweep_info)
@@ -4099,13 +4401,7 @@ def main() -> int:
         2, len(wl), 2, len(base))
     if not (tot[:, :, 1] >= tot[:, :, 0]).all():
         fail("feature sweep: a layout-on design is faster than its twin")
-    t0 = time.perf_counter()
-    fcpu = cpu_feature_frame(fsweep)
-    fcpu_s = time.perf_counter() - t0
-    fcol_err = frame_rel_err(fframe, fcpu)
-    bad = {c: e for c, e in fcol_err.items() if not e <= RTOL}
-    if bad:
-        fail(f"feature sweep: card frame differs from the CPU frame: {bad}")
+    # the frame against the CPU's: `feature_sweep_vs_cpu`, before phase 30
     fruns = {"fast": [], "trace": []}
     for _ in range(3):
         for fid in fruns:
@@ -4117,9 +4413,6 @@ def main() -> int:
         rows=len(fframe), designs=len(feat), groups=len(plan.groups),
         layout_groups=layout_groups, trace_groups=ftrace_groups,
         launches=feat_launches, first_run_both_s=fboth_s,
-        cpu_run_s=fcpu_s, rows_held_vs_cpu=len(fcpu),
-        max_rel_vs_cpu=max(fcol_err.values()),
-        max_rel_vs_cpu_by_column=fcol_err,
         layout_extra_share=float(np.mean(tot[:, :, 1] / tot[:, :, 0]) - 1),
         wall_s_runs=fruns, wall_s_median=fwalls,
         designs_per_s={f: len(feat) / s for f, s in fwalls.items()})
@@ -4720,9 +5013,7 @@ def main() -> int:
         fail(f"multicore_contention launched the replay kernel "
              f"{cont_launches} times, expected 2 per cell (isolated batch, "
              f"merged stream)")
-    t0 = time.perf_counter()
-    ccpu = cstudy.run(device="cpu")
-    ccpu_s = time.perf_counter() - t0
+    ccpu, tw = join_frame(twins, "multicore_contention", cstudy)
     if ccpu.meta.get("engine") != "torch:plain":
         fail(f"CPU contention study engine {ccpu.meta.get('engine')!r}")
     ccol_err = frame_rel_err(cres, ccpu)
@@ -4732,7 +5023,7 @@ def main() -> int:
              f"{bad}")
     cstudy_info = dict(
         claims=cclaims, engine=cres.meta.get("engine"),
-        launches=cont_launches, wall_s=cstudy_s, cpu_wall_s=ccpu_s,
+        launches=cont_launches, wall_s=cstudy_s, **tw,
         max_rel_vs_cpu=max(ccol_err.values()),
         max_rel_vs_cpu_by_column=ccol_err,
         makespan_shared=list(cres["makespan_shared"]),
@@ -4900,18 +5191,16 @@ def main() -> int:
     from repro_torch.noc.topology import noc_kind
 
     def frame_vs_cpu(name, study, frame):
-        """The study on the card machine's CPU, timed, and the card frame
-        against it per column (the NoC columns NaN on the NoC-free rows
-        only)."""
-        t0 = time.perf_counter()
-        cpu = study.run(device="cpu")
-        cpu_s = time.perf_counter() - t0
+        """The study on the card machine's CPU (its twin), and the card
+        frame against it per column (the NoC columns NaN on the NoC-free
+        rows only)."""
+        cpu, tw = join_frame(twins, name, study)
         col_err = frame_rel_err(frame, cpu, noc_free=[
             label for label, cfg in study._designs if noc_kind(cfg) is None])
         bad = {c: e for c, e in col_err.items() if not e <= RTOL}
         if bad:
             fail(f"{name}: card frame differs from the CPU frame: {bad}")
-        return dict(cpu_wall_s=cpu_s, max_rel_vs_cpu=max(col_err.values()),
+        return dict(**tw, max_rel_vs_cpu=max(col_err.values()),
                     max_rel_vs_cpu_by_column=col_err)
 
     def noc_frame_checks(name, frame, rows):
@@ -4960,16 +5249,8 @@ def main() -> int:
     phase("nop_bound_profile", **prof)
     report["nop_bound_profile"] = prof
 
-    # pods up to 4,096 cores at fast fidelity: the mesh grid (with_pod
-    # remeshes onto the default mesh, so the grid takes no topology axis),
-    # a torus pod of each size and one 256-core ring
-    pod_designs = rt.preset_grid("pod-mesh", pods=[256, 1024, 4096],
-                                 link_bw=[4.0, 32.0, 256.0], channels=[1, 8])
-    pod_designs += [rt.get_preset("pod-mesh", cores=p, topology="torus")
-                    for p in (256, 1024, 4096)]
-    pod_designs.append(rt.get_preset("pod-mesh", cores=256, topology="ring"))
-    psweep = rt.Study("pod_sweep_fast").designs(pod_designs) \
-        .workloads({"vit_base": vit_base()}).fidelity("fast")
+    # pods up to 4,096 cores at fast fidelity (`pod_designs`)
+    psweep = pod_sweep_fast_study()
     t0 = time.perf_counter()
     pres = psweep.run()
     pwall = time.perf_counter() - t0
@@ -4980,7 +5261,7 @@ def main() -> int:
         psweep.run()
         pwalls.append(time.perf_counter() - t0)
     pod_info = dict(designs=len(pres), groups=len(psweep.plan().groups),
-                    max_cores=max(c.num_cores for c in pod_designs),
+                    max_cores=max(c.num_cores for c in pod_designs()),
                     first_wall_s=pwall, wall_s_runs=pwalls,
                     wall_s_median=float(np.median(pwalls)),
                     **frame_vs_cpu("pod_sweep_fast", psweep, pres))
@@ -4992,9 +5273,7 @@ def main() -> int:
 
     # routed hops into the trace generator: each pod's group replays its
     # streams in one kernel launch
-    tsweep = rt.Study("pod_sweep_trace").designs(rt.preset_grid(
-        "pod-mesh", pods=[16, 64, 256], link_bw=[4.0, 256.0])) \
-        .workloads({"resnet18": resnet18()}).fidelity("trace")
+    tsweep = pod_sweep_trace_study()
     tgroups = len(tsweep.plan().groups)
     mk.LAUNCHES = 0                     # counts reset just before ...
     t0 = time.perf_counter()
@@ -5053,13 +5332,13 @@ def main() -> int:
 
     # ---- 13-17. the sixth slice's path: the per-op engine -----------------
     t0 = time.perf_counter()
-    perop = perop_phases(report)
+    perop = perop_phases(report, twins)
     report["perop_phases_s"] = time.perf_counter() - t0
     phase("perop_phases", seconds=report["perop_phases_s"])
 
     # ---- 18-20. the seventh slice's path: search, farm, chaos --------------
     t0 = time.perf_counter()
-    orch = orchestration_phases(report)
+    orch = orchestration_phases(report, twins)
     report["orchestration_phases_s"] = time.perf_counter() - t0
     phase("orchestration_phases", seconds=report["orchestration_phases_s"])
 
@@ -5071,9 +5350,28 @@ def main() -> int:
 
     # ---- 25-29. the ninth slice's path: training ---------------------------
     t0 = time.perf_counter()
-    training = training_phases(report)
+    training = training_phases(report, twins)
     report["training_phases_s"] = time.perf_counter() - t0
     phase("training_phases", seconds=report["training_phases_s"])
+
+    # ---- 5-6, joined late: the sweeps' frames against the CPU's ----------
+    # (a study's `fidelity()` changed the card runs' studies: fresh ones)
+    for name, label, study, card_frame in (
+            ("full_sweep", "dense sweep", dense_sweep_study(), frame),
+            ("feature_sweep", "feature sweep", feature_study(), fframe)):
+        cpu, tw = join_frame(twins, name, study)
+        if cpu.meta.get("engine") != "torch:plain":
+            fail(f"CPU {label} engine {cpu.meta.get('engine')!r}")
+        col_err = frame_rel_err(card_frame, cpu)
+        bad = {c: e for c, e in col_err.items() if not e <= RTOL}
+        if bad:
+            fail(f"{label}: card frame differs from the CPU frame: {bad}")
+        vs = dict(rows_held_vs_cpu=len(cpu), **tw,
+                  max_rel_vs_cpu=max(col_err.values()),
+                  max_rel_vs_cpu_by_column=col_err)
+        phase(f"{name}_vs_cpu", **vs)
+        report[name].update(vs)
+    twins.close()           # every twin joined: phases 30-40 get the cores
 
     # ---- 30-33. the tenth slice's path: the sharded workload plane --------
     t0 = time.perf_counter()
