@@ -287,13 +287,17 @@ script's seconds so far.
      four cards against one card, `farm worker --mesh`, mixtral-8x7b on
      NCCL worlds of one process a card (32 layers on 2 x 2: a prefill
      counted against the dry run, 32 greedy tokens; 1 and 8 layers in
-     float32 and bfloat16 on 2 x 2 and 1 x 4, and 2 layers trained 2
-     steps on 2 x 2, each against one card), and the train CLI at `--tp
-     2` on NCCL; with fewer cards none of them runs;
+     float32 and bfloat16 on 2 x 2 and 1 x 4, each against one card,
+     and 2 layers trained 2 steps in float32 on 2 x 2, each step's loss
+     and gradient norm held within one card's nudged envelope), and the
+     train CLI at `--tp 2` on NCCL; with fewer cards none of them runs;
   41. a `{"workload_plane": {...}}` line (the numbers of 21-24), a
      `{"training": {...}}` line (25-29), a `{"sharding": {...}}` line
      (30-33), a `{"dryrun": {...}}` line (34-36), a `{"four_cards":
-     {...}}` line (37-40, or `"run": false`), a `{"kernels": [...]}` line
+     {...}}` line (37-40: the mesh sweep and worker, the full-depth
+     mixtral ranks, and the train check's steps with the world's and one
+     card's losses and norms, their gaps, one card's envelope and the
+     bound; or `"run": false`), a `{"kernels": [...]}` line
      (all five kernels), the nvidia-smi line, and last `{"ok": true,
      "device": {...}}`.
 
@@ -3245,12 +3249,18 @@ CARDS = 4
 # row 1.24e-2, the others 8e-6), bfloat16's prefill within the larger of
 # 3e-2 and twice one card's bfloat16 drift (1.0 % at 1 layer, 25 % at 8;
 # `tools/bf16_drift.py`); the decode's drift is reported beside one
-# card's. 2 layers in bfloat16 for two train steps.
+# card's. 2 layers trained 2 steps in float32, each step's loss and
+# gradient norm within the larger of TRAIN_F32_TOL and twice the largest
+# gap of TRAIN_NUDGES nudged one-card runs at that step (AdamW's first
+# step moves a weight by lr g / (|g| + eps): rounding flips the sign of
+# a gradient within rounding of zero, and in bfloat16 one ulp of the
+# weights moved step 2's gradient norm 3.6-25.8 %, `tools/train_drift.py`).
 MIX_ARCH = "mixtral-8x7b"
 MIX_B, MIX_L, MIX_GEN = 8, 1024, 32
 PAR_DEPTHS, PAR_B, PAR_L, PAR_GEN = (1, 8), 4, 512, 8
 PAR_F32_TOL, PAR_NUDGES = 1e-4, 4
 TRAIN_LAYERS, TRAIN_B, TRAIN_L, TRAIN_STEPS = 2, 4, 256, 2
+TRAIN_F32_TOL, TRAIN_NUDGES = 1e-4, PAR_NUDGES
 
 
 def mesh_sweep_check(cards) -> tuple:
@@ -3420,15 +3430,15 @@ def mixtral_one_card(cuda) -> dict:
     """The one-card references of phase 39, from the worlds' seed: at each
     of PAR_DEPTHS a float32 prefill and PAR_GEN greedy tokens, the same
     weights nudged (`nudge`, PAR_NUDGES seeds) and in bfloat16, each
-    teacher-forced on that stream; at TRAIN_LAYERS TRAIN_STEPS train
-    steps."""
+    teacher-forced on that stream; at TRAIN_LAYERS in float32 TRAIN_STEPS
+    train steps and TRAIN_NUDGES nudged runs of them
+    (`one_device_train`)."""
     import dataclasses
     import gc
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
     from repro_torch.models.zoo import ModelBundle
-    from repro_torch.optim import cosine_schedule
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(MIX_ARCH)
@@ -3460,23 +3470,84 @@ def mixtral_one_card(cuda) -> dict:
         del model
         gc.collect()
         torch.cuda.empty_cache()
-    bundle = ModelBundle(dataclasses.replace(cfg, layers=TRAIN_LAYERS))
-    model = bundle.init(torch.Generator(device=cuda).manual_seed(0))
-    ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_L,
-                                       global_batch=TRAIN_B, seed=0))
-    step = bundle.train_step(lr=cosine_schedule(3e-4, 1, TRAIN_STEPS))
-    opt = bundle.opt_init(model)
-    out["losses"], out["grad_norms"] = [], []
-    for i in range(TRAIN_STEPS):
-        batch = {k: torch.from_numpy(v).to(cuda)
-                 for k, v in ds.global_batch_at(i).items()}
-        _, opt, m = step(model, opt, batch)
-        out["losses"].append(float(m["loss"]))
-        out["grad_norms"].append(float(m["grad_norm"]))
-    del model, opt, step
-    gc.collect()
-    torch.cuda.empty_cache()
+    out["train"] = one_device_train(dataclasses.replace(
+        cfg, layers=TRAIN_LAYERS, param_dtype="float32"), cuda)
     out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def one_device_train(cfg, dev, B: int = TRAIN_B, L: int = TRAIN_L,
+                     steps: int = TRAIN_STEPS,
+                     nudges: int = TRAIN_NUDGES) -> dict:
+    """Phase 39's train reference on one device: `cfg` drawn from seed 0
+    and trained `steps` steps of B x L tokens (phase 39's batches), then
+    `nudges` more runs of the same weights each moved one ulp (`nudge`,
+    seed k) on the same batches. Returns the first run's losses and
+    gradient norms, each nudged run's, and the envelope: at each step the
+    nudged runs' largest relative gap to the first."""
+    import gc
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.models.zoo import ModelBundle
+    from repro_torch.optim import cosine_schedule
+    t0 = time.perf_counter()
+    bundle = ModelBundle(cfg)
+    ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=L,
+                                       global_batch=B, seed=0))
+    runs = []
+    for k in range(-1, nudges):
+        model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+        if k >= 0:
+            nudge(model, k)
+        step = bundle.train_step(lr=cosine_schedule(3e-4, 1, steps))
+        opt = bundle.opt_init(model)
+        run = dict(losses=[], grad_norms=[])
+        for i in range(steps):
+            batch = {n: torch.from_numpy(v).to(dev)
+                     for n, v in ds.global_batch_at(i).items()}
+            _, opt, m = step(model, opt, batch)
+            run["losses"].append(float(m["loss"]))
+            run["grad_norms"].append(float(m["grad_norm"]))
+        runs.append(run)
+        del model, opt, step
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    base, nudged = runs[0], runs[1:]
+    envelope = {key: [max((abs(r[key][s] - base[key][s]) / abs(base[key][s])
+                           for r in nudged), default=0.0)
+                      for s in range(steps)]
+                for key in ("losses", "grad_norms")}
+    return dict(base, dtype=cfg.param_dtype, nudged=nudged,
+                envelope=envelope, seconds=time.perf_counter() - t0)
+
+
+def train_check(world: dict, one: dict) -> dict:
+    """Phase 39's train check: a world's losses and gradient norms (rank
+    0's) against one device's (`one_device_train`), step by step, each
+    within the larger of TRAIN_F32_TOL and twice one device's envelope at
+    that step, every value finite. The comparison is printed (phase line
+    `four_cards_mixtral_train`) before a failure goes through `fail`."""
+    steps, bad = [], []
+    for s in range(len(one["losses"])):
+        row = dict(step=s + 1)
+        for key, name in (("losses", "loss"), ("grad_norms", "grad_norm")):
+            w = world[key][s] if s < len(world[key]) else math.nan
+            o, env = one[key][s], one["envelope"][key][s]
+            gap = abs(w - o) / abs(o)
+            bound = max(TRAIN_F32_TOL, 2 * env)
+            ok = all(map(math.isfinite, (w, o, env))) and gap <= bound
+            row[name] = dict(world=w, one_card=o, gap=gap, envelope=env,
+                             bound=bound, ok=ok)
+            if not ok:
+                bad.append(f"step {s + 1} {name} {w} vs one card {o}: gap "
+                           f"{gap}, bound {bound}")
+        steps.append(row)
+    out = dict(dtype=one["dtype"], steps=steps,
+               one_card_seconds=one["seconds"], ok=not bad)
+    phase("four_cards_mixtral_train", **out)
+    if bad:
+        fail(f"four_cards_mixtral train: {'; '.join(bad)}")
     return out
 
 
@@ -3576,7 +3647,8 @@ def mixtral_phase(cards) -> dict:
                              force=single["par"][d]["tokens"]))
            for d in PAR_DEPTHS for dt in ("float32", "bfloat16")]
     train = dict(name="mixtral_train", arch=MIX_ARCH, layers=TRAIN_LAYERS,
-                 seed=0, B=TRAIN_B, L=TRAIN_L, steps=TRAIN_STEPS)
+                 param_dtype="float32", seed=0, B=TRAIN_B, L=TRAIN_L,
+                 steps=TRAIN_STEPS)
     world = dict(backend="nccl", device="cuda", card_per_rank=True,
                  threads=2)
     with ThreadPoolExecutor(1) as pool:
@@ -3623,16 +3695,7 @@ def mixtral_phase(cards) -> dict:
             if not r["ok"]:
                 fail(f"four_cards_mixtral parity {key} {dt}: {r}")
     tranks, _ = w22["mixtral_train"]
-    t0r = tranks[0]
-    le = max(abs(a - b) / abs(b) for a, b in zip(t0r["losses"],
-                                                 single["losses"]))
-    ge = max(abs(a - b) / abs(b) for a, b in zip(t0r["grad_norms"],
-                                                 single["grad_norms"]))
-    if not (le <= 3e-2 and ge <= 3e-2) or not all(
-            math.isfinite(x) for x in t0r["losses"] + t0r["grad_norms"]):
-        fail(f"four_cards_mixtral train: losses {t0r['losses']} vs one card "
-             f"{single['losses']} ({le}), gradient norms "
-             f"{t0r['grad_norms']} vs {single['grad_norms']} ({ge})")
+    train = train_check(tranks[0], single["train"])
     mix = dict(
         arch=MIX_ARCH, mesh=[2, 2], backend="nccl", serve_shardings=True,
         full=dict(layers=32, batch=MIX_B, prompt=MIX_L, gen=MIX_GEN,
@@ -3644,12 +3707,7 @@ def mixtral_phase(cards) -> dict:
                         for n, w in (("2x2", w22), ("1x4", w14))},
                     one_card_seconds=single["seconds"]),
         train=dict(layers=TRAIN_LAYERS, batch=TRAIN_B, seq=TRAIN_L,
-                   steps=TRAIN_STEPS, losses=t0r["losses"],
-                   grad_norms=t0r["grad_norms"],
-                   one_card_losses=single["losses"],
-                   one_card_grad_norms=single["grad_norms"],
-                   loss_rel_err=le, grad_norm_rel_err=ge,
-                   **world_summary(tranks)),
+                   nudges=TRAIN_NUDGES, **train, **world_summary(tranks)),
         world_seconds={"2x2": w22["_seconds"], "1x4": w14["_seconds"]},
         seconds=time.perf_counter() - t0)
     return mix
@@ -3724,6 +3782,10 @@ def four_card_phases(report: dict) -> dict:
     mix = mixtral_phase(cards)
     phase("four_cards_mixtral", **mix)
     info["mixtral"] = mix
+    # the train check for the four_cards line, without the ranks' numbers
+    info["train"] = {k: mix["train"][k] for k in (
+        "layers", "batch", "seq", "nudges", "dtype", "steps",
+        "one_card_seconds", "ok")}
 
     # ---- 40. the train CLI with --tp 2 on NCCL over the four cards --------
     cli = train_cli_four_cards(env)
@@ -3767,7 +3829,8 @@ def four_cards_main() -> int:
                                                     default=str))
     print(json.dumps({"four_cards": dict(
         run=True, cards=four["cards"], seconds=four["seconds"],
-        mixtral=four["mixtral"]["full"]["per_rank"])}, default=str))
+        mixtral=four["mixtral"]["full"]["per_rank"],
+        train=four["train"])}, default=str))
     print(card)
     return 0
 
@@ -5474,7 +5537,8 @@ def card_phases(report: dict, twins: TwinPool) -> int:
     print(json.dumps({"four_cards": four if not four["run"] else dict(
         run=True, cards=four["cards"], seconds=four["seconds"],
         **{k: four[k] for k in ("mesh_sweep", "mesh_worker")},
-        mixtral=four["mixtral"]["full"]["per_rank"])}, default=str))
+        mixtral=four["mixtral"]["full"]["per_rank"],
+        train=four["train"])}, default=str))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

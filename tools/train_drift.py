@@ -1,21 +1,24 @@
 """How far rounding alone moves the losses and gradient norms of a few
 train steps on one device: `chip_smoke.py` phase 39's training check
 (mixtral-8x7b at full width, `TRAIN_LAYERS` layers, `TRAIN_STEPS` steps
-of `TRAIN_B` x `TRAIN_L` tokens, bfloat16, seed 0) run as phase 39's
-one-card reference runs it, then again under perturbations of
+of `TRAIN_B` x `TRAIN_L` tokens, seed 0, in `--dtype`) run as phase
+39's one-card reference runs it, then again under perturbations of
 rounding's size.
 
     PYTHONPATH=src python tools/train_drift.py [--nudges 3] \
-        [--device cuda] [--smoke] [--out chiprun_out/train_drift.json]
+        [--dtype bfloat16|float32] [--device cuda] [--smoke] \
+        [--out chiprun_out/train_drift.json]
 
 The runs: `baseline`; `repeat` (the same again: what the card's atomics
 leave to chance); `deterministic` (`torch.use_deterministic_algorithms`);
 `no_reduced_reduction` (cuBLAS's bfloat16 products without reduced-
 precision reductions); and `nudge_k` for k < `--nudges` (every weight
-moved one bfloat16 ulp up or down, a coin a weight from seed k). Each
-run's losses and gradient norms, and the largest relative gap of each
-to the baseline's as phase 39 measures a world against one card
-(max over steps of |a - b| / |b|). Prints one JSON object and writes it
+moved one ulp of its dtype up or down, a coin a weight from seed k: in
+float32 by `chip_smoke.nudge`, the rule of phase 39's envelope). Each
+run's losses and gradient norms, the relative gap of each to the
+baseline's at each step (|a - b| / |b|, as phase 39 measures a world
+against one card), their largest, and the envelope: at each step the
+nudged runs' largest gap. Prints one JSON object and writes it
 to `--out`. `--smoke` runs the SMOKE config (on the CPU with
 `--device cpu`).
 """
@@ -57,7 +60,11 @@ def train_run(cfg, dev, variant: str) -> dict:
     bundle = ModelBundle(cfg)
     model = bundle.init(torch.Generator(device=dev).manual_seed(0))
     if variant.startswith("nudge_"):
-        nudge_bf16(model, int(variant.split("_")[1]))
+        k = int(variant.split("_")[1])
+        if cfg.param_dtype == "float32":
+            cs.nudge(model, k)
+        else:
+            nudge_bf16(model, k)
     ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=cs.TRAIN_L,
                                        global_batch=cs.TRAIN_B, seed=0))
     step = bundle.train_step(lr=cosine_schedule(3e-4, 1, cs.TRAIN_STEPS))
@@ -96,6 +103,8 @@ def deterministic():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--nudges", type=int, default=3)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--out", default=None)
@@ -110,7 +119,7 @@ def main(argv=None) -> int:
     dev = torch.device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_config(cs.MIX_ARCH, smoke=args.smoke),
-                              layers=cs.TRAIN_LAYERS)
+                              layers=cs.TRAIN_LAYERS, param_dtype=args.dtype)
     variants = ["baseline", "repeat", "deterministic",
                 "no_reduced_reduction"] + [f"nudge_{k}"
                                            for k in range(args.nudges)]
@@ -120,8 +129,10 @@ def main(argv=None) -> int:
         runs[v] = train_run(cfg, dev, v)
         base = runs["baseline"]
         for key in ("losses", "grad_norms"):
-            runs[v][f"{key}_rel_gap"] = max(
-                abs(a - b) / abs(b) for a, b in zip(runs[v][key], base[key]))
+            gaps = [abs(a - b) / abs(b)
+                    for a, b in zip(runs[v][key], base[key])]
+            runs[v][f"{key}_rel_gaps"] = gaps
+            runs[v][f"{key}_rel_gap"] = max(gaps)
         runs[v]["seconds"] = time.perf_counter() - t0
         print(v, json.dumps(runs[v]), flush=True)
     out = dict(arch=cfg.name if hasattr(cfg, "name") else cs.MIX_ARCH,
@@ -133,7 +144,12 @@ def main(argv=None) -> int:
                largest_grad_norm_gap=max(r["grad_norms_rel_gap"]
                                          for r in runs.values()),
                largest_loss_gap=max(r["losses_rel_gap"]
-                                    for r in runs.values()))
+                                    for r in runs.values()),
+               envelope={key: [max((runs[v][f"{key}_rel_gaps"][s]
+                                    for v in variants
+                                    if v.startswith("nudge_")), default=0.0)
+                               for s in range(cs.TRAIN_STEPS)]
+                         for key in ("losses", "grad_norms")})
     if args.out:
         pathlib.Path(args.out).write_text(json.dumps(out, indent=1))
     print(json.dumps(out))
