@@ -28,8 +28,9 @@ script's seconds so far.
      power limit (nvidia-smi), the host's usable cores and the twins'
      cores, processes and threads;
   2. build: the replay megakernel, the bank-conflict kernel, the fold
-     matmul, the wavefront kernel and the ELLPACK packer compiled from
-     `src/repro_torch/csrc`, all five nvcc runs started together;
+     matmul, the wavefront kernel, the ELLPACK packer and the streams
+     kernel compiled from `src/repro_torch/csrc`, all six nvcc runs
+     started together;
   3. kernel vs plain: the CUDA replay kernel against its plain PyTorch
      version (and the per-request reference scan) on adversarial streams
      and on 256 random streams of 4,096 requests: counts exact, completion
@@ -64,7 +65,12 @@ script's seconds so far.
      (`full_sweep_vs_cpu`); the wall time per fidelity
      (three runs each), a profiled trace sweep, and the replay kernel
      against its plain version on the vit_base trace group's launch
-     (1,776 streams);
+     (1,776 streams); `streams_kernel`: the streams kernel on the same
+     group at cap 65,536, one launch a `decoded_streams` call, bit for
+     bit its plain version (the generator's sort + decode), timed beside
+     it and beside its bound (18 bytes a slot written); the streams
+     kernel's launches are reset just before the dense sweep too, one a
+     trace group;
   6. the second slice's path: the feature sweep, 162 designs (3 arrays x
      3 SRAM sizes x 3 dataflows x {dense, 2:4, 1:4 row-wise} x {1, 4}
      cores),
@@ -298,7 +304,7 @@ script's seconds so far.
      mixtral ranks, and the train check's steps with the world's and one
      card's losses and norms, their gaps, one card's envelope and the
      bound; or `"run": false`), a `{"kernels": [...]}` line
-     (all five kernels), the nvidia-smi line, and last `{"ok": true,
+     (all six kernels), the nvidia-smi line, and last `{"ok": true,
      "device": {...}}`.
 
 `python3 chip_smoke.py --four-cards` runs phases 1 and 37-40 alone, on a
@@ -888,6 +894,78 @@ def replay_shape_info(mk, ins, kw) -> dict:
                 max_passes=int(passes.max()), bytes=nbytes, ops=ops,
                 bytes_ms=bms, ops_ms=oms, bound_ms=max(bms, oms),
                 bound_by="bytes" if bms >= oms else "operations")
+
+
+def streams_kernel_phase(ws, ops, dev) -> dict:
+    """Phase 5's `streams_kernel`: one vit_base ws group (`ws`'s unique
+    streams x its gemm ops) at cap 65,536 through `decoded_streams`, which
+    launches the streams kernel once; its six outputs and scale against
+    its plain version, the generator's sort + decode, on the card bit for
+    bit; the kernel's ms a launch (CUDA events around 20 launches,
+    without the address check's read, and through the wrapper, with it,
+    from factors on the card and on the host as the sweep evaluates
+    them), the plain version's ms, and the bound: 18 bytes a slot
+    written."""
+    import repro_torch.kernels.streams as skp
+    from repro_torch.api import simulator as sim
+    from repro_torch.core.accelerator import DramConfig
+    from repro_torch.core.dram import decode_requests
+    from repro_torch.kernels.streams import streams as stk
+    from repro_torch.trace.generator import (TraceSpec, gemm_request_stream,
+                                             stream_prologue)
+    spec, dram = TraceSpec(cap=65536), DramConfig()
+    seen = {}
+    orig = skp.decoded_request_streams
+
+    def capture(*a):
+        seen["args"] = a
+        return orig(*a)
+
+    skp.decoded_request_streams = capture
+    try:
+        before = stk.LAUNCHES
+        strm, scale, _ = sim.decoded_streams(ws, ops, "ws", 2, dram, spec,
+                                             dev)
+        torch.cuda.synchronize()
+        launches = stk.LAUNCHES - before
+    finally:
+        skp.decoded_request_streams = orig
+    if launches != 1:
+        fail(f"decoded_streams launched the streams kernel {launches} "
+             f"times, expected 1")
+    # decoded_streams evaluates the factors on the host; the plain
+    # version (the sort + decode) and the timings take them on the card
+    args = [a.to(dev) for a in seen["args"][1:11]]
+    pro = stream_prologue("ws", *args, 2, spec)
+    host = stream_prologue("ws", *seen["args"][1:11], 2, spec)
+    S, cap = strm[0].shape[0] * strm[0].shape[1], strm[0].shape[-1]
+    kernel_ms = timed_cuda(lambda: stk.launch_streams(pro, dram), reps=20)
+    wrapper_ms = timed_cuda(lambda: stk.request_streams(pro, dram), reps=20)
+    from_host_ms = timed_cuda(
+        lambda: stk.request_streams(host, dram, dev), reps=20)
+    def plain():
+        t, addr, w, v, sc = gemm_request_stream("ws", *args, 2, spec)
+        return (t,) + decode_requests(addr, dram) + (w, v), sc
+
+    want, pscale = plain()
+    torch.cuda.synchronize()
+    names = ("t", "flat_bank", "ch", "row", "is_write", "valid")
+    for name, a, b in zip(names, strm, want):
+        if not torch.equal(a, b):
+            fail(f"streams kernel: {name} differs from the plain version")
+    if not torch.equal(scale, pscale):
+        fail("streams kernel: scale differs from the plain version")
+    valid = int(strm[5].sum())
+    del strm, want
+    plain_ms = timed_cuda(plain, reps=3)
+    out_bytes = S * cap * 18
+    return dict(streams=S, cap=cap, slots=S * cap, valid_requests=valid,
+                launches_per_call=launches, kernel_ms=kernel_ms,
+                wrapper_ms=wrapper_ms, host_factors_ms=from_host_ms,
+                plain_ms=plain_ms, bytes_written=out_bytes,
+                bound_ms=out_bytes / HBM_BYTES_PER_S * 1e3,
+                bound_share=out_bytes / HBM_BYTES_PER_S * 1e3 / kernel_ms,
+                launches_total=stk.LAUNCHES)
 
 
 def perop_phases(report: dict, twins: TwinPool) -> dict:
@@ -1507,21 +1585,24 @@ def reset_launch_counts():
     from repro_torch.kernels.conflict import conflict as ck
     from repro_torch.kernels.ellpack import ellpack as ek
     from repro_torch.kernels.replay import megakernel as mk
+    from repro_torch.kernels.streams import streams as stk
     from repro_torch.kernels.systolic import systolic as syk
-    mk.LAUNCHES = ck.LAUNCHES = ek.LAUNCHES = 0
+    mk.LAUNCHES = ck.LAUNCHES = ek.LAUNCHES = stk.LAUNCHES = 0
     syk.MATMUL_LAUNCHES = syk.WAVEFRONT_LAUNCHES = 0
     mk.LAUNCHES_BY_CARD.clear()
     ck.LAUNCHES_BY_CARD.clear()
+    stk.LAUNCHES_BY_CARD.clear()
 
 
 def launch_counts() -> dict:
     from repro_torch.kernels.conflict import conflict as ck
     from repro_torch.kernels.ellpack import ellpack as ek
     from repro_torch.kernels.replay import megakernel as mk
+    from repro_torch.kernels.streams import streams as stk
     from repro_torch.kernels.systolic import systolic as syk
     return dict(replay=mk.LAUNCHES, conflict=ck.LAUNCHES,
                 ellpack=ek.LAUNCHES, matmul=syk.MATMUL_LAUNCHES,
-                wavefront=syk.WAVEFRONT_LAUNCHES)
+                wavefront=syk.WAVEFRONT_LAUNCHES, streams=stk.LAUNCHES)
 
 
 def no_launches(name, c):
@@ -3269,6 +3350,7 @@ def mesh_sweep_check(cards) -> tuple:
     (the phase's numbers, the one-card frame)."""
     from repro_torch.kernels.conflict import conflict as ck
     from repro_torch.kernels.replay import megakernel as mk
+    from repro_torch.kernels.streams import streams as stk
     from repro_torch.launch.mesh import make_device_mesh
     _, feat, study = feature_sweep_study()
     mesh = make_device_mesh([str(c) for c in cards])
@@ -3285,7 +3367,8 @@ def mesh_sweep_check(cards) -> tuple:
             frames[kind] = res
             if kind == "four":
                 by_card = dict(replay=dict(mk.LAUNCHES_BY_CARD),
-                               conflict=dict(ck.LAUNCHES_BY_CARD))
+                               conflict=dict(ck.LAUNCHES_BY_CARD),
+                               streams=dict(stk.LAUNCHES_BY_CARD))
     rows = len(feat) * 2 * 2
     for kind, res in frames.items():
         check_frame(f"four_cards_mesh_sweep ({kind})", res, rows)
@@ -3881,6 +3964,7 @@ def card_phases(report: dict, twins: TwinPool) -> int:
     from repro_torch.kernels.conflict.ref import conflict_slowdown_reference
     from repro_torch.kernels.ellpack import ellpack as ek
     from repro_torch.kernels.replay import megakernel as mk
+    from repro_torch.kernels.streams import streams as stk
     from repro_torch.kernels.systolic import systolic as syk
     from repro_torch.trace.generator import DEFAULT_SPEC
 
@@ -3892,7 +3976,7 @@ def card_phases(report: dict, twins: TwinPool) -> int:
     builds = (("replay_megakernel", mk.build), ("conflict_slowdown", ck.build),
               ("systolic_matmul", syk.build_matmul),
               ("wavefront_activity", syk.build_wavefront),
-              ("ellpack_pack", ek.build))
+              ("ellpack_pack", ek.build), ("request_streams", stk.build))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         for f in [pool.submit(b) for _, b in builds]:
@@ -3901,7 +3985,7 @@ def card_phases(report: dict, twins: TwinPool) -> int:
     logs = dict(replay_megakernel=mk.BUILD_LOG, conflict_slowdown=ck.BUILD_LOG,
                 systolic_matmul=syk.MATMUL_BUILD_LOG,
                 wavefront_activity=syk.WAVEFRONT_BUILD_LOG,
-                ellpack_pack=ek.BUILD_LOG)
+                ellpack_pack=ek.BUILD_LOG, request_streams=stk.BUILD_LOG)
     ptxas = {name: sorted({ln.split(":", 1)[-1].strip()
                            for ln in logs[name].splitlines()
                            if "registers" in ln or "spill" in ln})
@@ -4353,14 +4437,19 @@ def card_phases(report: dict, twins: TwinPool) -> int:
     wl = {"resnet18": resnet18(), "vit_base": vit_base()}
     sweep = dense_sweep_study(wl)
     trace_groups = sum(g.fidelity == "trace" for g in sweep.plan().groups)
-    mk.LAUNCHES = 0                     # counts reset just before ...
+    mk.LAUNCHES = stk.LAUNCHES = 0      # counts reset just before ...
     t0 = time.perf_counter()
     frame = sweep.run()
     both_s = time.perf_counter() - t0
     dense_launches = mk.LAUNCHES        # ... and read just after
+    dense_streams = stk.LAUNCHES
     if dense_launches != trace_groups:
         fail(f"the dense sweep launched the replay kernel {dense_launches} "
              f"times, expected one launch per trace group ({trace_groups})")
+    if dense_streams != trace_groups:
+        fail(f"the dense sweep launched the streams kernel {dense_streams} "
+             f"times, expected one launch (one `decoded_streams` call) per "
+             f"trace group ({trace_groups})")
     check_frame("dense sweep", frame, 288)
     # the frame against the CPU's: `full_sweep_vs_cpu`, before phase 30
     runs = {"fast": [], "trace": []}
@@ -4372,7 +4461,8 @@ def card_phases(report: dict, twins: TwinPool) -> int:
     walls = {f: float(np.median(r)) for f, r in runs.items()}
     sweep_info = dict(
         rows=len(frame), first_run_both_s=both_s,
-        launches_per_sweep=dense_launches, trace_groups=trace_groups,
+        launches_per_sweep=dense_launches,
+        streams_launches_per_sweep=dense_streams, trace_groups=trace_groups,
         wall_s_runs=runs, wall_s_median=walls,
         designs_per_s={f: len(grid) / s for f, s in walls.items()})
     phase("full_sweep", **sweep_info)
@@ -4434,6 +4524,9 @@ def card_phases(report: dict, twins: TwinPool) -> int:
     phase("vit_base_trace_group", **replay_group)
     report["vit_base_trace_group"] = replay_group
     del ins, ins2, strm, dk2, dp2
+    skern = streams_kernel_phase(ws, wl["vit_base"], dev)
+    phase("streams_kernel", **skern)
+    report["streams_kernel"] = skern
 
     # ---- 6. the second slice's path: the feature sweep --------------------
     base, feat, fsweep = feature_sweep_study(wl)
@@ -4442,12 +4535,17 @@ def card_phases(report: dict, twins: TwinPool) -> int:
     layout_groups = sum(plan.cells[g.cells[0]].config.layout.enabled
                         for g in plan.groups)
     ftrace_groups = sum(g.fidelity == "trace" for g in plan.groups)
-    mk.LAUNCHES = ck.LAUNCHES = 0       # counts reset just before ...
+    mk.LAUNCHES = ck.LAUNCHES = stk.LAUNCHES = 0  # reset just before ...
     t0 = time.perf_counter()
     fframe = fsweep.run()
     fboth_s = time.perf_counter() - t0
     feat_launches = dict(replay_megakernel=mk.LAUNCHES,
-                         conflict_slowdown=ck.LAUNCHES)   # ... read just after
+                         conflict_slowdown=ck.LAUNCHES,
+                         request_streams=stk.LAUNCHES)    # ... read just after
+    if feat_launches["request_streams"] != ftrace_groups:
+        fail(f"the feature sweep launched the streams kernel "
+             f"{feat_launches['request_streams']} times, expected one "
+             f"launch per trace group ({ftrace_groups})")
     if feat_launches["conflict_slowdown"] != layout_groups:
         fail(f"the feature sweep launched the conflict kernel "
              f"{feat_launches['conflict_slowdown']} times, expected one "
@@ -5457,7 +5555,7 @@ def card_phases(report: dict, twins: TwinPool) -> int:
         four = dict(run=False, cards=n_cards)
     report["four_cards"] = four
     by_card = (four["mesh_sweep"]["launches_by_card"] if four["run"]
-               else dict(replay=None, conflict=None))
+               else dict(replay=None, conflict=None, streams=None))
 
     kernels = {"kernels": [
         dict(name="replay_megakernel", route="cuda",
@@ -5524,7 +5622,17 @@ def card_phases(report: dict, twins: TwinPool) -> int:
              replaces="src/repro/kernels/ellpack/ellpack.py:38",
              launches=ell_launches, max_abs_err=0, ms=ep["ms"],
              plain_ms=ep["plain_ms"], bound_ms=ep["bound_ms"],
-             bound_by=ep["bound_by"], library_ms=None)]}
+             bound_by=ep["bound_by"], library_ms=None),
+        dict(name="request_streams", route="cuda",
+             source="src/repro_torch/csrc/request_streams.cu",
+             replaces=None,
+             launches=dense_streams + feat_launches["request_streams"],
+             max_abs_err=0, ms=skern["kernel_ms"],
+             plain_ms=skern["plain_ms"], bound_ms=skern["bound_ms"],
+             bound_by="bytes", library_ms=None,
+             four_card_launches_by_card=by_card["streams"],
+             path="dense and feature sweeps, one launch a trace group; "
+                  "timed on the vit_base ws group")]}
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -422,25 +422,29 @@ def decoded_streams(cfgs: Sequence[AcceleratorConfig], ops: Sequence[Op],
     its sparsity-shrunk DRAM traffic: returns (t, flat_bank, ch, row,
     is_write, valid) of shape (streams, ops, cap), the (streams, ops)
     compression `scale` and the design -> stream map `smap`. `fl`: the
-    flavor of the whole group when `cfgs` is one block of it."""
-    from ..core.dram import decode_requests
-    from ..trace.generator import gemm_request_stream
+    flavor of the whole group when `cfgs` is one block of it. The
+    streams' (streams, ops) inputs and per-stream factors are evaluated
+    on the host, where their hundred-odd small ops cost a few
+    microseconds each (on a card each is a launch); on a CUDA `device`
+    one streams-kernel launch then generates, orders and decodes every
+    slot (`kernels.streams`)."""
+    from ..kernels.streams import decoded_request_streams
+    host = torch.device("cpu")
     fl = fl or _flavor(cfgs, ops, core_index)
     sidx, smap = _stream_dedup(cfgs)
-    d = _columns([cfgs[i] for i in sidx], fl, device, core_index)
-    g = _gemm_arrays(ops, device)
+    d = _columns([cfgs[i] for i in sidx], fl, host, core_index)
+    g = _gemm_arrays(ops, host)
     M, N, K = g["M"], g["N"], g["K"]
     sp, mc = _features(d, g, fl)
     comp, _, dr, _ = st.traced_comp_traffic(dataflow, M, N, K, d["R"], d["C"],
                                             _mem(d, word_bytes),
                                             sparsity=sp, multicore=mc)
-    t, addr, wbit, val, scale = gemm_request_stream(
+    streams, scale = decoded_request_streams(
         dataflow, M, N, K, d["R"], d["C"], comp, dr["dram_ifmap"],
         dr["dram_filter"], dr["dram_ofmap_writes"], dr["dram_ofmap_reads"],
-        word_bytes, spec)
-    fb, ch, row = decode_requests(addr, dram)        # one flat decode
-    return (t, fb, ch, row, wbit, val), scale, torch.tensor(
-        smap, dtype=torch.int64, device=device)
+        word_bytes, spec, dram, device)
+    return streams, scale, torch.tensor(smap, dtype=torch.int64,
+                                        device=device)
 
 
 def _trace_stalls(cfgs, ops, dataflow, word_bytes, dram, spec, engine,

@@ -59,7 +59,12 @@ def check_addresses(addr: torch.Tensor) -> None:
     tell-tale of wrapped arithmetic upstream)."""
     if addr.numel() == 0:
         return
-    lo, hi = int(addr.min()), int(addr.max())
+    check_address_range(int(addr.min()), int(addr.max()))
+
+
+def check_address_range(lo: int, hi: int) -> None:
+    """`check_addresses` on the least and greatest address of a stream
+    batch, found elsewhere (the streams kernel keeps them)."""
     if lo < 0 or hi >= _ADDR_LIMIT:
         raise ValueError(
             f"request addresses span [{lo}, {hi}], outside the trace "

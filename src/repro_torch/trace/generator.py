@@ -17,9 +17,14 @@ the integer address math runs in int64 instead of the reference's int32,
 which gives the same values for every address below 2^31 (the range
 `core.dram.check_addresses` admits).
 
-`gemm_trace_stats` replays the generated streams (one replay-kernel
-launch on CUDA tensors); `trace_op` and `trace_op_stats` are its entry
-points for one op of an `AcceleratorConfig`, on an explicit device.
+`stream_prologue` evaluates what depends only on a stream or a region
+once; `stream_slots` the rest, a slot at a time. `gemm_request_stream`
+(`sorted_stream` of a prologue) sorts the slots stably by issue time;
+on a card the sweep's `api.simulator.decoded_streams` instead ranks them
+by the reference's 4-way merge in the streams kernel (`kernels.streams`). `gemm_trace_stats` replays the
+generated streams (one replay-kernel launch on CUDA tensors); `trace_op`
+and `trace_op_stats` are its entry points for one op of an
+`AcceleratorConfig`, on an explicit device.
 """
 from __future__ import annotations
 
@@ -92,15 +97,42 @@ _FAST_IS_ROW = {
 }
 
 
+def _const(x, dev) -> torch.Tensor:
+    """A float32 0-d tensor of x on `dev`."""
+    return torch.full((), float(x), dtype=torch.float32, device=dev)
+
+
+def fast_is_row_of(dataflow: str):
+    """Per region (ifmap, filter, spill read, write-back): does the fast
+    walk run down the operand's rows? Spill reads walk like the
+    write-back stream."""
+    return [_FAST_IS_ROW[(dataflow, R_IFMAP)],
+            _FAST_IS_ROW[(dataflow, R_FILTER)],
+            _FAST_IS_ROW[(dataflow, R_OFMAP_WR)],
+            _FAST_IS_ROW[(dataflow, R_OFMAP_WR)]]
+
+
 def _modmul(j, a, L):
     """mod(j * a, L) without forming the full product: the exact small
     integer j is split into 6-bit halves so every intermediate stays near
     64 * L, where float32 is exact for dimension-sized L (the reference's
     operation order, kept step for step)."""
-    j_hi = torch.floor(j / 64.0)
-    j_lo = j - 64.0 * j_hi
+    a1, a64 = _modmul_factors(a, L)
+    return _modmul_apply(j, a1, a64, L)
+
+
+def _modmul_factors(a, L):
+    """`_modmul`'s factors of the modulus L: (a mod L, 64 (a mod L) mod L),
+    one a stream or region."""
     a1 = torch.remainder(a, L)
     a64 = torch.remainder(64.0 * a1, L)
+    return a1, a64
+
+
+def _modmul_apply(j, a1, a64, L):
+    """mod(j * a, L) from `_modmul_factors(a, L)`, one a slot."""
+    j_hi = torch.floor(j / 64.0)
+    j_lo = j - 64.0 * j_hi
     return torch.remainder(j_lo * a1 + j_hi * a64, L)
 
 
@@ -111,23 +143,43 @@ def _stable_order(key):
     return torch.sort(key, dim=-1, stable=True).indices
 
 
-def gemm_request_stream(dataflow: str, M, N, K, R, C, comp,
-                        ifmap_elems, filter_elems, ofmap_write_elems,
-                        ofmap_read_elems, word_bytes: int = 2,
-                        spec: TraceSpec = DEFAULT_SPEC, scale=None):
-    """Synthesize the demand-request streams of a batch of GEMMs.
+@dataclasses.dataclass(frozen=True)
+class StreamPrologue:
+    """Everything of a batch of streams that depends only on the stream or
+    on (stream, region): float32 tensors of the batch shape, or the batch
+    shape + (4,) by region (ifmap, filter, spill read, write-back).
 
-    Every numeric argument is a float32 tensor; they broadcast against
-    each other to the batch shape (e.g. designs x ops). Returns
-    (t_issue, addr, is_write, valid, scale): float32, int64, bool and bool
-    tensors of shape batch + (spec.cap,), sorted by issue time along the
-    last axis, and the float32 compression factor of shape batch.
+    `gemm_request_stream` and the streams kernel (`kernels.streams`) both
+    start from it, so the two see the same bits."""
+    dataflow: str
+    word_bytes: int
+    spec: TraceSpec
+    n_model: torch.Tensor      # model requests (valid slots) a stream
+    scale: torch.Tensor        # compression factor
+    edges: torch.Tensor        # (..., 4) running sums of the model
+                               # requests by region
+    starts: torch.Tensor       # (..., 4) first model request by region
+    rows_r: torch.Tensor       # (..., 4) operand rows by region
+    cols_r: torch.Tensor       # (..., 4) operand columns by region
+    fast_len: torch.Tensor     # (..., 4)
+    slow_len: torch.Tensor     # (..., 4)
+    step: torch.Tensor         # (..., 1) elements a request
+    n_tiles: torch.Tensor      # (..., 1)
+    tile_cyc: torch.Tensor     # (..., 1)
+    q: torch.Tensor            # (..., 4) model requests a tile by region
+    fast_a1: torch.Tensor      # (..., 4) `_modmul` factors of the fast walk
+    fast_a64: torch.Tensor
+    slow_a1: torch.Tensor      # (..., 4) ... and of the slow walk
+    slow_a64: torch.Tensor
 
-    `scale` overrides the compression factor (rounded to float32, as the
-    reference's traced scalar is): the multi-core contention path passes
-    one common scale so every core's stream is compressed coherently; by
-    default each GEMM picks its own.
-    """
+
+def stream_prologue(dataflow: str, M, N, K, R, C, comp,
+                    ifmap_elems, filter_elems, ofmap_write_elems,
+                    ofmap_read_elems, word_bytes: int = 2,
+                    spec: TraceSpec = DEFAULT_SPEC,
+                    scale=None) -> StreamPrologue:
+    """The per-stream part of `gemm_request_stream` (same arguments): its
+    expressions in their order, evaluated once a stream or a region."""
     f32 = torch.float32
     args = torch.broadcast_tensors(M, N, K, R, C, comp, ifmap_elems,
                                    filter_elems, ofmap_write_elems,
@@ -139,8 +191,9 @@ def gemm_request_stream(dataflow: str, M, N, K, R, C, comp,
     cap = spec.cap
     # divisors as device tensors: a CUDA division by a host scalar is a
     # multiplication by its reciprocal, which need not round the same
-    gran = torch.tensor(float(spec.gran_bytes), dtype=f32, device=dev)
-    wbt = torch.tensor(float(wb), dtype=f32, device=dev)
+    # (filled on the device: a copy from the host waits for the card)
+    gran = _const(spec.gran_bytes, dev)
+    wbt = _const(wb, dev)
 
     region_bytes = torch.stack([1.0 * ifmap_elems * wb,
                                 1.0 * filter_elems * wb,
@@ -175,46 +228,81 @@ def gemm_request_stream(dataflow: str, M, N, K, R, C, comp,
     edges = torch.stack([e0, e1, e2, e2 + r_model[..., 3]], dim=-1)
     starts = torch.stack([torch.zeros_like(e0), e0, e1, e2], dim=-1)
 
-    i = torch.arange(cap, dtype=f32, device=dev)
-    valid = i < n_model[..., None]
-    region = (i[:, None] >= edges[..., None, :]).to(torch.int64).sum(-1)
+    # ---- operand walk, by region ----------------------------------------
+    rows_of, cols_of = (K, M, M, M), (N, K, N, N)     # X:KxN W:MxK O:MxN
+    rows_r = torch.stack(rows_of, dim=-1)
+    cols_r = torch.stack(cols_of, dim=-1)
+    frow = fast_is_row_of(dataflow)
+    fast_len = torch.clamp_min(torch.stack(
+        [a if f else b for a, b, f in zip(rows_of, cols_of, frow)], -1), 1.0)
+    slow_len = torch.clamp_min(torch.stack(
+        [b if f else a for a, b, f in zip(rows_of, cols_of, frow)], -1), 1.0)
+    step = (safe_scale * gran / wbt)[..., None]       # elements/request
+    run = _const(_SAMPLE_RUN, dev)
+    fast_a1, fast_a64 = _modmul_factors(step * run, fast_len)
+    slow_a1, slow_a64 = _modmul_factors(step * run / fast_len, slow_len)
+
+    # ---- double-buffered prefetch schedule ------------------------------
+    Sr, Sc, T = dfm.map_gemm(dataflow, M, N, K)
+    fr, fc = dfm.fold_counts(Sr, Sc, R, C)
+    n_tiles = torch.clamp_min(1.0 * fr * fc, 1.0)
+    tile_cyc = torch.clamp_min(1.0 * comp / (n_tiles * safe_scale), 1.0)
+    n_tiles, tile_cyc = n_tiles[..., None], tile_cyc[..., None]
+    q = torch.clamp_min(r_model / n_tiles, 1e-9)
+    return StreamPrologue(
+        dataflow=dataflow, word_bytes=wb, spec=spec, n_model=n_model,
+        scale=scale, edges=edges, starts=starts, rows_r=rows_r, cols_r=cols_r,
+        fast_len=fast_len, slow_len=slow_len, step=step, n_tiles=n_tiles,
+        tile_cyc=tile_cyc, q=q, fast_a1=fast_a1, fast_a64=fast_a64,
+        slow_a1=slow_a1, slow_a64=slow_a64)
+
+
+def stream_slots(pro: StreamPrologue):
+    """Every slot of every stream in stream order (before the sort):
+    (t_issue float32, addr int64, is_write bool, valid bool, region int64),
+    each of the batch shape + (cap,)."""
+    f32 = torch.float32
+    spec, wb = pro.spec, pro.word_bytes
+    dev = pro.n_model.device
+    gran = _const(spec.gran_bytes, dev)
+    wbt = _const(wb, dev)
+
+    i = torch.arange(spec.cap, dtype=f32, device=dev)
+    valid = i < pro.n_model[..., None]
+    region = (i[:, None] >= pro.edges[..., None, :]).to(torch.int64).sum(-1)
     region = torch.clamp(region, 0, 3)                           # (..., cap)
-    j = torch.clamp_min(i - torch.gather(starts, -1, region), 0.0)
+
+    def by_region(x):
+        return torch.gather(x, -1, region)
+
+    j = torch.clamp_min(i - by_region(pro.starts), 0.0)
 
     # ---- operand walk -> coordinates -> layout -> address ---------------
-    rows_of = torch.stack([K, M, M, M], dim=-1)        # X:KxN W:MxK O:MxN
-    cols_of = torch.stack([N, K, N, N], dim=-1)
-    fast_is_row = torch.tensor(
-        [_FAST_IS_ROW[(dataflow, R_IFMAP)],
-         _FAST_IS_ROW[(dataflow, R_FILTER)],
-         _FAST_IS_ROW[(dataflow, R_OFMAP_WR)],        # spill reads walk like
-         _FAST_IS_ROW[(dataflow, R_OFMAP_WR)]],       # the write-back stream
-        device=dev)
-
-    rows_r = torch.gather(rows_of, -1, region)
-    cols_r = torch.gather(cols_of, -1, region)
-    fr_row = fast_is_row[region]
-    fast_len = torch.clamp_min(torch.where(fr_row, rows_r, cols_r), 1.0)
-    slow_len = torch.clamp_min(torch.where(fr_row, cols_r, rows_r), 1.0)
+    rows_r = by_region(pro.rows_r)
+    cols_r = by_region(pro.cols_r)
+    fr_row = torch.tensor(fast_is_row_of(pro.dataflow), device=dev)[region]
+    fast_len = by_region(pro.fast_len)
+    slow_len = by_region(pro.slow_len)
 
     # stream element position, sampled in contiguous runs of _SAMPLE_RUN
     # granules (the exact uncompressed walk at scale == 1)
-    step = (safe_scale * gran / wbt)[..., None]       # elements/request
-    run = torch.tensor(float(_SAMPLE_RUN), dtype=f32, device=dev)
+    run = _const(_SAMPLE_RUN, dev)
     j_b = torch.floor(j / run)                        # run id
     j_i = j - run * j_b                               # granule within run
     g_el = gran / wbt                                 # elements/granule
-    f = torch.remainder(_modmul(j_b, step * run, fast_len) + j_i * g_el,
-                        fast_len)
-    lines = (_modmul(j_b, step * run / fast_len, slow_len)
+    f = torch.remainder(
+        _modmul_apply(j_b, by_region(pro.fast_a1), by_region(pro.fast_a64),
+                      fast_len) + j_i * g_el, fast_len)
+    lines = (_modmul_apply(j_b, by_region(pro.slow_a1),
+                           by_region(pro.slow_a64), slow_len)
              + j_i * g_el / fast_len)
     s = torch.remainder(torch.floor(lines), slow_len)  # refetches wrap
     row = torch.where(fr_row, f, s)
     col = torch.where(fr_row, s, f)
 
-    span = torch.tensor(float(REGION_SPAN // wb), dtype=f32, device=dev)
+    span = _const(REGION_SPAN // wb, dev)
     if spec.layout == "strided":
-        idx = _modmul(j, step * spec.stride_elems, span)
+        idx = _modmul(j, pro.step * spec.stride_elems, span)
     else:
         idx = operand_linear_index(row, col, rows_r, cols_r,
                                    order=spec.layout,
@@ -227,21 +315,15 @@ def gemm_request_stream(dataflow: str, M, N, K, R, C, comp,
             + torch.floor(idx).to(torch.int64) * wb)
 
     # ---- double-buffered prefetch schedule ------------------------------
-    Sr, Sc, T = dfm.map_gemm(dataflow, M, N, K)
-    fr, fc = dfm.fold_counts(Sr, Sc, R, C)
-    n_tiles = torch.clamp_min(1.0 * fr * fc, 1.0)
-    tile_cyc = torch.clamp_min(1.0 * comp / (n_tiles * safe_scale), 1.0)
-    n_tiles, tile_cyc = n_tiles[..., None], tile_cyc[..., None]
-
-    q = torch.clamp_min(torch.gather(r_model, -1, region) / n_tiles, 1e-9)
-    pos = j / q
+    n_tiles, tile_cyc = pro.n_tiles, pro.tile_cyc
+    pos = j / by_region(pro.q)
     tau = torch.minimum(torch.clamp_min(torch.floor(pos), 0.0),
                         n_tiles - 1.0)
     frac = torch.clamp(pos - tau, 0.0, 1.0)
 
     is_write = region == R_OFMAP_WR
     t_read = torch.clamp_min(tau - 1.0, 0.0) * tile_cyc   # prefetch burst
-    if dataflow == "os":
+    if pro.dataflow == "os":
         # stationary outputs drain in a burst when the tile retires
         t_write = (tau + 1.0) * tile_cyc
     else:
@@ -250,6 +332,35 @@ def gemm_request_stream(dataflow: str, M, N, K, R, C, comp,
     t_spill = (tau + frac) * tile_cyc                 # psum read-backs
     t = torch.where(is_write, t_write,
                     torch.where(region == R_OFMAP_RD, t_spill, t_read))
+    return t, addr, is_write, valid, region
+
+
+def gemm_request_stream(dataflow: str, M, N, K, R, C, comp,
+                        ifmap_elems, filter_elems, ofmap_write_elems,
+                        ofmap_read_elems, word_bytes: int = 2,
+                        spec: TraceSpec = DEFAULT_SPEC, scale=None):
+    """Synthesize the demand-request streams of a batch of GEMMs.
+
+    Every numeric argument is a float32 tensor; they broadcast against
+    each other to the batch shape (e.g. designs x ops). Returns
+    (t_issue, addr, is_write, valid, scale): float32, int64, bool and bool
+    tensors of shape batch + (spec.cap,), sorted by issue time along the
+    last axis, and the float32 compression factor of shape batch.
+
+    `scale` overrides the compression factor (rounded to float32, as the
+    reference's traced scalar is): the multi-core contention path passes
+    one common scale so every core's stream is compressed coherently; by
+    default each GEMM picks its own.
+    """
+    return sorted_stream(stream_prologue(
+        dataflow, M, N, K, R, C, comp, ifmap_elems, filter_elems,
+        ofmap_write_elems, ofmap_read_elems, word_bytes, spec, scale))
+
+
+def sorted_stream(pro: StreamPrologue):
+    """`gemm_request_stream`'s result from its prologue: every slot of
+    `stream_slots(pro)` stably sorted by issue time (invalid slots last)."""
+    t, addr, is_write, valid, _ = stream_slots(pro)
 
     # ---- sort by issue time (invalid slots last) ------------------------
     order = _stable_order(torch.where(valid, t, _BIG_T))
@@ -257,7 +368,8 @@ def gemm_request_stream(dataflow: str, M, N, K, R, C, comp,
     def take(x):
         return torch.gather(x, -1, order)
 
-    return take(t), take(addr), take(is_write), take(valid), scale
+    # the valid slots, i < n_model, are a prefix before and after the sort
+    return take(t), take(addr), take(is_write), valid, pro.scale
 
 
 def gemm_trace_stats(dataflow: str, M, N, K, R, C, comp,

@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA card: the CUDA replay (single-
-and multi-core), bank-conflict, fold matmul, wavefront and ELLPACK kernels
-against their plain PyTorch versions (both ELLPACK paths), the fold plane,
+and multi-core), bank-conflict, fold matmul, wavefront, ELLPACK and
+streams kernels against their plain PyTorch versions (both ELLPACK paths;
+for the streams, the generator's sort + decode), the fold plane,
 the contention path and NoC pods against the CPU, studies on the
 default device, and the served and trained models against the CPU.
 Each skips (inside the test) on a machine without CUDA; run them on the
@@ -205,6 +206,171 @@ def test_study_runs_on_the_card_by_default(dev):
     from repro_torch.api.study import studies
     res = studies.dataflow_dram_flip().run()
     assert res.meta["engine"] == "cuda" and res.claims_ok()
+
+
+def _stream_args(cfgs, ops, df, dev):
+    """The generator's arguments for every design x gemm op, as the
+    sweep's `decoded_streams` builds them: (designs, ops) float32."""
+    from repro_torch.core.accelerator import MemoryConfig
+    from repro_torch.core.stages import traced_comp_traffic
+    gem = [o for o in ops if o.kind == "gemm"]
+    M, N, K = (torch.tensor([float(getattr(o, k)) for o in gem],
+                            device=dev) for k in "MNK")
+
+    def col(vals):
+        return torch.tensor(vals, dtype=torch.float32, device=dev)[:, None]
+
+    R = col([c.cores[0].rows for c in cfgs])
+    C = col([c.cores[0].cols for c in cfgs])
+    mem = MemoryConfig(col([c.memory.ifmap_sram_bytes for c in cfgs]),
+                       col([c.memory.filter_sram_bytes for c in cfgs]),
+                       col([c.memory.ofmap_sram_bytes for c in cfgs]),
+                       l2_sram_bytes=col([0.0] * len(cfgs)), word_bytes=2)
+    comp, _, dr, _ = traced_comp_traffic(df, M, N, K, R, C, mem)
+    return (M, N, K, R, C, comp, dr["dram_ifmap"], dr["dram_filter"],
+            dr["dram_ofmap_writes"], dr["dram_ofmap_reads"])
+
+
+def _streams_both_ways(df, args, spec, dram):
+    """(kernel, sort): the streams kernel and its plain version,
+    `gemm_request_stream` + `decode_requests`, on the card, each ((t, fb,
+    ch, row, is_write, valid), scale); and the unsorted slots."""
+    from repro_torch.kernels.streams import streams as sk
+    from repro_torch.trace.generator import (gemm_request_stream,
+                                             stream_prologue, stream_slots)
+    pro = stream_prologue(df, *args, 2, spec)
+    before = sk.LAUNCHES
+    kernel = sk.request_streams(pro, dram)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == before + 1
+    t, addr, w, v, scale = gemm_request_stream(df, *args, 2, spec)
+    fb, ch, row = decode_requests(addr, dram)
+    return kernel, ((t, fb, ch, row, w, v), scale), stream_slots(pro)
+
+
+def _assert_streams_equal(kernel, sort):
+    names = ("t", "flat_bank", "ch", "row", "is_write", "valid")
+    for name, k, s in zip(names, kernel[0], sort[0]):
+        assert k.dtype == s.dtype and k.shape == s.shape, name
+        assert torch.equal(k, s), f"{name}: kernel != sort"
+    assert torch.equal(kernel[1], sort[1])
+
+
+_STREAM_SPECS = {
+    "row": dict(layout="row"), "col": dict(layout="col"),
+    "tiled": dict(layout="tiled"), "strided": dict(layout="strided"),
+    # a tile that is no power of two: PyTorch's floor division by it
+    "tiled_24x48": dict(layout="tiled", tile_r=24, tile_c=48),
+    "strided_3": dict(layout="strided", stride_elems=3),
+}
+
+
+@pytest.mark.parametrize("cap", [1, 64, 4096, 65536])
+@pytest.mark.parametrize("layout", list(_STREAM_SPECS))
+@pytest.mark.parametrize("df", ["ws", "os", "is"])
+def test_streams_kernel_matches_plain_and_sort(dev, df, layout, cap):
+    """The streams kernel's six outputs and scale, bit for bit its plain
+    version's, the generator's sort + decode (the per-stream factors
+    evaluated on the card, and on the host), over vit_base's and
+    resnet18's gemm ops (and one tiny op) on tpu-like designs; the
+    batch holds streams with n_model == cap, with reads tied at time 0
+    across regions (cap > 1), and (at the larger caps) almost all
+    invalid tail."""
+    from repro_torch.core.accelerator import tpu_like_config
+    from repro_torch.core.workloads import Op, resnet18, vit_base
+    from repro_torch.trace.generator import TraceSpec
+    cfgs = [tpu_like_config(32, dataflow=df, sram_mb=0.5),
+            tpu_like_config(128, dataflow=df, sram_mb=4.0)]
+    ops = vit_base() + resnet18() + [Op("tiny", 2, 3, 4)]
+    spec = TraceSpec(cap=cap, **_STREAM_SPECS[layout])
+    args = _stream_args(cfgs, ops, df, dev)
+    kernel, sort, slots = _streams_both_ways(df, args, spec, DramConfig())
+    _assert_streams_equal(kernel, sort)
+    # the factors evaluated on the host, as the sweep does, then copied
+    from repro_torch.kernels.streams import streams as sk
+    from repro_torch.trace.generator import stream_prologue
+    host = stream_prologue(df, *(a.cpu() for a in args), 2, spec)
+    _assert_streams_equal(sk.request_streams(host, DramConfig(), dev), sort)
+    valid = kernel[0][5]
+    n_valid = valid.sum(-1)
+    assert bool((n_valid == cap).any())                  # n_model == cap
+    t, _, _, v, region = slots
+    tie = (v & (t == 0))
+    if cap > 1:                              # ifmap and filter reads at 0
+        assert bool(((tie & (region == 0)).any(-1)
+                     & (tie & (region == 1)).any(-1)).any())
+    if cap >= 4096:
+        assert bool((n_valid * 100 < cap).any())         # mostly tail
+
+
+def test_streams_kernel_on_other_dram_shapes(dev):
+    """Another DRAM decode (8 channels, 4 banks, 1 KiB rows, 32-byte
+    bursts) and word size 4: the kernel equals the generator's sort +
+    decode."""
+    from repro_torch.core.accelerator import tpu_like_config
+    from repro_torch.core.workloads import resnet18
+    from repro_torch.kernels.streams import streams as sk
+    from repro_torch.trace.generator import (TraceSpec, gemm_request_stream,
+                                             stream_prologue)
+    dram = DramConfig(channels=8, banks_per_channel=4, row_bytes=1024,
+                      burst_bytes=32)
+    cfgs = [tpu_like_config(64, dataflow="ws", sram_mb=1.0)]
+    args = _stream_args(cfgs, resnet18(), "ws", dev)
+    spec = TraceSpec(cap=8192, gran_bytes=32)
+    pro = stream_prologue("ws", *args, 4, spec)
+    kernel = sk.request_streams(pro, dram)
+    t, addr, w, v, scale = gemm_request_stream("ws", *args, 4, spec)
+    sort = ((t,) + decode_requests(addr, dram) + (w, v), scale)
+    _assert_streams_equal(kernel, sort)
+
+
+def test_streams_kernel_refuses_what_it_does_not_take(dev):
+    from repro_torch.core.accelerator import tpu_like_config
+    from repro_torch.core.workloads import resnet18
+    from repro_torch.kernels.streams import streams as sk
+    from repro_torch.trace.generator import TraceSpec, stream_prologue
+    args = _stream_args([tpu_like_config(32)], resnet18()[:2], "ws", "cpu")
+    with pytest.raises(ValueError, match="CUDA device"):
+        sk.request_streams(stream_prologue("ws", *args, 2, TraceSpec()),
+                           DramConfig())
+    args = [a.to(dev) for a in args]
+    with pytest.raises(ValueError, match="exceeds"):
+        sk.request_streams(stream_prologue("ws", *args, 2,
+                                           TraceSpec(cap=(1 << 24) + 1)),
+                           DramConfig())
+
+
+def test_trace_study_launches_the_streams_kernel_once_a_group(dev,
+                                                              monkeypatch):
+    """A trace Study on the card: one streams-kernel launch for each
+    `decoded_streams` call, and every cell done."""
+    from repro_torch.api import simulator as sim
+    from repro_torch.api.study import Study
+    from repro_torch.core.accelerator import tpu_like_config
+    from repro_torch.core.workloads import resnet18
+    from repro_torch.kernels.streams import streams as sk
+    from repro_torch.trace.generator import TraceSpec
+    calls = []
+    orig = sim.decoded_streams
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(sim, "decoded_streams", counted)
+    designs = [tpu_like_config(a, dataflow=df, sram_mb=m)
+               for a in (32, 128) for df in ("ws", "os", "is")
+               for m in (0.5, 4.0)]
+    study = (Study("streams").designs(designs)
+             .workloads({"resnet18": resnet18()}).fidelity("trace")
+             .options(trace_spec=TraceSpec(cap=16384)))
+    before = sk.LAUNCHES
+    res = study.run(device="cuda")
+    assert len(res) == len(designs)
+    assert res.meta["engine"] == "cuda"
+    assert not np.any(res.columns["cell_status"])
+    assert len(calls) >= 3
+    assert sk.LAUNCHES - before == len(calls)
 
 
 @pytest.mark.parametrize("k", [1, 31, 32, 33, 64, 65, 127, 128, 129, 256,
@@ -1021,7 +1187,7 @@ def cards():
 
 
 @pytest.mark.parametrize("kernel", ["replay", "conflict", "matmul",
-                                    "wavefront", "ellpack"])
+                                    "wavefront", "ellpack", "streams"])
 def test_kernel_on_the_last_card_matches_plain_version(cards, kernel):
     """Each kernel launched on the last card while card 0 is the current
     device: the wrapper makes the tensors' card current for the launch
@@ -1076,6 +1242,21 @@ def test_kernel_on_the_last_card_matches_plain_version(cards, kernel):
         got = (sk.wavefront_activity_batched(ts, R=128, C=128,
                                              n_cycles=700),)
         want = (wavefront_activity_plain(ts, R=128, C=128, n_cycles=700),)
+    elif kernel == "streams":
+        from repro_torch.core.accelerator import tpu_like_config
+        from repro_torch.core.workloads import resnet18
+        from repro_torch.kernels.streams import streams as stk
+        from repro_torch.trace.generator import (TraceSpec,
+                                                 gemm_request_stream,
+                                                 stream_prologue)
+        args = _stream_args([tpu_like_config(64)], resnet18(), "ws", last)
+        spec = TraceSpec(cap=4096)
+        pro = stream_prologue("ws", *args, 2, spec)
+        before = stk.LAUNCHES_BY_CARD[last.index]
+        got, _ = stk.request_streams(pro, DramConfig())
+        assert stk.LAUNCHES_BY_CARD[last.index] == before + 1
+        t, addr, w, v, _ = gemm_request_stream("ws", *args, 2, spec)
+        want = (t,) + decode_requests(addr, DramConfig()) + (w, v)
     else:
         w = torch.randn((768, 3072), generator=g, device=last)
         got = ek.ellpack_pack(w, m=4, keep=2)
@@ -1090,13 +1271,15 @@ def test_kernel_on_the_last_card_matches_plain_version(cards, kernel):
 def test_mesh_sweep_over_all_cards_equals_one_card(cards):
     """The study over a mesh of every card: one block of each group's
     designs a card (padded with copies of the last design), every card
-    launching the replay and the conflict kernel, the frame one card's
-    bit for bit."""
+    launching the replay, conflict and streams kernels, the frame one
+    card's bit for bit."""
     from repro_torch.kernels.conflict import conflict as ck
+    from repro_torch.kernels.streams import streams as stk
     from repro_torch.launch.mesh import make_device_mesh
     one = _farm_kernel_study().run(device=cards[0])
     mk.LAUNCHES_BY_CARD.clear()
     ck.LAUNCHES_BY_CARD.clear()
+    stk.LAUNCHES_BY_CARD.clear()
     mesh = make_device_mesh()
     assert mesh.devices == tuple(cards)
     res = _farm_kernel_study().run(mesh=mesh)
@@ -1105,6 +1288,8 @@ def test_mesh_sweep_over_all_cards_equals_one_card(cards):
     for c in cards:
         assert mk.LAUNCHES_BY_CARD[c.index] >= 1, dict(mk.LAUNCHES_BY_CARD)
         assert ck.LAUNCHES_BY_CARD[c.index] >= 1, dict(ck.LAUNCHES_BY_CARD)
+        assert stk.LAUNCHES_BY_CARD[c.index] >= 1, dict(
+            stk.LAUNCHES_BY_CARD)
     with pytest.raises(ValueError, match="not one of the mesh's"):
         _farm_kernel_study().run(mesh=make_device_mesh([str(cards[-1])]),
                                  device=cards[0])

@@ -1,8 +1,12 @@
 """The PyTorch port's trace generator and address decode against the JAX
 reference: the demand streams and their (bank, channel, row) decode must
 come out bit-identical for every op of the paper workloads, on each
-dataflow and layout, with the same float32 inputs; and the port's streams
-conserve bytes against the capacity model."""
+dataflow and layout, with the same float32 inputs, both from
+`gemm_request_stream`'s sort + `decode_requests` ("sort") and from the
+streams layer's dispatch on the CPU, `kernels.streams.
+decoded_request_streams` ("decoded"); the issue times rise within each
+region, the premise of the streams kernel's merge; and the port's
+streams conserve bytes against the capacity model."""
 import dataclasses
 
 import jax
@@ -19,6 +23,8 @@ import repro.trace.generator as rgen
 import repro_torch.core.accelerator as tacc
 import repro_torch.core.dram as tdram
 import repro_torch.core.stages as tst
+import repro_torch.core.workloads as twl
+import repro_torch.kernels.streams as tks
 import repro_torch.trace.generator as tgen
 
 F32 = np.float32
@@ -63,51 +69,98 @@ def _reference(df, a, spec):
     return [np.asarray(x) for x in out]
 
 
-def _port(df, a, spec):
+def _port_args(df, a):
     t = {k: torch.from_numpy(np.asarray(a[k])) for k in
          ("M", "N", "K", "R", "C")}
     mem = tacc.MemoryConfig(*(torch.tensor(x) for x in a["mem"]),
                             l2_sram_bytes=torch.tensor(F32(0)), word_bytes=2)
     comp, _, dr, _ = tst.traced_comp_traffic(df, t["M"], t["N"], t["K"],
                                              t["R"], t["C"], mem)
-    out = tgen.gemm_request_stream(
-        df, t["M"], t["N"], t["K"], t["R"], t["C"], comp, dr["dram_ifmap"],
-        dr["dram_filter"], dr["dram_ofmap_writes"], dr["dram_ofmap_reads"],
-        2, spec)
+    return (t["M"], t["N"], t["K"], t["R"], t["C"], comp, dr["dram_ifmap"],
+            dr["dram_filter"], dr["dram_ofmap_writes"],
+            dr["dram_ofmap_reads"]), dr
+
+
+def _port(df, a, spec):
+    args, dr = _port_args(df, a)
+    out = tgen.gemm_request_stream(df, *args, 2, spec)
     return [x.numpy() for x in out], dr
 
 
-def _assert_streams_identical(df, cfg, ops, layout="row"):
+def _assert_streams_identical(df, cfg, ops, layout="row", path="sort"):
     a = _inputs(cfg, ops)
     rspec = rgen.TraceSpec(layout=layout)
     tspec = tgen.TraceSpec(**dataclasses.asdict(rspec))
     ref = _reference(df, a, rspec)
-    port, _ = _port(df, a, tspec)
+    dcfg = cfg.dram
+    tcfg = tacc.DramConfig(**dataclasses.asdict(dcfg))
+    rdec = rdram.decode_requests(jnp.asarray(ref[1]), dcfg)
+    if path == "sort":
+        port, _ = _port(df, a, tspec)
+        tdec = tdram.decode_requests(torch.from_numpy(port[1]), tcfg)
+    else:
+        # what the sweep's `decoded_streams` calls: generated, sorted and
+        # decoded from one prologue
+        args, _ = _port_args(df, a)
+        (t, fb, ch, row, w, v), scale = tks.decoded_request_streams(
+            df, *args, 2, tspec, tcfg)
+        port = [t.numpy(), ref[1], w.numpy(), v.numpy(), scale.numpy()]
+        tdec = (fb, ch, row)
     for name, r, p in zip(("t_issue", "addr", "is_write", "valid", "scale"),
                           ref, port):
         assert r.shape == p.shape, name
         np.testing.assert_array_equal(p, r.astype(p.dtype), err_msg=name)
-    dcfg = cfg.dram
-    rdec = rdram.decode_requests(jnp.asarray(ref[1]), dcfg)
-    tdec = tdram.decode_requests(torch.from_numpy(port[1]),
-                                 tacc.DramConfig(**dataclasses.asdict(dcfg)))
     for name, r, p in zip(("flat_bank", "ch", "row"), rdec, tdec):
         assert p.dtype == torch.int32
         np.testing.assert_array_equal(p.numpy(), np.asarray(r), err_msg=name)
 
 
+@pytest.mark.parametrize("path", ["sort", "decoded"])
 @pytest.mark.parametrize("df", ["ws", "os", "is"])
 @pytest.mark.parametrize("design", list(DESIGNS))
 @pytest.mark.parametrize("workload", list(WORKLOADS))
-def test_streams_and_decode_bit_identical(workload, design, df):
+def test_streams_and_decode_bit_identical(workload, design, df, path):
     cfg = DESIGNS[design].with_(dataflow=df)
-    _assert_streams_identical(df, cfg, WORKLOADS[workload])
+    _assert_streams_identical(df, cfg, WORKLOADS[workload], path=path)
 
 
+@pytest.mark.parametrize("path", ["sort", "decoded"])
 @pytest.mark.parametrize("layout", ["col", "tiled", "strided"])
-def test_layouts_bit_identical(layout):
+def test_layouts_bit_identical(layout, path):
     op = [rwl.resnet18()[2]]
-    _assert_streams_identical("ws", DESIGNS["paper-32"], op, layout=layout)
+    _assert_streams_identical("ws", DESIGNS["paper-32"], op, layout=layout,
+                              path=path)
+
+
+@pytest.mark.parametrize("df,array,sram_mb", [("ws", 32, 0.5), ("os", 64, 2.0),
+                                              ("is", 128, 8.0)])
+def test_merge_equals_sort_at_the_benchmark_cap(df, array, sram_mb):
+    """At cap 65,536 over resnet18's 21 gemm ops on tpu-like designs, the
+    premise under which the streams kernel's rank by the reference's
+    4-way merge is the stable sort: the valid slots are a prefix, the
+    regions run in order, and the issue time is non-decreasing within
+    each region. The CPU dispatch equals `gemm_request_stream`'s sort +
+    `decode_requests` bit for bit."""
+    cfg = tacc.tpu_like_config(array, dataflow=df, sram_mb=sram_mb)
+    ops = [o for o in twl.resnet18() if o.kind == "gemm"]
+    a = _inputs(cfg, ops)
+    args, _ = _port_args(df, a)
+    spec = tgen.TraceSpec(cap=65536)
+    t, _, _, valid, region = tgen.stream_slots(
+        tgen.stream_prologue(df, *args, 2, spec))
+    assert int(valid.sum()) > 0 and not bool(valid.all())
+    assert not bool((valid[..., 1:] & ~valid[..., :-1]).any())
+    assert bool((region[..., 1:] >= region[..., :-1]).all())
+    same = valid[..., 1:] & (region[..., 1:] == region[..., :-1])
+    assert not bool((same & (t[..., 1:] < t[..., :-1])).any())
+    st, addr, w, v, scale = tgen.gemm_request_stream(df, *args, 2, spec)
+    want = (st,) + tdram.decode_requests(addr, cfg.dram) + (w, v, scale)
+    (mt, fb, ch, row, mw, mv), mscale = tks.decoded_request_streams(
+        df, *args, 2, spec, cfg.dram)
+    for name, p, r in zip(("t", "flat_bank", "ch", "row", "is_write",
+                           "valid", "scale"),
+                          (mt, fb, ch, row, mw, mv, mscale), want):
+        assert p.dtype == r.dtype and torch.equal(p, r), name
 
 
 @pytest.mark.parametrize("df", ["ws", "os", "is"])
