@@ -3,7 +3,10 @@
 Everything is data: `BENCHMARK.json` names the cells, configurations and
 metrics; a configuration is the JSON file its entry names, a traffic mix
 is `simbench/mixes/<traffic>.json`, and a per-layer metric is the reader
-`simbench/metrics/<name>.py`. Adding any of them is adding files and
+`simbench/metrics/<name>.py`. A metric named `<reader>.<suffix>` with no
+file of its own is read by `simbench/metrics/<reader>.py`: a new cell
+takes an existing reader through a new entry that lists it, and the
+entries there stay as they are. Adding any of them is adding files and
 entries; nothing here changes.
 """
 from __future__ import annotations
@@ -37,10 +40,20 @@ def load_mix(traffic: str, bench_dir: pathlib.Path = BENCH_DIR) -> dict:
     return mix
 
 
+def metric_file(name: str, bench_dir: pathlib.Path = BENCH_DIR
+                ) -> pathlib.Path:
+    """`metrics/<name>.py`, or for `<reader>.<suffix>` with no file of its
+    own, `metrics/<reader>.py`."""
+    path = bench_dir / "metrics" / f"{name}.py"
+    if not path.exists() and "." in name:
+        path = bench_dir / "metrics" / f"{name.split('.', 1)[0]}.py"
+    return path
+
+
 def load_metric(name: str, bench_dir: pathlib.Path = BENCH_DIR
                 ) -> ModuleType:
     """The reader module of one per-layer metric, loaded from its file."""
-    path = bench_dir / "metrics" / f"{name}.py"
+    path = metric_file(name, bench_dir)
     spec = importlib.util.spec_from_file_location(
         f"simbench_metric_{name.replace('.', '_').replace('-', '_')}", path)
     if spec is None or spec.loader is None:
@@ -50,6 +63,20 @@ def load_metric(name: str, bench_dir: pathlib.Path = BENCH_DIR
     missing = [k for k in METRIC_FIELDS + ("read",) if not hasattr(mod, k)]
     if missing:
         raise ValueError(f"metric {name} lacks {missing}")
+    return mod
+
+
+def load_reader(entry: dict, bench_dir: pathlib.Path = BENCH_DIR
+                ) -> ModuleType:
+    """The reader of the per-layer metric `entry` (its `per_layer` entry),
+    its `LAYER`, `UNIT` and `MOVES` held to the entry's."""
+    mod = load_metric(entry["name"], bench_dir)
+    for field, key in (("LAYER", "layer"), ("UNIT", "unit"),
+                       ("MOVES", "moves")):
+        if getattr(mod, field) != entry[key]:
+            raise ValueError(f"metric {entry['name']}: its file's {field} "
+                             f"{getattr(mod, field)!r} is not "
+                             f"BENCHMARK.json's {entry[key]!r}")
     return mod
 
 
@@ -73,16 +100,9 @@ class Cell:
         self.mix = load_mix(self.entry["traffic"], root / "simbench")
         self.end_to_end = [m for m in bench["end_to_end"] if self._in(m)]
         self.per_layer = [m for m in bench["per_layer"] if self._in(m)]
-        self.readers: Dict[str, ModuleType] = {}
-        for m in self.per_layer:
-            mod = load_metric(m["name"], root / "simbench")
-            for field, key in (("LAYER", "layer"), ("UNIT", "unit"),
-                               ("MOVES", "moves")):
-                if getattr(mod, field) != m[key]:
-                    raise ValueError(f"metric {m['name']}: its file's "
-                                     f"{field} {getattr(mod, field)!r} is "
-                                     f"not BENCHMARK.json's {m[key]!r}")
-            self.readers[m["name"]] = mod
+        self.readers: Dict[str, ModuleType] = {
+            m["name"]: load_reader(m, root / "simbench")
+            for m in self.per_layer}
 
     def _in(self, metric: dict) -> bool:
         return "workloads" not in metric or self.name in metric["workloads"]
@@ -100,6 +120,8 @@ class Cell:
 
     def counters(self) -> List:
         """The counter hooks of the cell's readers: (span, fn) pairs;
-        fn(args, kwargs, out) returns a dict of numbers to add up."""
-        return [hook for mod in self.readers.values()
+        fn(args, kwargs, out) returns a dict of numbers to add up. A
+        reader file that two of the cell's metrics share counts once."""
+        files = {mod.__file__: mod for mod in self.readers.values()}
+        return [hook for mod in files.values()
                 for hook in getattr(mod, "COUNTERS", ())]

@@ -8,7 +8,7 @@ import torch
 
 import repro_torch.api.simulator as simulator
 import repro_torch.core.dram as dram
-from simbench.harness import cell as cm
+from simbench.harness import cell as cm, registry
 
 from ._small import small_cell
 
@@ -62,7 +62,8 @@ FAULTS = [(dram, "replay_requests", _replay_unchanged),
           (dram, "replay_requests", _replay_raises)]
 
 
-@pytest.mark.parametrize("name", ["vit_base.trace64k", "resnet18.trace64k"])
+@pytest.mark.parametrize(
+    "name", [w["name"] for w in registry.load_benchmark()["workloads"]])
 def test_a_sound_run_is_correct(name):
     res = _run(name)
     assert res["correct"] and res["failed"] == 0 and res["attempted"] == 6

@@ -4,12 +4,15 @@ import pytest
 import torch
 
 from simbench.harness import cell as cm
-from simbench.harness import check, designs as dz
+from simbench.harness import check, designs as dz, registry
 from simbench.reference import sim
 
 from ._small import small_cell
 
-CELLS = ["vit_base.trace64k", "resnet18.trace64k"]
+CELLS = [w["name"] for w in registry.load_benchmark()["workloads"]]
+# The published networks' stall under the control is off by far more
+# than its limit; a cell added later is held to the general checks.
+PUBLISHED = ("vit_base.trace64k", "resnet18.trace64k")
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -40,4 +43,5 @@ def test_the_bfloat16_control_is_not_correct(name):
     # every column reads over its limit, the stall by a wide margin
     for c in sim.METRIC_COLUMNS:
         assert checks[c]["gap"] > checks[c]["limit"], c
-    assert checks["stall_cycles"]["gap"] > 0.1
+    if name in PUBLISHED:
+        assert checks["stall_cycles"]["gap"] > 0.1
